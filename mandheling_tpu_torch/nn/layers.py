@@ -1,0 +1,157 @@
+"""NITI int8 layers: conv (and FC as a 1x1 conv), relu, relu6, maxpool,
+flatten (port of ``mandheling_tpu/nn/layers.py``).
+
+The weight exponent is drawn once by the NITI Xavier scheme and stays
+constant during training: NITI-SGD updates only the int8 data.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..ops import conv as conv_ops
+from ..ops import pool as pool_ops
+from ..ops import relu as relu_ops
+from ..ops.qtensor import QTensor
+from .init import niti_xavier_int8
+from .module import NITILayer
+
+
+class NITIConv2D(NITILayer):
+    """int8 conv with NITI power-of-two requantization; FC layers are 1x1
+    convs over 1x1 spatial. Holds the HWIO int8 weight `w` and its 0-d int32
+    exponent `w_exp` as buffers. `act="relu6"` fuses the exponent-aware
+    ReLU6 onto the requant and masks its backward by the output."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        out_channels: int,
+        kernel: Tuple[int, int] = (1, 1),
+        stride: Tuple[int, int] = (1, 1),
+        padding="VALID",
+        act: Optional[str] = None,
+        out_bits: int = 7,
+    ):
+        super().__init__()
+        self.in_channels = in_channels
+        self.out_channels = out_channels
+        self.kernel = tuple(kernel)
+        self.stride = tuple(stride)
+        self.padding = padding
+        self.act = act
+        self.out_bits = int(out_bits)
+        kh, kw = self.kernel
+        self.register_buffer(
+            "w", torch.zeros((kh, kw, in_channels, out_channels), dtype=torch.int8))
+        self.register_buffer("w_exp", torch.zeros((), dtype=torch.int32))
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        q = niti_xavier_int8(tuple(self.w.shape), generator)
+        self.w.copy_(q.data)
+        self.w_exp.copy_(q.exp)
+
+    def load_weight(self, data: np.ndarray, exp: np.ndarray) -> None:
+        """Set the weight from host arrays (HWIO int8 data, int32 exponent)."""
+        data = torch.from_numpy(np.array(data, dtype=np.int8))
+        if tuple(data.shape) != tuple(self.w.shape):
+            raise ValueError(f"weight shape {tuple(data.shape)} != {tuple(self.w.shape)}")
+        self.w.copy_(data)
+        self.w_exp.copy_(torch.from_numpy(np.array(exp, dtype=np.int32)))
+
+    def weight_numpy(self) -> Tuple[np.ndarray, np.ndarray]:
+        return self.w.cpu().numpy(), self.w_exp.cpu().numpy()
+
+    def fwd(self, q: QTensor):
+        y, y_exp = conv_ops.conv2d_forward(
+            q.data, q.exp, self.w, self.w_exp, self.stride, self.padding,
+            act=self.act, out_bits=self.out_bits,
+        )
+        # residual: the forward input (for the filter grad); with a fused
+        # act, also the output and its exponent (for the output mask)
+        res = q.data if self.act is None else (q.data, y, y_exp)
+        return QTensor(y, y_exp), res
+
+    def _unpack(self, res, gy):
+        """(x, act-masked gy)."""
+        if self.act is None:
+            return res, gy
+        x, y, y_exp = res
+        if self.act == "relu6":
+            return x, relu_ops.relu6_grad_from_output(y, y_exp, gy)
+        raise ValueError(f"unknown act {self.act!r}")
+
+    def _filter_grad(self, x, gy):
+        gw = conv_ops.conv2d_filter_grad(x, gy, self.kernel, self.stride, self.padding)
+        return {"w": QTensor(gw, torch.zeros((), dtype=torch.int32, device=gw.device))}
+
+    def bwd(self, res, gy):
+        x, gy = self._unpack(res, gy)
+        gx = conv_ops.conv2d_input_grad(
+            gy, self.w, (x.shape[1], x.shape[2]), self.stride, self.padding)
+        return gx, self._filter_grad(x, gy)
+
+    def bwd_params_only(self, res, gy):
+        x, gy = self._unpack(res, gy)
+        return self._filter_grad(x, gy)
+
+
+class NITIRelu(NITILayer):
+    def fwd(self, q: QTensor):
+        return QTensor(relu_ops.relu(q.data), q.exp), q.data
+
+    def bwd(self, res, gy):
+        return relu_ops.relu_grad(res, gy), ()
+
+
+class NITIRelu6(NITILayer):
+    """Exponent-aware int8 ReLU6; its residual is the output."""
+
+    def fwd(self, q: QTensor):
+        y = relu_ops.relu6(q.data, q.exp)
+        return QTensor(y, q.exp), (y, q.exp)
+
+    def bwd(self, res, gy):
+        y, exp = res
+        return relu_ops.relu6_grad_from_output(y, exp, gy), ()
+
+
+class NITIMaxPool(NITILayer):
+    def __init__(self, window=(2, 2), stride=(2, 2)):
+        super().__init__()
+        self.window = tuple(window)
+        self.stride = tuple(stride)
+
+    def fwd(self, q: QTensor):
+        y, e = pool_ops.maxpool2d(q.data, q.exp, self.window, self.stride)
+        return QTensor(y, e), (q.data, y)
+
+    def bwd(self, res, gy):
+        x, y = res
+        return pool_ops.maxpool2d_grad(x, y, gy, self.window, self.stride), ()
+
+
+class Flatten(NITILayer):
+    """(B, H, W, C) -> (B, 1, 1, H*W*C), NHWC feature order (the JAX
+    package's; an NCHW flatten would permute the fc1 inputs)."""
+
+    def fwd(self, q: QTensor):
+        b = q.data.shape[0]
+        return QTensor(q.data.reshape(b, 1, 1, -1), q.exp), q.data.shape
+
+    def bwd(self, res, gy):
+        return gy.reshape(res), ()
+
+
+class SqueezeLogits(NITILayer):
+    """(B, 1, 1, C) -> (B, C) for the loss; the grad restores the shape."""
+
+    def fwd(self, q: QTensor):
+        b = q.data.shape[0]
+        return QTensor(q.data.reshape(b, -1), q.exp), q.data.shape
+
+    def bwd(self, res, gy):
+        return gy.reshape(res), ()

@@ -1,0 +1,62 @@
+"""NITI integer-only softmax cross-entropy: float loss value + int8 gradient
+(port of ``mandheling_tpu/ops/loss.py``; reference
+`NITI_CPULoss_Int8.cpp:69-131`, `NITI_CPULossGrad_Int8.cpp:84-200`).
+
+The gradient's linear branch (ascale > -7) is exact in int32; the quadratic
+fallback (ascale <= -7) runs in int64 with ascale clamped to [-25, -7],
+beyond which the reference's own int64 arithmetic overflows. Divisions
+truncate toward zero (`rounding_mode="trunc"`, never `//`, which floors).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import numerics
+
+
+def loss_cross_entropy_float(logits: torch.Tensor, ascale: torch.Tensor,
+                             target_onehot: torch.Tensor) -> torch.Tensor:
+    """Float CE value for logging: mean NLL of softmax(logits * 2^ascale)."""
+    x = logits.to(torch.float32) * torch.exp2(ascale.to(torch.float32))
+    logp = torch.log_softmax(x, dim=-1)
+    per_sample = torch.sum(logp * target_onehot.to(torch.float32), dim=-1)
+    return -torch.mean(per_sample)
+
+
+def _p_linear(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    a = torch.clamp_min(a, -6)  # branch valid for a > -7 only
+    t = torch.div(x * 47274, 1 << 15, rounding_mode="trunc")
+    pos = t * torch.bitwise_left_shift(torch.ones_like(a), torch.clamp_min(a, 0))
+    neg = numerics.trunc_shift_div(t, torch.clamp_min(-a, 0))
+    s = torch.where(a >= 0, pos, neg)
+    m = s.amax(dim=-1, keepdim=True) - 10
+    e = torch.clamp_min(s - m, 0)
+    soft = torch.bitwise_left_shift(torch.ones_like(e), e) - 1
+    ssum = soft.sum(dim=-1, keepdim=True, dtype=torch.int32)
+    return torch.div(soft * (1 << 11), ssum, rounding_mode="trunc")
+
+
+def _p_quadratic(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    x64 = x.to(torch.int64)
+    a64 = torch.clamp(a, -25, -7).to(torch.int64)
+    one = torch.ones_like(a64)
+    base = torch.bitwise_left_shift(one, 1 - 2 * a64)
+    shiftbase = torch.bitwise_left_shift(one, 1 - a64)
+    soft = base + x64 * shiftbase + x64 * x64
+    ssum = soft.sum(dim=-1, keepdim=True)
+    return torch.div(soft * (1 << 11), ssum, rounding_mode="trunc").to(torch.int32)
+
+
+def loss_grad_int8(logits: torch.Tensor, ascale: torch.Tensor,
+                   target_onehot: torch.Tensor) -> torch.Tensor:
+    """Integer-only softmax-CE gradient -> int8 (B, C). Both branches are
+    computed and one is selected on the device, so the host never reads
+    ascale."""
+    x = logits.to(torch.int32)
+    a = torch.clamp(ascale.to(torch.int32), -25, 15)
+    p = torch.where(a > -7, _p_linear(x, a), _p_quadratic(x, a))
+    psum = p.sum(dim=-1, keepdim=True, dtype=torch.int32)
+    g = p - psum * target_onehot.to(torch.int32)
+    return numerics.psto_shift_int8(g, 4)
+

@@ -1,0 +1,27 @@
+"""NITI-SGD and the reference's inv learning-rate schedule (port of the
+NITI parts of ``mandheling_tpu/train/optim.py``)."""
+
+from __future__ import annotations
+
+from typing import List
+
+import torch
+
+from ..nn.module import Sequential
+from ..ops.numerics import int8_clip
+
+
+def niti_sgd_update(model: Sequential, grads: List) -> None:
+    """w <- clip_int8(w - g) for every layer with a weight grad; exponents
+    unchanged (`NITI_SGD.hpp:20-57`). Updates the weight buffers in place,
+    where the JAX package returns new params: no second copy of the model."""
+    for layer, g in zip(model.layers, grads):
+        if g:
+            new = int8_clip(layer.w.to(torch.int32) - g["w"].data.to(torch.int32))
+            layer.w.copy_(new)
+
+
+def lr_inv(base_lr: float, step, gamma: float = 1e-4, power: float = 0.75) -> float:
+    """inv: lr = base * (1 + gamma*step)^(-power) (MnistUtils.cpp:124).
+    NITI-SGD ignores it; logged for parity."""
+    return base_lr * (1.0 + gamma * float(step)) ** (-power)

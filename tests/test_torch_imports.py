@@ -1,0 +1,37 @@
+"""The port stands alone: no module of mandheling_tpu_torch, and neither
+chip_smoke.py nor tools/profile_torch_step.py, imports jax or anything of
+the JAX package (not even a module there that uses no jax)."""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+FILES = sorted((ROOT / "mandheling_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_step.py"]
+FORBIDDEN = ("jax", "jaxlib", "mandheling_tpu")
+
+
+def imported_roots(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+        elif (isinstance(node, ast.Call) and getattr(node.func, "attr", getattr(node.func, "id", None))
+              in ("import_module", "__import__") and node.args
+              and isinstance(node.args[0], ast.Constant) and isinstance(node.args[0].value, str)):
+            yield node.args[0].value.split(".")[0]
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_imports(path):
+    bad = sorted({m for m in imported_roots(path) if m in FORBIDDEN})
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_guard_sees_the_package():
+    assert len(FILES) > 20
+    assert (ROOT / "chip_smoke.py").exists()

@@ -1,0 +1,161 @@
+#!/usr/bin/env python3
+"""Where the time of one training step of the PyTorch/CUDA port goes, on the GPU.
+
+    python3 tools/profile_torch_step.py [--batch 64 2048] [--steps 20] [--out PATH]
+
+For each batch size: the NITI LeNet train step of mandheling_tpu_torch with the
+hand-written kernels (the step `train_niti` runs, host-to-device copies
+included), timed without tracing, then traced with torch.profiler. Prints
+wall ms/step (back to back, and synchronised after each step as the
+trainer's StepTimer does), device busy ms/step (the union of the CUDA activity
+intervals), the device's idle share, CUDA activities and top-level host ops
+per step, and the device and host time by name. The idle share sets the
+traced device busy time against the untraced wall time, since tracing
+slows the host but not the kernels. With --out, the full table is also
+written there as JSON. Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from mandheling_tpu_torch.data import onehot_padded, synthetic_mnist  # noqa: E402
+from mandheling_tpu_torch.models import NITI_LOGIT_CHANNELS, NUM_CLASSES, lenet_niti  # noqa: E402
+from mandheling_tpu_torch.ops.kernels import build  # noqa: E402
+from mandheling_tpu_torch.train import make_train_step  # noqa: E402
+
+def union_us(intervals):
+    total, end = 0.0, -1.0
+    for s, e in sorted(intervals):
+        if s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
+
+
+def profile_batch(batch: int, steps: int):
+    model = lenet_niti().reset_parameters(torch.Generator().manual_seed(0)).to("cuda")
+    step = make_train_step(model)
+    x, y = synthetic_mnist(batch * steps, seed=5)
+    xs = [x[i * batch:(i + 1) * batch].astype(np.float32) for i in range(steps)]
+    ohs = [onehot_padded(y[i * batch:(i + 1) * batch], NUM_CLASSES, NITI_LOGIT_CHANNELS)
+           for i in range(steps)]
+
+    def run(step_times=None):
+        for xb, oh in zip(xs, ohs):
+            t0 = time.perf_counter()
+            step(torch.from_numpy(xb).to("cuda"), torch.from_numpy(oh).to("cuda"))
+            if step_times is not None:  # as train_niti's StepTimer times a step
+                torch.cuda.synchronize()
+                step_times.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+
+    first = []
+    run(first)  # warm-up: kernel libraries loaded, allocator filled
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        run()
+        walls.append((time.perf_counter() - t0) * 1e3 / steps)
+    synced = []
+    run(synced)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        run()  # the first trace of a process also pays the tracer's start-up
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+    traced_ms = (time.perf_counter() - t0) * 1e3 / steps
+
+    events = prof.events()
+    dev = [e for e in events if e.device_type == DeviceType.CUDA]
+    by_kernel = collections.defaultdict(lambda: [0, 0.0])
+    for e in dev:
+        by_kernel[e.name][0] += 1
+        by_kernel[e.name][1] += e.time_range.elapsed_us()
+    top_host = [e for e in events if e.device_type == DeviceType.CPU and e.cpu_parent is None]
+    by_host = collections.defaultdict(lambda: [0, 0.0])
+    for e in top_host:
+        by_host[e.name][0] += 1
+        by_host[e.name][1] += e.time_range.elapsed_us()
+    busy_ms = union_us([(e.time_range.start, e.time_range.end) for e in dev]) / 1e3 / steps
+    wall_ms = float(np.median(walls))
+    res = {
+        "batch": batch, "steps": steps, "wall_ms_per_step": wall_ms,
+        "wall_ms_per_step_runs": walls, "traced_ms_per_step": traced_ms,
+        "synced_step_ms_median": float(np.median(synced)),
+        "synced_step_ms_quartiles": [float(np.percentile(synced, 25)),
+                                     float(np.percentile(synced, 75))],
+        "first_run_step_ms": first,
+        "device_busy_ms_per_step": busy_ms if dev else None,
+        # device time is the tracer's; the wall is the untraced run's
+        "device_idle_share": (1 - busy_ms / wall_ms) if dev else None,
+        "cuda_activities_per_step": len(dev) / steps,
+        "top_level_host_ops_per_step": len(top_host) / steps,
+        "device_by_name_us_per_step": sorted(
+            ((n, c / steps, t / steps) for n, (c, t) in by_kernel.items()),
+            key=lambda r: -r[2])[:15],
+        "host_by_name_us_per_step": sorted(
+            ((n, c / steps, t / steps) for n, (c, t) in by_host.items()),
+            key=lambda r: -r[2])[:15],
+    }
+    return res
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--batch", type=int, nargs="+", default=[64, 2048])
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--out", help="write the full table here as JSON")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_torch_step: needs a CUDA device", file=sys.stderr)
+        return 2
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    print(f"card: {card}; torch {torch.__version__}", flush=True)
+    build.build_all()
+    results = []
+    for batch in args.batch:
+        r = profile_batch(batch, args.steps)
+        results.append(r)
+        busy = r["device_busy_ms_per_step"]
+        print(f"batch {batch}: wall {r['wall_ms_per_step']:.3f} ms/step "
+              f"({batch / r['wall_ms_per_step'] * 1e3:.0f} samples/s), traced "
+              f"{r['traced_ms_per_step']:.3f} ms/step, device busy "
+              f"{'not measured' if busy is None else '%.3f ms/step' % busy}, idle share "
+              f"{'not measured' if busy is None else '%.3f' % r['device_idle_share']}, "
+              f"{r['cuda_activities_per_step']:.0f} CUDA activities and "
+              f"{r['top_level_host_ops_per_step']:.0f} top-level host ops per step", flush=True)
+        print(f"  synchronised after each step (as train_niti times it): median "
+              f"{r['synced_step_ms_median']:.3f} ms, quartiles "
+              f"{r['synced_step_ms_quartiles'][0]:.3f}-{r['synced_step_ms_quartiles'][1]:.3f} ms; "
+              f"first steps of a fresh model: "
+              f"{', '.join('%.1f' % t for t in r['first_run_step_ms'][:4])} ms", flush=True)
+        for n, c, t in r["device_by_name_us_per_step"][:10]:
+            print(f"  device {t:9.1f} us/step {c:5.1f}x  {n[:90]}")
+        for n, c, t in r["host_by_name_us_per_step"][:10]:
+            print(f"  host   {t:9.1f} us/step {c:5.1f}x  {n[:90]}")
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump({"card": card, "torch": torch.__version__, "results": results}, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

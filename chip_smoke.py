@@ -10,23 +10,42 @@ raises on failure (the script then exits non-zero and prints no result):
 2. build every kernel from csrc/ with nvcc for sm_90a, one process per
    source, all started together;
 3. each kernel against its plain PyTorch version on the card, byte for byte,
-   at the shapes the training step gives it: K1 (matmul_int8) at the 11
+   at the shapes the training steps give it: K1 (matmul_int8) at the 11
    contractions of a batch-64 LeNet step, K2 (fused_matmul_max / _requant)
    at the fc2 input grad of batch 2048 and at a shape of the JAX package's
-   tiled branch (K > 512); kernel, plain and library times;
-4. the main path at batch 64: `train_niti` on the card with the kernels,
+   tiled branch (K > 512), K3 (fused_conv_max / _requant) at the MobileNetV2
+   stem and LeNet's convs, K4 (fused_dwconv_max / _requant) at the 7
+   depthwise shapes of a batch-256 MobileNetV2 step; K3 and K4 also at the
+   JAX package's test shapes and at ragged ones (K4 also at kernel sizes
+   other than 3x3); kernel, plain, library and bound times;
+4. LeNet's main path at batch 64: `train_niti` on the card with the kernels,
    launch counts reset just before and read just after; then the same steps
    from the same params with the plain versions on the card and on the CPU.
    Params must be byte-identical across the three, losses within 1e-5;
 5. the same at batch 2048, where the fc2 input grad takes the fused route
-   (K2); then steps/s of the kernel path at both batches;
-6. one JSON line listing every kernel, then the result line.
+   (K2); then samples/s of the kernel path at both batches;
+6. LeNet at batch 64 under fused mode "all" (K3 on conv1, conv2 and the
+   conv2 input grad): kernels against plain on the card;
+7. MobileNetV2 at full width through `train_niti(model=mobilenet_v2_niti())`
+   on synthetic CIFAR: batch 256, kernels against plain on the card; batch
+   32, kernels against plain on the CPU; batch 256 under fused mode "all";
+   then samples/s at batch 256;
+8. one JSON line listing every kernel, then the result line.
+
+Every main-path run asserts its launch counts, per kernel, against the
+routes one train step and one eval step take (EXPECTED_PER_STEP). The
+shapes of K1's launches in the LeNet batch-64 run and of K4's in the
+MobileNetV2 batch-256 run are recorded; they must be the shapes phase 3
+checked, and K4's per-step counts weight its timings into the sums of one
+train step.
 
 The last line of standard output is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import json
 import re
 import statistics
@@ -37,15 +56,18 @@ import time
 import numpy as np
 import torch
 
-from mandheling_tpu_torch.data import synthetic_mnist
-from mandheling_tpu_torch.models import NITI_LOGIT_CHANNELS, NUM_CLASSES, lenet_niti
+from mandheling_tpu_torch.data import synthetic_cifar, synthetic_mnist
+from mandheling_tpu_torch.models import (NITI_LOGIT_CHANNELS, NUM_CLASSES, lenet_niti,
+                                         mobilenet_v2_niti)
 from mandheling_tpu_torch.ops import numerics
 from mandheling_tpu_torch.ops import kernels
-from mandheling_tpu_torch.ops.kernels import build, fused_matmul_int8, matmul_int8
+from mandheling_tpu_torch.ops.conv import use_fused_conv_mode
+from mandheling_tpu_torch.ops.kernels import (build, fused_conv_int8, fused_dwconv_int8,
+                                              fused_matmul_int8, matmul_int8)
 from mandheling_tpu_torch.data.loader import onehot_padded
 from mandheling_tpu_torch.train import make_eval_step, make_train_step
 from mandheling_tpu_torch.train.trainer import train_niti
-from mandheling_tpu_torch.utils.jax_params import export_jax_params
+from mandheling_tpu_torch.utils.jax_params import export_jax_params, flat_weights
 
 # (what, M, K, N, A transposed) of every int8 contraction of a LeNet train
 # step at batch 64. The filter grads multiply im2col(x)^T, a strided view.
@@ -69,6 +91,59 @@ K2_SHAPE = ("fc2 igrad b2048", 2048, 12, 500)
 K2_TILED_SHAPE = ("tiled branch, fc1 fwd widths b2048", 2048, 832, 500)
 K1_PER_TRAIN_STEP, K1_PER_EVAL_STEP = 11, 4
 
+# K3: (what, x shape, w shape, stride, pads). The first four are the
+# main paths' shapes (the MobileNetV2 stem under fused mode "all"; LeNet's
+# conv1, conv2 and conv2 input grad, on the zero-dilated gy with the
+# rotated weights, under "all"); then the shapes of the JAX package's
+# test_fused_conv_strided_and_1x1_parity and a ragged one.
+K3_CASES = [
+    ("MNv2 stem fwd b256", (256, 32, 32, 3), (3, 3, 3, 32), (1, 1), ((1, 1), (1, 1))),
+    ("LeNet conv1 fwd b64", (64, 28, 28, 1), (5, 5, 1, 20), (1, 1), ((0, 0), (0, 0))),
+    ("LeNet conv2 fwd b64", (64, 12, 12, 20), (5, 5, 20, 52), (1, 1), ((0, 0), (0, 0))),
+    ("LeNet conv2 igrad b64", (64, 8, 8, 52), (5, 5, 52, 20), (1, 1), ((4, 4), (4, 4))),
+    ("JAX test 3x3 s2", (2, 9, 9, 3), (3, 3, 3, 8), (2, 2), ((0, 1), (0, 1))),
+    ("JAX test 5x5 s2", (2, 9, 9, 3), (5, 5, 3, 8), (2, 2), ((1, 2), (1, 2))),
+    ("JAX test 33x33 s2", (2, 33, 33, 8), (3, 3, 8, 16), (2, 2), ((1, 1), (1, 1))),
+    ("ragged 3x2 s(1,2)", (1, 7, 5, 70), (3, 2, 70, 65), (1, 2), ((2, 0), (0, 3))),
+]
+# K4: (what, pre-padded xp shape, kernel size). K4_PATH_CASES are the
+# depthwise shapes of a batch-256 MobileNetV2 step, which the run records
+# and holds to this list; then the JAX package's test shape (4, 16, 16, 24)
+# padded, ragged ones (C not a multiple of 32, two column tiles) and kernel
+# sizes other than 3x3 (the untiled instance).
+K4_PATH_CASES = [
+    ("MNv2 b256 32ch 32x32", (256, 34, 34, 32), (3, 3)),
+    ("MNv2 b256 96ch 32x32", (256, 34, 34, 96), (3, 3)),
+    ("MNv2 b256 144ch 32x32", (256, 34, 34, 144), (3, 3)),
+    ("MNv2 b256 192ch 16x16", (256, 18, 18, 192), (3, 3)),
+    ("MNv2 b256 384ch 8x8", (256, 10, 10, 384), (3, 3)),
+    ("MNv2 b256 576ch 8x8", (256, 10, 10, 576), (3, 3)),
+    ("MNv2 b256 960ch 4x4", (256, 6, 6, 960), (3, 3)),
+]
+K4_CASES = K4_PATH_CASES + [
+    ("JAX test (4,16,16,24)", (4, 18, 18, 24), (3, 3)),
+    ("ragged C 33, 43 columns", (3, 11, 45, 33), (3, 3)),
+    ("ragged C 7, 5x5", (2, 9, 9, 7), (5, 5)),
+    ("C 40, 3x1", (2, 12, 40, 40), (3, 1)),
+]
+
+# Kernel launches of one train step and of one eval step on each main path,
+# per kernel family (K2, K3 and K4 count each of their two phases): the
+# routes the `supports` rules give (the JAX package's, unchanged), the same
+# as the JAX package's Pallas backend takes.
+EXPECTED_PER_STEP = {
+    ("lenet", 64, "matmul_only"): ({"K1": 11}, {"K1": 4}),
+    ("lenet", 2048, "matmul_only"): ({"K1": 10, "K2": 1}, {"K1": 4}),
+    ("lenet", 64, "all"): ({"K1": 8, "K3": 3}, {"K1": 2, "K3": 2}),
+    ("mnv2", 256, "matmul_only"): ({"K1": 65, "K2": 42, "K4": 31}, {"K1": 15, "K2": 21, "K4": 14}),
+    ("mnv2", 32, "matmul_only"): ({"K1": 81, "K2": 26, "K4": 31}, {"K1": 23, "K2": 13, "K4": 14}),
+    ("mnv2", 256, "all"): ({"K1": 64, "K2": 42, "K3": 1, "K4": 31},
+                           {"K1": 14, "K2": 21, "K3": 1, "K4": 14}),
+}
+FAMILIES = {"K1": ("matmul_int8",), "K2": ("fused_matmul_max", "fused_matmul_requant"),
+            "K3": ("fused_conv_max", "fused_conv_requant"),
+            "K4": ("fused_dwconv_max", "fused_dwconv_requant")}
+
 
 def peak_rates(name: str):
     """(int8 dense ops/s, device memory bytes/s) from NVIDIA's data sheets."""
@@ -79,11 +154,54 @@ def peak_rates(name: str):
     return 1979e12, 3.35e12, "H100 SXM data sheet"
 
 
+def int8_mac_rate() -> float:
+    """Multiply-adds/s of int8 operands on the CUDA cores: IDP4A does four
+    per instruction and issues at the IMAD rate of 64 per SM and clock
+    (CUDA C++ Programming Guide, arithmetic instruction throughput), so
+    SMs x 64 x 4 x the card's maximum SM clock."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
+    return torch.cuda.get_device_properties(0).multi_processor_count * 64 * 4 * mhz * 1e6
+
+
 def bound(ops: float, nbytes: float, rates):
     """(least time in ms, what bounds it) for `ops` int8 operations that
     must move `nbytes` of device memory."""
     t_ops, t_bytes = ops / rates[0] * 1e3, nbytes / rates[1] * 1e3
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+def k1_key(a, b):
+    """(M, K, N, A transposed) of a K1 call."""
+    return (a.shape[0], a.shape[1], b.shape[1], a.stride(0) == 1 and a.stride(1) != 1)
+
+
+def k4_key(xp, w):
+    """(xp shape, kernel size) of a K4 call."""
+    return (tuple(xp.shape), (w.shape[0], w.shape[1]))
+
+
+RECORD_K1 = {"K1": (matmul_int8, "matmul_acc_cuda", k1_key)}
+RECORD_K4 = {"K4": (fused_dwconv_int8, "dwconv_max_cuda", k4_key)}
+
+
+@contextlib.contextmanager
+def recording(spec):
+    """Count the calls of each function of `spec` ({label: (module, name,
+    key)}) while inside, by key(*args), into one Counter per label."""
+    seen = {label: collections.Counter() for label in spec}
+    reals = {label: getattr(mod, name) for label, (mod, name, _) in spec.items()}
+    for label, (mod, name, key) in spec.items():
+        def counted(*args, _real=reals[label], _seen=seen[label], _key=key, **kwargs):
+            _seen[_key(*args)] += 1
+            return _real(*args, **kwargs)
+        setattr(mod, name, counted)
+    try:
+        yield seen
+    finally:
+        for label, (mod, name, _) in spec.items():
+            setattr(mod, name, reals[label])
 
 
 def time_ms(fn, launches: int = 50, rounds: int = 5) -> float:
@@ -222,90 +340,231 @@ def k2_timings(what, a, b, shift, err_max, err_requant, rates):
     return rows
 
 
+def check_k3(rates, gen):
+    """K3 against its plain version, and its times, at every case. Returns
+    one row per case and the largest difference."""
+    rows, worst = [], 0
+    for what, xs, ws, stride, pad in K3_CASES:
+        x, w = rand_int8(xs, gen), rand_int8(ws, gen)
+        mx = fused_conv_int8.conv_max_cuda(x, w, pad, stride)
+        errs = [max_abs_err(mx, fused_conv_int8.conv_max_plain(x, w, pad, stride))]
+        bw = numerics.range_estimate_from_max(mx)
+        shift = numerics.forward_shift(bw)
+        for s, grad in [(shift, False), (torch.zeros_like(bw), False), (bw - 2, True),
+                        (bw - 40, True)]:
+            errs.append(max_abs_err(fused_conv_int8.conv_requant_cuda(x, w, s, pad, stride, grad),
+                                    fused_conv_int8.conv_requant_plain(x, w, s, pad, stride, grad)))
+        if any(errs):
+            raise AssertionError(f"K3 {what} differs from plain: {errs}")
+        worst = max(worst, *errs)
+        oh, ow = fused_conv_int8._out_spatial(x, w, pad, stride)
+        m, n, k = xs[0] * oh * ow, ws[3], ws[0] * ws[1] * ws[2]
+        ops, in_bytes = 2.0 * m * n * k, x.numel() + w.numel()
+        row = dict(what=what, x=xs, w=ws, stride=stride, pads=pad, m=m, n=n, k=k,
+                   max_abs_err=max(errs))
+        for phase, fn, plain, nbytes in [
+            ("max", lambda: fused_conv_int8.conv_max_cuda(x, w, pad, stride),
+             lambda: fused_conv_int8.conv_max_plain(x, w, pad, stride), in_bytes + 4.0),
+            ("requant", lambda: fused_conv_int8.conv_requant_cuda(x, w, shift, pad, stride),
+             lambda: fused_conv_int8.conv_requant_plain(x, w, shift, pad, stride),
+             in_bytes + 4.0 + m * n),
+        ]:
+            b_ms, b_by = bound(ops, nbytes, rates)
+            row[phase] = dict(ms=time_ms(fn), plain_ms=time_ms(plain, launches=10, rounds=3),
+                              bound_ms=b_ms, bound_by=b_by)
+        rows.append(row)
+        print(f"  K3 {what:22s} x {xs} w {ws} stride {stride} pads {pad}: byte-equal "
+              f"(fwd, shift 0, grad, grad shift<0) | max {row['max']['ms']:.4f} ms "
+              f"(plain {row['max']['plain_ms']:.4f}, bound {row['max']['bound_ms'] * 1e3:.2f} us "
+              f"{row['max']['bound_by']}) | requant {row['requant']['ms']:.4f} ms (plain "
+              f"{row['requant']['plain_ms']:.4f}, bound {row['requant']['bound_ms'] * 1e3:.2f} us "
+              f"{row['requant']['bound_by']})", flush=True)
+    return rows, worst
+
+
+def check_k4(rates, mac_rate, gen):
+    """K4 against its plain version, and its times, at every case. The
+    operations bound uses the CUDA cores' int8 multiply-add rate."""
+    rows, worst = [], 0
+    for what, xps, (kh, kw) in K4_CASES:
+        xp, w = rand_int8(xps, gen), rand_int8((kh, kw, 1, xps[3]), gen)
+        mx = fused_dwconv_int8.dwconv_max_cuda(xp, w)
+        errs = [max_abs_err(mx, fused_dwconv_int8.dwconv_max_plain(xp, w))]
+        bw = numerics.range_estimate_from_max(mx)
+        shift = numerics.forward_shift(bw)
+        for s, grad in [(shift, False), (torch.zeros_like(bw), False), (bw - 2, True),
+                        (bw - 40, True)]:
+            errs.append(max_abs_err(fused_dwconv_int8.dwconv_requant_cuda(xp, w, s, grad),
+                                    fused_dwconv_int8.dwconv_requant_plain(xp, w, s, grad)))
+        if any(errs):
+            raise AssertionError(f"K4 {what} differs from plain: {errs}")
+        worst = max(worst, *errs)
+        b, hp, wp, c = xps
+        outs = b * (hp - kh + 1) * (wp - kw + 1) * c
+        macs = float(kh * kw * outs)
+        row = dict(what=what, xp=xps, kernel=(kh, kw), max_abs_err=max(errs))
+        for phase, fn, plain, nbytes in [
+            ("max", lambda: fused_dwconv_int8.dwconv_max_cuda(xp, w),
+             lambda: fused_dwconv_int8.dwconv_max_plain(xp, w), xp.numel() + w.numel() + 4.0),
+            ("requant", lambda: fused_dwconv_int8.dwconv_requant_cuda(xp, w, shift),
+             lambda: fused_dwconv_int8.dwconv_requant_plain(xp, w, shift),
+             xp.numel() + w.numel() + 4.0 + outs),
+        ]:
+            b_ms, b_by = bound(macs, nbytes, (mac_rate, rates[1]))
+            row[phase] = dict(ms=time_ms(fn), plain_ms=time_ms(plain, launches=10, rounds=3),
+                              bound_ms=b_ms, bound_by=b_by, macs=macs, bytes=nbytes)
+        rows.append(row)
+        print(f"  K4 {what:24s} xp {xps} {kh}x{kw}: byte-equal | max {row['max']['ms']:.4f} ms "
+              f"(plain {row['max']['plain_ms']:.4f}, bound {row['max']['bound_ms'] * 1e3:.2f} us "
+              f"{row['max']['bound_by']}) | requant {row['requant']['ms']:.4f} ms (plain "
+              f"{row['requant']['plain_ms']:.4f}, bound {row['requant']['bound_ms'] * 1e3:.2f} us "
+              f"{row['requant']['bound_by']})", flush=True)
+    return rows, worst
+
+
 def params_equal(p, q) -> bool:
-    return all(bool(a) == bool(b) and (not a or all(np.array_equal(x, y) for x, y in zip(a["w"], b["w"])))
-               for a, b in zip(p, q)) and len(p) == len(q)
+    a, b = flat_weights(p), flat_weights(q)
+    return len(a) == len(b) and all(x.dtype == y.dtype and np.array_equal(x, y)
+                                    for x, y in zip(a, b))
 
 
-def train_run(batch, epochs, train, test, start, device, backend):
+def train_run(batch, epochs, train, test, start, device, backend, model_fn=lenet_niti,
+              mode="matmul_only"):
     lines = []
-    model, acc = train_niti(train, test, epochs=epochs, batch=batch, seed=0,
-                            log=lines.append, start_params=start, device=device,
-                            backend=backend)
+    with use_fused_conv_mode(mode):
+        model, acc = train_niti(train, test, epochs=epochs, batch=batch, seed=0,
+                                log=lines.append, start_params=start, device=device,
+                                backend=backend, model=model_fn())
     losses = [float(re.search(r"loss (\S+)", ln).group(1)) for ln in lines]
     rate = float(re.search(r"([\d.]+) samples/s", lines[-1]).group(1))
     return dict(params=export_jax_params(model), acc=acc, losses=losses, lines=lines,
                 samples_per_s=rate, model=model)
 
 
-def main_path(batch, epochs, start, k1_per_step, k2_per_step, record_shapes=False):
-    """train_niti on the card with the kernels (launches counted from 0),
-    then with the plain versions on the card and on the CPU."""
-    train = synthetic_mnist(batch, seed=2 * batch)      # one step per epoch
-    test = synthetic_mnist(batch, seed=2 * batch + 1)   # one eval step per epoch
-    shapes = set()
-    real = matmul_int8.matmul_acc_cuda
-    if record_shapes:
-        def recording(a, b):
-            shapes.add((a.shape[0], a.shape[1], b.shape[1], a.stride(0) == 1 and a.stride(1) != 1))
-            return real(a, b)
-        matmul_int8.matmul_acc_cuda = recording
-    kernels.reset_launch_counts()
-    try:
-        run = train_run(batch, epochs, train, test, start, "cuda", "cuda")
-    finally:
-        matmul_int8.matmul_acc_cuda = real
-    counts = kernels.launch_counts()
-    kernels.reset_launch_counts()
-    plain_card = train_run(batch, epochs, train, test, start, "cuda", "torch")
-    plain_cpu = train_run(batch, epochs, train, test, start, "cpu", "cuda")
-    if any(kernels.launch_counts().values()):
-        raise AssertionError(f"plain runs launched kernels: {kernels.launch_counts()}")
-    for ln in run["lines"]:
-        print(f"  [b{batch} cuda] {ln}", flush=True)
-    for other, label in ((plain_card, "plain on the card"), (plain_cpu, "plain on the CPU")):
-        if not params_equal(run["params"], other["params"]):
-            raise AssertionError(f"b{batch}: params differ between the kernels and {label}")
-        if max(abs(x - y) for x, y in zip(run["losses"], other["losses"])) > 1e-5:
-            raise AssertionError(f"b{batch}: losses {run['losses']} vs {label} {other['losses']}")
-        if run["acc"] != other["acc"]:
-            raise AssertionError(f"b{batch}: accuracy {run['acc']} vs {label} {other['acc']}")
-    if not all(np.isfinite(run["losses"])):
-        raise AssertionError(f"b{batch}: non-finite losses {run['losses']}")
-    moved = any(not np.array_equal(a["w"][0], s["w"][0]) for a, s in zip(run["params"], start) if a)
-    if not moved:
-        raise AssertionError(f"b{batch}: training did not change the params")
-    want = {"matmul_int8": epochs * (k1_per_step + K1_PER_EVAL_STEP),
-            "fused_matmul_max": epochs * k2_per_step, "fused_matmul_requant": epochs * k2_per_step}
-    if counts != want:
-        raise AssertionError(f"b{batch}: launches {counts}, expected {want}")
-    print(f"  b{batch}: {epochs} train + {epochs} eval steps; params byte-identical across "
-          f"kernels / plain on card / plain on CPU; losses {run['losses']}; "
-          f"launches {counts}", flush=True)
-    return run, counts, shapes
-
-
-def per_step_counts(model, batch):
-    """K1 launches of one train step and of one eval step, each counted alone."""
-    x, y = synthetic_mnist(batch, seed=7)
-    xb = torch.from_numpy(x.astype(np.float32)).cuda()
-    oh = torch.from_numpy(onehot_padded(y, NUM_CLASSES, NITI_LOGIT_CHANNELS)).cuda()
+def family_counts(counts):
+    """Launches per kernel family (K1..K4); a two-phase kernel must have
+    launched both of its phases equally often."""
     out = {}
-    for what, fn in (("train", lambda: make_train_step(model)(xb, oh)),
-                     ("eval", lambda: make_eval_step(model)(xb, torch.from_numpy(y.astype(np.int64)).cuda()))):
-        kernels.reset_launch_counts()
-        fn()
-        torch.cuda.synchronize()
-        out[what] = kernels.launch_counts()
-    kernels.reset_launch_counts()
+    for fam, names in FAMILIES.items():
+        vals = [counts[n] for n in names]
+        if len(set(vals)) != 1:
+            raise AssertionError(f"{fam} phases launched {vals} times")
+        if vals[0]:
+            out[fam] = vals[0]
     return out
 
 
-def throughput(batch, steps, start):
-    x, y = synthetic_mnist(batch * steps, seed=11)
-    test = synthetic_mnist(batch, seed=12)
-    run = train_run(batch, 1, (x, y), test, start, "cuda", "cuda")
+def expected_launches(key, train_steps, eval_steps):
+    per_train, per_eval = EXPECTED_PER_STEP[key]
+    want = {f: train_steps * per_train.get(f, 0) + eval_steps * per_eval.get(f, 0)
+            for f in FAMILIES}
+    return {f: n for f, n in want.items() if n}
+
+
+def main_path(label, key, train, test, epochs, start, others, model_fn=lenet_niti,
+              record=None):
+    """train_niti on the card with the kernels (launches counted from 0,
+    the calls of `record` recorded), then from the same params with each
+    (device, backend) of `others`: byte-identical params, losses within
+    1e-5, equal accuracy, and the launches EXPECTED_PER_STEP gives."""
+    _, batch, mode = key
+    kernels.reset_launch_counts()
+    with recording(record or {}) as seen:
+        run = train_run(batch, epochs, train, test, start, "cuda", "cuda", model_fn, mode)
+    counts = kernels.launch_counts()
+    kernels.reset_launch_counts()
+    for ln in run["lines"]:
+        print(f"  [{label} cuda] {ln}", flush=True)
+    for device, backend in others:
+        other = train_run(batch, epochs, train, test, start, device, backend, model_fn, mode)
+        what = f"plain on the {'card' if device == 'cuda' else 'CPU'}"
+        if not params_equal(run["params"], other["params"]):
+            raise AssertionError(f"{label}: params differ between the kernels and {what}")
+        if max(abs(x - y) for x, y in zip(run["losses"], other["losses"])) > 1e-5:
+            raise AssertionError(f"{label}: losses {run['losses']} vs {what} {other['losses']}")
+        if run["acc"] != other["acc"]:
+            raise AssertionError(f"{label}: accuracy {run['acc']} vs {what} {other['acc']}")
+    if any(kernels.launch_counts().values()):
+        raise AssertionError(f"plain runs launched kernels: {kernels.launch_counts()}")
+    if not all(np.isfinite(run["losses"])):
+        raise AssertionError(f"{label}: non-finite losses {run['losses']}")
+    if all(np.array_equal(a, b) for a, b in zip(flat_weights(run["params"]), flat_weights(start))):
+        raise AssertionError(f"{label}: training did not change the params")
+    want = expected_launches(key, epochs * (len(train[0]) // batch),
+                             epochs * (len(test[0]) // min(batch, len(test[0]))))
+    if family_counts(counts) != want:
+        raise AssertionError(f"{label}: launches {counts}, expected {want} by kernel family")
+    print(f"  {label}: params byte-identical across the kernels and "
+          f"{', '.join(('plain on the card' if d == 'cuda' else 'plain on the CPU') for d, _ in others)}; "
+          f"losses {run['losses']}; launches {family_counts(counts)}", flush=True)
+    return run, counts, seen
+
+
+def per_step_counts(key, model, x, y, n_logits, record=None):
+    """Launches by family of one train step and of one eval step, each
+    counted alone, against EXPECTED_PER_STEP; and the calls of `record`
+    in each."""
+    xb = torch.from_numpy(x.astype(np.float32)).cuda()
+    oh = torch.from_numpy(onehot_padded(y, NUM_CLASSES, n_logits)).cuda()
+    labels = torch.from_numpy(y.astype(np.int64)).cuda()
+    out, seen = [], []
+    with use_fused_conv_mode(key[2]):
+        for fn in (lambda: make_train_step(model)(xb, oh),
+                   lambda: make_eval_step(model)(xb, labels)):
+            kernels.reset_launch_counts()
+            with recording(record or {}) as step_seen:
+                fn()
+                torch.cuda.synchronize()
+            out.append(family_counts(kernels.launch_counts()))
+            seen.append(step_seen)
+    kernels.reset_launch_counts()
+    if tuple(out) != EXPECTED_PER_STEP[key]:
+        raise AssertionError(f"{key}: per-step launches {out}, expected {EXPECTED_PER_STEP[key]}")
+    print(f"  {key[0]} b{key[1]} {key[2]}: launches per train step {out[0]}, per eval step "
+          f"{out[1]}", flush=True)
+    return out, seen
+
+
+def k4_step_weights(run_seen, n_train, n_eval, step_seen):
+    """K4's launches per train step by (xp shape, kernel) as recorded,
+    checked against the main path's recording (n_train train steps and
+    n_eval eval steps) and against K4_PATH_CASES, whose timings they weight."""
+    train, evals = step_seen[0]["K4"], step_seen[1]["K4"]
+    want = collections.Counter({k: n_train * v for k, v in train.items()})
+    want.update({k: n_eval * v for k, v in evals.items()})
+    if run_seen["K4"] != want:
+        raise AssertionError(f"K4 shapes of the main path {dict(run_seen['K4'])} are not "
+                             f"{n_train} train and {n_eval} eval steps' {dict(want)}")
+    path = {(xps, k) for _, xps, k in K4_PATH_CASES}
+    if set(train) != path or not set(evals) <= path:
+        raise AssertionError(f"K4 shapes of a step {sorted(set(train) | set(evals))} "
+                             f"!= checked {sorted(path)}")
+    print(f"  K4 launches per phase by (xp, kernel), one train step: {dict(train)}; "
+          f"one eval step: {dict(evals)}", flush=True)
+    return train
+
+
+def throughput(batch, steps, start, model_fn=lenet_niti, data=synthetic_mnist):
+    """Samples/s of `train_niti` with the kernels: the second of two epochs
+    of `steps` steps, as the trainer's StepTimer reports it."""
+    x, y = data(batch * steps, seed=11)
+    test = data(batch, seed=12)
+    run = train_run(batch, 2, (x, y), test, start, "cuda", "cuda", model_fn)
     return run["samples_per_s"], run["lines"][-1]
+
+
+def fused_entries(name_prefix, source, replaces, row, launches, launches_by_run, extra):
+    """The kernels-line entries of a two-phase kernel from its timing row."""
+    out = []
+    for phase in ("max", "requant"):
+        name = f"{name_prefix}_{phase}"
+        out.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces[phase],
+            "launches": launches[name], "launches_by_run": launches_by_run[name],
+            "max_abs_err": row["max_abs_err"], "ms": row[phase]["ms"],
+            "plain_ms": row[phase]["plain_ms"], "bound_ms": row[phase]["bound_ms"],
+            "bound_by": row[phase]["bound_by"], "library_ms": None, **extra[phase]})
+    return out
 
 
 def main() -> int:
@@ -316,9 +575,12 @@ def main() -> int:
     card = card_line()
     name = torch.cuda.get_device_name(0)
     rates = peak_rates(name)
+    mac_rate = int8_mac_rate()
     print(f"card (nvidia-smi name, power.limit): {card}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; peaks from the {rates[2]}: "
-          f"{rates[0] / 1e12:.0f} int8 TOP/s, {rates[1] / 1e12:.2f} TB/s", flush=True)
+          f"{rates[0] / 1e12:.0f} int8 TOP/s, {rates[1] / 1e12:.2f} TB/s; CUDA-core int8 "
+          f"multiply-adds {mac_rate / 1e12:.2f} T/s (IDP4A: SMs x 64 x 4 x max SM clock)",
+          flush=True)
 
     t0 = time.perf_counter()
     logs = build.build_all()
@@ -332,27 +594,65 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     k1_rows = check_k1(rates, gen)
     k2_rows = check_k2(rates, gen)
+    k3_rows, k3_err = check_k3(rates, gen)
+    k4_rows, k4_err = check_k4(rates, mac_rate, gen)
 
+    runs = {}
     start = export_jax_params(lenet_niti().reset_parameters(torch.Generator().manual_seed(0)))
-    print("phase 4: main path at batch 64", flush=True)
-    run64, counts64, shapes = main_path(64, 3, start, K1_PER_TRAIN_STEP, 0, record_shapes=True)
+    plain_both = [("cuda", "torch"), ("cpu", "cuda")]
+    print("phase 4: LeNet main path at batch 64", flush=True)
+    run64, runs["lenet_b64"], seen64 = main_path(
+        "lenet b64", ("lenet", 64, "matmul_only"), synthetic_mnist(64, seed=128),
+        synthetic_mnist(64, seed=129), 3, start, plain_both, record=RECORD_K1)
+    shapes = set(seen64["K1"])
     want_shapes = {(m, k, n, tr) for _, m, k, n, tr in K1_SHAPES}
     if shapes != want_shapes:
         raise AssertionError(f"K1 shapes of the step {sorted(shapes)} != checked {sorted(want_shapes)}")
-    steps64 = per_step_counts(run64["model"], 64)
-    print(f"  K1 launches: {steps64['train']['matmul_int8']} per train step, "
-          f"{steps64['eval']['matmul_int8']} per eval step (batch 64)", flush=True)
-    if steps64["train"]["matmul_int8"] != K1_PER_TRAIN_STEP or \
-            steps64["eval"]["matmul_int8"] != K1_PER_EVAL_STEP:
-        raise AssertionError(f"per-step launches {steps64}")
+    x64, y64 = synthetic_mnist(64, seed=7)
+    per_step_counts(("lenet", 64, "matmul_only"), run64["model"], x64, y64, NITI_LOGIT_CHANNELS)
 
-    print("phase 5: main path at batch 2048", flush=True)
-    run2k, counts2k, _ = main_path(2048, 2, start, K1_PER_TRAIN_STEP - 1, 1)
+    print("phase 5: LeNet main path at batch 2048", flush=True)
+    _, runs["lenet_b2048"], _ = main_path(
+        "lenet b2048", ("lenet", 2048, "matmul_only"), synthetic_mnist(2048, seed=4096),
+        synthetic_mnist(2048, seed=4097), 2, start, plain_both)
     rate64, line64 = throughput(64, 50, start)
     rate2k, line2k = throughput(2048, 10, start)
-    print(f"  throughput on {name}: batch 64 {rate64:.0f} samples/s [{line64}]", flush=True)
-    print(f"  throughput on {name}: batch 2048 {rate2k:.0f} samples/s [{line2k}]", flush=True)
+    print(f"  throughput on {name}: LeNet batch 64 {rate64:.0f} samples/s [{line64}]", flush=True)
+    print(f"  throughput on {name}: LeNet batch 2048 {rate2k:.0f} samples/s [{line2k}]", flush=True)
 
+    print('phase 6: LeNet at batch 64 under fused mode "all" (K3)', flush=True)
+    run_all, runs["lenet_all_b64"], _ = main_path(
+        "lenet all b64", ("lenet", 64, "all"), synthetic_mnist(128, seed=5),
+        synthetic_mnist(64, seed=6), 1, start, [("cuda", "torch")])
+    per_step_counts(("lenet", 64, "all"), run_all["model"], x64, y64, NITI_LOGIT_CHANNELS)
+
+    print("phase 7: MobileNetV2 (full width, per-tensor depthwise) on synthetic CIFAR", flush=True)
+    mnv2_start = export_jax_params(
+        mobilenet_v2_niti().reset_parameters(torch.Generator().manual_seed(0)))
+    cifar_train, cifar_test = synthetic_cifar(512, seed=0), synthetic_cifar(256, seed=1)
+    run_mn, runs["mnv2_b256"], seen_mn = main_path(
+        "mnv2 b256", ("mnv2", 256, "matmul_only"), cifar_train, cifar_test, 1, mnv2_start,
+        [("cuda", "torch")], model_fn=mobilenet_v2_niti, record=RECORD_K4)
+    xc, yc = synthetic_cifar(256, seed=2)
+    _, seen_steps = per_step_counts(("mnv2", 256, "matmul_only"), run_mn["model"], xc, yc,
+                                    NITI_LOGIT_CHANNELS, record=RECORD_K4)
+    k4_per_step = k4_step_weights(seen_mn, len(cifar_train[0]) // 256,
+                                  len(cifar_test[0]) // 256, seen_steps)
+    _, runs["mnv2_b32"], _ = main_path(
+        "mnv2 b32", ("mnv2", 32, "matmul_only"), synthetic_cifar(32, seed=3),
+        synthetic_cifar(32, seed=4), 1, mnv2_start, [("cpu", "cuda")],
+        model_fn=mobilenet_v2_niti)
+    run_mn_all, runs["mnv2_all_b256"], _ = main_path(
+        "mnv2 all b256", ("mnv2", 256, "all"), cifar_train, cifar_test, 1, mnv2_start,
+        [("cuda", "torch")], model_fn=mobilenet_v2_niti)
+    per_step_counts(("mnv2", 256, "all"), run_mn_all["model"], xc, yc, NITI_LOGIT_CHANNELS)
+    rate_mn, line_mn = throughput(256, 10, mnv2_start, mobilenet_v2_niti, synthetic_cifar)
+    print(f"  throughput on {name} ({card}): MobileNetV2 batch 256 {rate_mn:.1f} samples/s "
+          f"[{line_mn}]", flush=True)
+
+    names = list(kernels.launch_counts())
+    launches = {n: sum(c[n] for c in runs.values()) for n in names}
+    by_run = {n: {r: c[n] for r, c in runs.items()} for n in names}
     k1_ops = sum(r["ops"] for r in k1_rows)
     k1_bytes = sum(r["bytes"] for r in k1_rows)
     k1_bound, k1_by = bound(k1_ops, k1_bytes, rates)
@@ -361,13 +661,12 @@ def main() -> int:
         {"name": "matmul_int8", "route": "cuda",
          "source": "mandheling_tpu_torch/csrc/matmul_int8.cu",
          "replaces": "mandheling_tpu/ops/kernels/matmul_int8.py:65",
-         "launches": counts64["matmul_int8"] + counts2k["matmul_int8"],
-         "launches_by_run": {"b64": counts64["matmul_int8"], "b2048": counts2k["matmul_int8"]},
+         "launches": launches["matmul_int8"], "launches_by_run": by_run["matmul_int8"],
          "max_abs_err": max(r["max_abs_err"] for r in k1_rows),
          "ms": sum(r["ms"] for r in k1_rows), "plain_ms": sum(r["plain_ms"] for r in k1_rows),
          "bound_ms": k1_bound, "bound_by": k1_by,
          "library_ms": sum(r["library_ms"] for r in k1_rows) if lib_all else None,
-         "shapes": "the 11 contractions of one batch-64 train step; times are their sum"},
+         "shapes": "the 11 contractions of one LeNet batch-64 train step; times are their sum"},
     ]}
     for r in k2_rows:
         replaces = {"fused_matmul_max": "mandheling_tpu/ops/kernels/fused_matmul_int8.py:162",
@@ -376,15 +675,46 @@ def main() -> int:
             "name": r["name"], "route": "cuda",
             "source": "mandheling_tpu_torch/csrc/fused_matmul_int8.cu",
             "replaces": replaces[r["name"]],
-            "launches": counts64[r["name"]] + counts2k[r["name"]],
-            "launches_by_run": {"b64": counts64[r["name"]], "b2048": counts2k[r["name"]]},
+            "launches": launches[r["name"]], "launches_by_run": by_run[r["name"]],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
             "shapes": f"{r['what']}: ({r['m']},{r['k']})x({r['k']},{r['n']})",
             "tiled_branch": r["tiled_branch"]})
+    stem = k3_rows[0]
+    stem["max_abs_err"] = k3_err
+    kernels_line["kernels"] += fused_entries(
+        "fused_conv", "mandheling_tpu_torch/csrc/fused_conv_int8.cu",
+        {"max": "mandheling_tpu/ops/kernels/fused_conv_int8.py:250",
+         "requant": "mandheling_tpu/ops/kernels/fused_conv_int8.py:287"},
+        stem, launches, by_run,
+        {ph: {"shapes": f"{stem['what']}: x {stem['x']} w {stem['w']}",
+              "other_shapes": {r["what"]: r[ph] for r in k3_rows[1:]},
+              "library_note": "no PyTorch call computes an int8 conv on CUDA"}
+         for ph in ("max", "requant")})
+    k4_step = {"max_abs_err": k4_err}
+    for r in k4_rows:
+        r["launches_per_train_step"] = k4_per_step.get((r["xp"], r["kernel"]), 0)
+    for ph in ("max", "requant"):
+        k4_step[ph] = {key: sum(r["launches_per_train_step"] * r[ph][key] for r in k4_rows)
+                       for key in ("ms", "plain_ms", "macs", "bytes")}
+        k4_step[ph]["bound_ms"], k4_step[ph]["bound_by"] = bound(
+            k4_step[ph]["macs"], k4_step[ph]["bytes"], (mac_rate, rates[1]))
+    kernels_line["kernels"] += fused_entries(
+        "fused_dwconv", "mandheling_tpu_torch/csrc/fused_dwconv_int8.cu",
+        {"max": "mandheling_tpu/ops/kernels/fused_dwconv_int8.py:150",
+         "requant": "mandheling_tpu/ops/kernels/fused_dwconv_int8.py:183"},
+        k4_step, launches, by_run,
+        {ph: {"shapes": f"the {sum(k4_per_step.values())} launches of one MobileNetV2 "
+                        "batch-256 train step, as recorded; times are their sum",
+              "by_shape": {r["what"]: dict(r[ph], launches_per_train_step=r[
+                  "launches_per_train_step"]) for r in k4_rows if r["launches_per_train_step"]},
+              "library_note": "no PyTorch call computes an int8 depthwise conv on CUDA"}
+         for ph in ("max", "requant")})
     for kern in kernels_line["kernels"]:
         if kern["launches"] <= 0:
             raise AssertionError(f"{kern['name']} was not launched on the main path")
+    kernels_line["throughput_samples_per_s"] = {
+        "lenet_b64": rate64, "lenet_b2048": rate2k, "mnv2_b256": rate_mn}
 
     print(f"done in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(f"{card}")

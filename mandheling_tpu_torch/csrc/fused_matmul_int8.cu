@@ -14,31 +14,25 @@
 // 3.35 TB/s. Phase 1 reads A and B and writes 4 bytes; phase 2 reads them
 // again and writes M x N int8, where the unfused path writes and re-reads
 // an int32 accumulator (4 bytes an element each way). Both phases run the
-// K1 mainloop (gemm_s8.cuh) with their own epilogue.
+// K1 mainloop (gemm_s8.cuh) with the epilogues of niti_epilogue.cuh, which
+// K3 and K4 share.
 #include "gemm_s8.cuh"
+#include "niti_epilogue.cuh"
 
 namespace {
 
-// Phase 1: per-thread max |acc| -> warp reduce -> block reduce -> one
-// atomicMax per block into *out_max, which the caller sets to INT32_MIN.
+// Phase 1: per-thread max |acc|, then one atomicMax per block into
+// *out_max, which the caller sets to INT32_MIN.
 __global__ void __launch_bounds__(mh::THREADS)
     fused_max_kernel(mh::Operands p, int* out_max) {
   __shared__ __align__(16) mh::Smem s;
-  __shared__ int warp_max[mh::THREADS / 32];
   const int m0 = blockIdx.x * mh::BM, n0 = blockIdx.y * mh::BN;
   mh::Acc acc;
   mh::mainloop(s, p, m0, n0, 0, (p.K + mh::BK - 1) / mh::BK, acc);
   int local = INT_MIN;
   mh::for_each_acc(p, m0, n0, acc,
                    [&](int, int, int v) { local = max(local, mh::wrap_abs(v)); });
-  local = __reduce_max_sync(0xffffffffu, local);
-  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = local;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int m = warp_max[0];
-    for (int w = 1; w < mh::THREADS / 32; ++w) m = max(m, warp_max[w]);
-    atomicMax(out_max, m);
-  }
+  mh::block_max_atomic(local, out_max);
 }
 
 // Phase 2: recompute, then the psto epilogue. The shift is read from device
@@ -55,8 +49,7 @@ __global__ void __launch_bounds__(mh::THREADS)
   const int shift = *shift_ptr;
   const long long ldy = p.N;
   mh::for_each_acc(p, m0, n0, acc, [&](int row, int col, int v) {
-    const int q = (kGrad || shift > 0) ? mh::psto_round(v, shift, 127) : v;
-    y[row * ldy + col] = static_cast<int8_t>(static_cast<unsigned>(q) & 0xffu);
+    y[row * ldy + col] = mh::requant(v, shift, kGrad);
   });
 }
 

@@ -1,11 +1,13 @@
-// Shared mainloop of the int8 GEMM kernels: s8 x s8 -> s32 on the tensor
-// cores with mma.sync.m16n8k32, plus the NITI pseudo-stochastic shift.
+// Shared mainloop of the int8 GEMM kernels (K1, K2 and the implicit-GEMM
+// conv K3): s8 x s8 -> s32 on the tensor cores with mma.sync.m16n8k32.
 //
 // A block computes a BM x BN tile of C = A * B. A(m, k) and B(k, n) are read
 // through element strides, so a transposed operand (the filter gradient's
 // patches^T) needs no copy. Ragged M, N and K are masked while a tile is
 // staged in shared memory: out-of-range elements load as 0, which leaves
 // every sum unchanged. The int32 sums wrap (no .satfinite), as XLA's do.
+// The A tile comes from a loader, so that K3 can gather it from an NHWC
+// activation instead of reading a matrix.
 #pragma once
 
 #include <climits>
@@ -39,17 +41,10 @@ struct Smem {
 // One accumulator fragment set per thread: [m16 tile][n8 tile][4 values].
 using Acc = int[2][4][4];
 
-__device__ __forceinline__ void load_tiles(Smem& s, const Operands& p, int m0,
-                                           int n0, int k0) {
+// Stages B[k0:k0+BK, n0:n0+BN] into s.b, transposed (row n, k contiguous).
+__device__ __forceinline__ void load_b(Smem& s, const Operands& p, int n0, int k0) {
   // Neighbouring threads walk the operand's contiguous axis, so that a warp
   // reads neighbouring bytes of device memory.
-  const bool a_k_fast = p.sak == 1 || p.sam != 1;
-  for (int i = threadIdx.x; i < BM * BK; i += THREADS) {
-    const int r = a_k_fast ? i / BK : i % BM;
-    const int c = a_k_fast ? i % BK : i / BM;
-    const int m = m0 + r, k = k0 + c;
-    s.a[r][c] = (m < p.M && k < p.K) ? p.a[m * p.sam + k * p.sak] : int8_t(0);
-  }
   const bool b_n_fast = p.sbn == 1 || p.sbk != 1;
   for (int i = threadIdx.x; i < BN * BK; i += THREADS) {
     const int r = b_n_fast ? i % BN : i / BK;  // n
@@ -58,6 +53,20 @@ __device__ __forceinline__ void load_tiles(Smem& s, const Operands& p, int m0,
     s.b[r][c] = (n < p.N && k < p.K) ? p.b[k * p.sbk + n * p.sbn] : int8_t(0);
   }
 }
+
+// The A tile of a plain GEMM: A(m, k) = a[m * sam + k * sak].
+struct StridedA {
+  const Operands& p;
+  __device__ __forceinline__ void operator()(Smem& s, int m0, int k0) const {
+    const bool a_k_fast = p.sak == 1 || p.sam != 1;
+    for (int i = threadIdx.x; i < BM * BK; i += THREADS) {
+      const int r = a_k_fast ? i / BK : i % BM;
+      const int c = a_k_fast ? i % BK : i / BM;
+      const int m = m0 + r, k = k0 + c;
+      s.a[r][c] = (m < p.M && k < p.K) ? p.a[m * p.sam + k * p.sak] : int8_t(0);
+    }
+  }
+};
 
 __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
                                        const uint32_t (&b)[2]) {
@@ -73,8 +82,11 @@ __device__ __forceinline__ uint32_t ld32(const int8_t* p) {
 }
 
 // Accumulates A[m0:m0+BM, k] * B[k, n0:n0+BN] over the k-steps [kt0, kt1).
+// `load_a(s, m0, k0)` stages the A tile; it masks what lies outside A to 0.
+template <typename LoadA>
 __device__ __forceinline__ void mainloop(Smem& s, const Operands& p, int m0,
-                                         int n0, int kt0, int kt1, Acc& acc) {
+                                         int n0, int kt0, int kt1, Acc& acc,
+                                         const LoadA& load_a) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
   const int g = lane >> 2, t = lane & 3;
@@ -86,7 +98,8 @@ __device__ __forceinline__ void mainloop(Smem& s, const Operands& p, int m0,
       for (int j = 0; j < 4; ++j) acc[mi][ni][j] = 0;
 
   for (int kt = kt0; kt < kt1; ++kt) {
-    load_tiles(s, p, m0, n0, kt * BK);
+    load_a(s, m0, kt * BK);
+    load_b(s, p, n0, kt * BK);
     __syncthreads();
     // PTX fragment layout of m16n8k32 .s8 (groupID g = lane/4, t = lane%4):
     // A regs {row g, k 4t..}, {row g+8, k 4t..}, {row g, k 16+4t..},
@@ -114,6 +127,11 @@ __device__ __forceinline__ void mainloop(Smem& s, const Operands& p, int m0,
   }
 }
 
+__device__ __forceinline__ void mainloop(Smem& s, const Operands& p, int m0,
+                                         int n0, int kt0, int kt1, Acc& acc) {
+  mainloop(s, p, m0, n0, kt0, kt1, acc, StridedA{p});
+}
+
 // Calls f(row, col, value) for every in-range element of this thread's
 // fragments. C/D layout: value j sits at row g + 8*(j/2), col 2t + j%2.
 template <typename F>
@@ -132,34 +150,6 @@ __device__ __forceinline__ void for_each_acc(const Operands& p, int m0, int n0,
         const int col = n0 + wn + ni * 8 + t * 2 + (j & 1);
         if (row < p.M && col < p.N) f(row, col, acc[mi][ni][j]);
       }
-}
-
-// Bit-exact ``numerics.psto_round`` (NITI_MNNPstoShiftInt32). Shifts of a
-// negative value and any step that could overflow go through unsigned
-// arithmetic, which wraps as the int32 arithmetic of XLA does; >> of a
-// negative int is arithmetic.
-__device__ __forceinline__ int psto_round(int acc, int shift, int rail) {
-  shift = min(max(shift, 0), 30);
-  const unsigned mask = (1u << shift) - 1u;
-  const int bias = static_cast<int>(static_cast<unsigned>(acc >> 31) & mask);
-  const int round_temp =
-      static_cast<int>(static_cast<unsigned>(acc) + static_cast<unsigned>(bias)) >>
-      shift;
-  int prob = static_cast<int>(static_cast<unsigned>(acc) -
-                              (static_cast<unsigned>(round_temp) << shift));
-  if (prob < 0) prob = static_cast<int>(0u - static_cast<unsigned>(prob));
-  const int h = shift >> 1;
-  const int qprob = prob >> h;
-  const int prand = static_cast<int>(
-      (static_cast<unsigned>(prob) & ((1u << h) - 1u)) << (shift & 1));
-  const int sign = (acc > 0) - (acc < 0);
-  const int r = round_temp + (qprob > prand ? sign : 0);
-  return min(max(r, -rail), rail);
-}
-
-// |v| with |INT32_MIN| == INT32_MIN, as jnp.abs and torch.abs give it.
-__device__ __forceinline__ int wrap_abs(int v) {
-  return v < 0 ? static_cast<int>(0u - static_cast<unsigned>(v)) : v;
 }
 
 }  // namespace mh

@@ -1,14 +1,20 @@
-from .init import niti_xavier_int8
+from .blocks import GlobalAvgPool, NITIAvgPool, NITIDepthwiseConv2D, ResidualBlock
+from .init import niti_xavier_int8, niti_xavier_int8_dw_per_channel
 from .layers import Flatten, NITIConv2D, NITIMaxPool, NITIRelu, NITIRelu6, SqueezeLogits
 from .module import NITILayer, Sequential
 
 __all__ = [
     "niti_xavier_int8",
+    "niti_xavier_int8_dw_per_channel",
     "Flatten",
+    "GlobalAvgPool",
+    "NITIAvgPool",
     "NITIConv2D",
+    "NITIDepthwiseConv2D",
     "NITIMaxPool",
     "NITIRelu",
     "NITIRelu6",
+    "ResidualBlock",
     "SqueezeLogits",
     "NITILayer",
     "Sequential",

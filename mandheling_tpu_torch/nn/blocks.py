@@ -1,0 +1,144 @@
+"""Composite NITI layers: depthwise conv, average pools, the residual block
+(port of ``mandheling_tpu/nn/blocks.py``).
+
+The residual add is the int8 eltwise of the reference with a NOP gradient
+(`NITI_Eltwise_Int8.cpp`, `grad/NITI_DSPBinaryGrad.cpp:27-32`): the output
+diff passes unchanged to both paths, and where two gradient paths meet the
+contributions are summed and clipped to int8 (`grad/OpGrad.cpp:64-128`).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..ops import depthwise as dw_ops
+from ..ops import eltwise as elt_ops
+from ..ops import relu as relu_ops
+from ..ops.numerics import int8_clip
+from ..ops.qtensor import QTensor
+from .init import niti_xavier_int8, niti_xavier_int8_dw_per_channel
+from .layers import load_weight
+from .module import NITILayer, Sequential
+
+
+def _accum_grads(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return int8_clip(a.to(torch.int32) + b.to(torch.int32)).to(torch.int8)
+
+
+class NITIDepthwiseConv2D(NITILayer):
+    """int8 depthwise conv with the (KH, KW, 1, C) weight `w`. Its exponent
+    `w_exp` is 0-d, or a (C,) vector with `per_channel=True` (drawn by
+    ``niti_xavier_int8_dw_per_channel``, aligned by ops/depthwise.py)."""
+
+    def __init__(self, channels: int, kernel=(3, 3), stride=(1, 1), padding="SAME",
+                 per_channel: bool = False, act: Optional[str] = None):
+        super().__init__()
+        self.channels = channels
+        self.kernel = tuple(kernel)
+        self.stride = tuple(stride)
+        self.padding = padding
+        self.per_channel = per_channel
+        self.act = act
+        kh, kw = self.kernel
+        self.register_buffer("w", torch.zeros((kh, kw, 1, channels), dtype=torch.int8))
+        self.register_buffer(
+            "w_exp", torch.zeros((channels,) if per_channel else (), dtype=torch.int32))
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        init = niti_xavier_int8_dw_per_channel if self.per_channel else niti_xavier_int8
+        q = init(tuple(self.w.shape), generator)
+        self.w.copy_(q.data)
+        self.w_exp.copy_(q.exp)
+
+    def load_weight(self, data: np.ndarray, exp: np.ndarray) -> None:
+        """Set the weight from host arrays; a per-channel exponent vector
+        must pass the alignment cap's spread check."""
+        load_weight(self, data, exp)
+        dw_ops.check_pc_spread(self.w_exp, self.kernel[0] * self.kernel[1])
+
+    def weight_numpy(self) -> Tuple[np.ndarray, np.ndarray]:
+        return self.w.cpu().numpy(), self.w_exp.cpu().numpy()
+
+    def fwd(self, q: QTensor):
+        y, e = dw_ops.dwconv2d_forward(q.data, q.exp, self.w, self.w_exp, self.stride,
+                                       self.padding, act=self.act)
+        res = q.data if self.act is None else (q.data, y, e)
+        return QTensor(y, e), res
+
+    def bwd(self, res, gy):
+        if self.act is None:
+            x = res
+        elif self.act == "relu6":
+            x, y, y_exp = res
+            gy = relu_ops.relu6_grad_from_output(y, y_exp, gy)
+        else:
+            raise ValueError(f"unknown act {self.act!r}")
+        w_exp = self.w_exp if self.per_channel else None
+        gx = dw_ops.dwconv2d_input_grad(gy, self.w, (x.shape[1], x.shape[2]), self.stride,
+                                        self.padding, w_exp=w_exp)
+        gw = dw_ops.dwconv2d_filter_grad(x, gy, self.kernel, self.stride, self.padding,
+                                         w_exp=w_exp)
+        return gx, {"w": QTensor(gw, torch.zeros((), dtype=torch.int32, device=gw.device))}
+
+
+class NITIAvgPool(NITILayer):
+    """int8 average pool. `pad` > 0 zero-pads each spatial side before a
+    VALID pool (the divisor stays |window|)."""
+
+    def __init__(self, window=(2, 2), stride=None, pad: int = 0):
+        super().__init__()
+        self.window = tuple(window)
+        self.stride = tuple(stride) if stride else tuple(window)
+        self.pad = int(pad)
+
+    def fwd(self, q: QTensor):
+        x = elt_ops.pad_int8(q.data, self.pad) if self.pad else q.data
+        y, e = dw_ops.avgpool2d_int8(x, q.exp, self.window, self.stride)
+        return QTensor(y, e), x.shape
+
+    def bwd(self, res, gy):
+        gx = dw_ops.avgpool2d_grad(gy, (res[1], res[2]), self.window, self.stride)
+        if self.pad:
+            p = self.pad
+            gx = gx[:, p:-p, p:-p, :]
+        return gx, ()
+
+
+class GlobalAvgPool(NITILayer):
+    """(B, H, W, C) -> (B, 1, 1, C): the int32 sum over H and W divided by
+    H*W, truncated toward zero; the grad spreads gy / (H*W) back."""
+
+    def fwd(self, q: QTensor):
+        _, h, w, _ = q.data.shape
+        acc = q.data.to(torch.int32).sum(dim=(1, 2), keepdim=True, dtype=torch.int32)
+        out = torch.div(acc, h * w, rounding_mode="trunc")
+        return QTensor(int8_clip(out).to(torch.int8), q.exp), q.data.shape
+
+    def bwd(self, res, gy):
+        b, h, w, c = res
+        g = torch.div(gy.to(torch.int32), h * w, rounding_mode="trunc")
+        return int8_clip(g.expand(b, h, w, c)).to(torch.int8), ()
+
+
+class ResidualBlock(NITILayer):
+    """y = requant(branch(x) + x), exponent-aligned (ops/eltwise.add_int8).
+    Its grads are the branch's list, as the JAX package nests them."""
+
+    def __init__(self, branch: Sequential):
+        super().__init__()
+        self.branch = branch
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        self.branch.reset_parameters(generator)
+
+    def fwd(self, q: QTensor):
+        out, res = self.branch.fwd(q)
+        y, e = elt_ops.add_int8(out.data, out.exp, q.data, q.exp)
+        return QTensor(y, e), res
+
+    def bwd(self, res, gy):
+        g_branch_in, grads = self.branch.bwd(res, gy)
+        return _accum_grads(g_branch_in, gy), grads

@@ -16,6 +16,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..ops.depthwise import pc_shift_cap
 from ..ops.qtensor import QTensor
 
 
@@ -30,3 +31,22 @@ def niti_xavier_int8(shape_hwio: Tuple[int, int, int, int],
     exp = (torch.ceil(torch.log2(rng)) - 7).to(torch.int32)
     data = torch.round(w / rng * 127.0).to(torch.int8)
     return QTensor(data, exp)
+
+
+def niti_xavier_int8_dw_per_channel(shape_hwio: Tuple[int, int, int, int],
+                                    generator: Optional[torch.Generator] = None) -> QTensor:
+    """Depthwise weight (KH, KW, 1, C) with a per-channel (C,) int32 exponent:
+    the same Xavier draw (fan_in = fan_out = KH*KW), scaled per channel.
+    Each channel's range is floored at max_c(range) / 2^cap, cap =
+    ``ops.depthwise.pc_shift_cap(KH*KW)``, so that the exponent spread never
+    exceeds the int32-safe alignment cap."""
+    kh, kw, one, c = shape_hwio
+    if one != 1:
+        raise ValueError(f"depthwise weights are (KH, KW, 1, C), got {tuple(shape_hwio)}")
+    std = math.sqrt(2.0 / (kh * kw + kh * kw))
+    w = torch.randn(tuple(shape_hwio), generator=generator, dtype=torch.float32) * std
+    rng_c = torch.abs(w).amax(dim=(0, 1, 2))
+    rng_c = torch.maximum(rng_c, rng_c.amax() / (2.0 ** pc_shift_cap(kh * kw)))
+    exp_c = (torch.ceil(torch.log2(rng_c)) - 7).to(torch.int32)
+    data = torch.round(w / rng_c * 127.0).to(torch.int8)
+    return QTensor(data, exp_c)

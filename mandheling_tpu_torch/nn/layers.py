@@ -20,6 +20,18 @@ from .init import niti_xavier_int8
 from .module import NITILayer
 
 
+def load_weight(layer: NITILayer, data: np.ndarray, exp: np.ndarray) -> None:
+    """Copy host arrays into `layer`'s int8 `w` and int32 `w_exp` buffers,
+    whose shapes they must have."""
+    data = torch.from_numpy(np.array(data, dtype=np.int8))
+    exp = torch.from_numpy(np.array(exp, dtype=np.int32))
+    for name, src, dst in (("weight", data, layer.w), ("exponent", exp, layer.w_exp)):
+        if tuple(src.shape) != tuple(dst.shape):
+            raise ValueError(f"{name} shape {tuple(src.shape)} != {tuple(dst.shape)}")
+    layer.w.copy_(data)
+    layer.w_exp.copy_(exp)
+
+
 class NITIConv2D(NITILayer):
     """int8 conv with NITI power-of-two requantization; FC layers are 1x1
     convs over 1x1 spatial. Holds the HWIO int8 weight `w` and its 0-d int32
@@ -56,11 +68,7 @@ class NITIConv2D(NITILayer):
 
     def load_weight(self, data: np.ndarray, exp: np.ndarray) -> None:
         """Set the weight from host arrays (HWIO int8 data, int32 exponent)."""
-        data = torch.from_numpy(np.array(data, dtype=np.int8))
-        if tuple(data.shape) != tuple(self.w.shape):
-            raise ValueError(f"weight shape {tuple(data.shape)} != {tuple(self.w.shape)}")
-        self.w.copy_(data)
-        self.w_exp.copy_(torch.from_numpy(np.array(exp, dtype=np.int32)))
+        load_weight(self, data, exp)
 
     def weight_numpy(self) -> Tuple[np.ndarray, np.ndarray]:
         return self.w.cpu().numpy(), self.w_exp.cpu().numpy()

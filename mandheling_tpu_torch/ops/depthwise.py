@@ -1,0 +1,266 @@
+"""NITI int8 depthwise convolution and average pooling (port of
+``mandheling_tpu/ops/depthwise.py``).
+
+Weights are (KH, KW, 1, C) HWIO, one filter per channel. Numerics follow the
+NITI conv contract: int8 x int8 -> int32, forward and input-grad requant at
+bw-7, filter grad at bw - margin, the shared code of ops/numerics.py.
+
+- The accumulator is the "taps" form, the JAX package's default: KH*KW
+  shifted multiply-adds (its "grouped" routing gives the same bytes and is
+  not ported).
+- Under the "cuda" backend a stride-1 per-tensor forward, and every input
+  grad whose pads are not negative, run through the two-phase fused kernel
+  K4 (``kernels/fused_dwconv_int8.py``) when its `supports` takes the shape,
+  as under the JAX package's Pallas backends. The strided forward and the
+  per-channel forms run the taps as plain torch ops on the tensor's device,
+  as the JAX package computes them outside Pallas.
+- The filter grad is a sum over (b, oh, ow) of tap products, in plain
+  torch, as the JAX package computes it outside Pallas (a batch-grouped
+  conv); the int32 sum wraps as XLA's does.
+- A per-channel exponent vector (``nn/init.niti_xavier_int8_dw_per_channel``)
+  is aligned to the smallest channel exponent by shifts capped by
+  :func:`pc_shift_cap`.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from . import allreduce, numerics
+from .conv import (_apply_act, _fused_enabled, _input_grad_pads, get_fused_conv_mode,
+                   resolve_padding)
+from .kernels import fused_dwconv_int8 as _fdw
+from .kernels.conv_int8 import _dilate_hw, pad_hw
+
+Pads = Tuple[Tuple[int, int], Tuple[int, int]]
+
+
+def pc_shift_cap(taps: int) -> int:
+    """Largest alignment left shift such that the worst-case |acc| of `taps`
+    int8*int8 products stays int32: taps*127^2 << cap < 2^31 (3x3 -> 12,
+    5x5 -> 11, 7x7 -> 10)."""
+    return 30 - math.ceil(math.log2(taps * 127 * 127))
+
+
+def check_pc_spread(w_exp: torch.Tensor, taps: int) -> None:
+    """Raise if a per-channel exponent vector spreads wider than the
+    int32-safe alignment cap. Reads the exponents on the host."""
+    if w_exp.dim() == 0:
+        return
+    cap = pc_shift_cap(taps)
+    spread = int(w_exp.max()) - int(w_exp.min())
+    if spread > cap:
+        raise ValueError(
+            f"per-channel dw exponent spread {spread} exceeds the int32-safe "
+            f"alignment cap {cap} for a {taps}-tap kernel; re-initialize with "
+            "niti_xavier_int8_dw_per_channel (which floors the per-channel "
+            "range) or narrow the exponents"
+        )
+
+
+def _per_channel_shifts(w_exp: torch.Tensor, taps: int = 9):
+    """(e_base 0-d, shift_c vector or None) for a per-tensor (0-d) or a
+    per-channel ((C,)) weight exponent. The vector case aligns every channel
+    to the smallest exponent by a left shift of exp_c - min exp_c, clipped
+    to the cap.
+
+    The spread check reads the exponents on the host, so it runs here only
+    for a CPU tensor; on the card the layer ran it when its exponents were
+    set (NITI-SGD never changes them), as the JAX package runs it only on a
+    concrete value and not inside a traced step."""
+    w_exp = w_exp.to(torch.int32)
+    if w_exp.dim() == 0:
+        return w_exp, None
+    if not w_exp.is_cuda:
+        check_pc_spread(w_exp, taps)
+    e_base = w_exp.amin()
+    return e_base, torch.clamp(w_exp - e_base, 0, pc_shift_cap(taps))
+
+
+# Depthwise filter-grad requant margin (shift = bw - margin). The dense NITI
+# contract is 2; the MobileNetV2 recipe (MobilenetV2Train) sets 0 for the
+# dense and the depthwise filter grads.
+_DW_FGRAD_MARGIN = 2
+
+
+def set_dw_fgrad_margin(margin: int) -> None:
+    global _DW_FGRAD_MARGIN
+    _DW_FGRAD_MARGIN = int(margin)
+
+
+def get_dw_fgrad_margin() -> int:
+    return _DW_FGRAD_MARGIN
+
+
+def _dw_acc_taps(x: torch.Tensor, w: torch.Tensor, stride: Tuple[int, int],
+                 pad: Pads) -> torch.Tensor:
+    return _fdw.dwconv_acc_plain(pad_hw(x, pad), w, stride)
+
+
+def dwconv2d_int8_acc(x: torch.Tensor, w: torch.Tensor,
+                      stride: Sequence[int] = (1, 1), padding="SAME") -> torch.Tensor:
+    """int8 NHWC x, (KH, KW, 1, C) w -> int32 depthwise accumulator."""
+    pad = resolve_padding(padding, w.shape[:2], stride, x.shape[1:3])
+    return _dw_acc_taps(x, w, tuple(stride), pad)
+
+
+def _fused_dw_requant(x: torch.Tensor, w: torch.Tensor, stride: Tuple[int, int],
+                      pad: Pads, grad: bool) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+    """The depthwise conv through the two-phase fused kernel K4 -> (int8 y,
+    eff_shift), or None: stride 1 only (strided input grads come here
+    pre-dilated), and only for shapes `supports` takes."""
+    if get_fused_conv_mode() == "off" or tuple(stride) != (1, 1):
+        return None
+    kh, kw, _, c = w.shape
+    xp = pad_hw(x, pad)
+    b, hp, wp, _ = xp.shape
+    oh, ow = hp - kh + 1, wp - kw + 1
+    if not _fdw.supports(b, hp, wp, oh, ow, c):
+        return None
+    m = _fdw.dwconv_max(xp, w)
+    eff_shift = numerics.forward_shift(numerics.range_estimate_from_max(m))
+    return _fdw.dwconv_requant(xp, w, eff_shift, grad=grad), eff_shift
+
+
+def dwconv2d_forward(
+    x: torch.Tensor,
+    x_exp: torch.Tensor,
+    w: torch.Tensor,
+    w_exp: torch.Tensor,
+    stride: Sequence[int] = (1, 1),
+    padding="SAME",
+    act: Optional[str] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """NITI int8 depthwise forward -> (int8 y, int32 exp_out)."""
+    e_base, pc_shift = _per_channel_shifts(w_exp, w.shape[0] * w.shape[1])
+    exp_in = x_exp.to(torch.int32) + e_base
+    if _fused_enabled() and pc_shift is None:
+        pad = resolve_padding(padding, w.shape[:2], stride, x.shape[1:3])
+        fused = _fused_dw_requant(x, w, tuple(stride), pad, grad=False)
+        if fused is not None:
+            y, eff_shift = fused
+            e = exp_in + eff_shift
+            return _apply_act(y, e, act), e
+    acc = dwconv2d_int8_acc(x, w, stride, padding)
+    if pc_shift is not None:
+        acc = acc << pc_shift
+    bw = numerics.range_estimate_from_max(numerics.abs_max(acc))
+    y, e = numerics.requant_forward_from_bw(acc, exp_in, bw)
+    return _apply_act(y, e, act), e
+
+
+def dwconv2d_input_grad(
+    gy: torch.Tensor,
+    w: torch.Tensor,
+    x_spatial: Tuple[int, int],
+    stride: Sequence[int] = (1, 1),
+    padding="SAME",
+    w_exp: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Transposed depthwise conv with rot180 weights (no io swap: one in,
+    one out per channel) on the zero-dilated gy, bw-7 requant. A
+    per-channel `w_exp` aligns each channel's accumulator to the smallest
+    channel exponent before the per-tensor requant."""
+    kh, kw = w.shape[0], w.shape[1]
+    pc_shift = None
+    if w_exp is not None and w_exp.dim() > 0:
+        _, pc_shift = _per_channel_shifts(w_exp, kh * kw)
+    pad = _input_grad_pads(w.shape, x_spatial, gy.shape[1:3], tuple(stride), padding)
+    w_rot = torch.flip(w, dims=(0, 1))
+    gy_d = _dilate_hw(gy, *stride)
+    if _fused_enabled() and pc_shift is None and min(pad[0] + pad[1]) >= 0:
+        fused = _fused_dw_requant(gy_d, w_rot, (1, 1), pad, grad=False)
+        if fused is not None:
+            return fused[0]
+    acc = _dw_acc_taps(gy_d, w_rot, (1, 1), pad)
+    if pc_shift is not None:
+        acc = acc << pc_shift
+    bw = numerics.range_estimate_from_max(numerics.abs_max(acc))
+    out, _ = numerics.requant_forward_from_bw(acc, torch.zeros_like(bw), bw)
+    return out
+
+
+def dwconv2d_filter_grad_acc(
+    x: torch.Tensor, gy: torch.Tensor, kernel_spatial: Tuple[int, int],
+    stride: Sequence[int] = (1, 1), padding="SAME",
+) -> torch.Tensor:
+    """int32 (KH, KW, 1, C) accumulator:
+    dw[dy,dx,0,c] = sum_{b,oh,ow} xp[b, oh*s+dy, ow*s+dx, c] * gy[b,oh,ow,c].
+    torch sums int32 products in int64; the low 32 bits are kept, as XLA's
+    int32 accumulation wraps (b256 at 32x32 can pass 2^31)."""
+    kh, kw = kernel_spatial
+    sh, sw = stride
+    xp = pad_hw(x, resolve_padding(padding, (kh, kw), stride, x.shape[1:3]))
+    oh, ow = gy.shape[1], gy.shape[2]
+    g = gy.to(torch.int32)
+    taps = []
+    for dy in range(kh):
+        for dx in range(kw):
+            tap = xp[:, dy:dy + (oh - 1) * sh + 1:sh, dx:dx + (ow - 1) * sw + 1:sw, :]
+            taps.append((tap.to(torch.int32) * g).sum(dim=(0, 1, 2)))
+    return torch.stack(taps).reshape(kh, kw, 1, -1).to(torch.int32)
+
+
+def dwconv2d_filter_grad(
+    x: torch.Tensor,
+    gy: torch.Tensor,
+    kernel_spatial: Tuple[int, int],
+    stride: Sequence[int] = (1, 1),
+    padding="SAME",
+    w_exp: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """int8 depthwise filter grad with the bw - margin shift. A per-channel
+    `w_exp` expresses the accumulator (value units, uniform across channels)
+    in each channel's own data units by a truncating right shift of
+    exp_c - min exp_c before the per-tensor requant."""
+    kh, kw = kernel_spatial
+    acc = dwconv2d_filter_grad_acc(x, gy, kernel_spatial, stride, padding)
+    pc_shift = None
+    if w_exp is not None and w_exp.dim() > 0:
+        _, pc_vec = _per_channel_shifts(w_exp, kh * kw)
+        pc_shift = pc_vec.reshape(1, 1, 1, -1)
+    return allreduce.grad_allreduce_requant(acc, None, margin=_DW_FGRAD_MARGIN,
+                                            pc_shift=pc_shift)
+
+
+def avgpool2d_int8(
+    x: torch.Tensor, x_exp: torch.Tensor, window: Sequence[int],
+    stride: Optional[Sequence[int]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """int8 VALID average pool: int32 window sum, division truncated toward
+    zero by the window size, exponent passthrough."""
+    kh, kw = window
+    sh, sw = stride or window
+    b, ih, iw, c = x.shape
+    oh, ow = (ih - kh) // sh + 1, (iw - kw) // sw + 1
+    acc = torch.zeros((b, oh, ow, c), dtype=torch.int32, device=x.device)
+    for dy in range(kh):
+        for dx in range(kw):
+            acc += x[:, dy:dy + (oh - 1) * sh + 1:sh, dx:dx + (ow - 1) * sw + 1:sw, :].to(torch.int32)
+    out = torch.div(acc, kh * kw, rounding_mode="trunc")
+    return numerics.int8_clip(out).to(torch.int8), x_exp
+
+
+def avgpool2d_grad(
+    gy: torch.Tensor, x_spatial: Tuple[int, int], window: Sequence[int],
+    stride: Optional[Sequence[int]] = None,
+) -> torch.Tensor:
+    """Spread gy / |window| (truncating division) over each window; int32
+    sums of overlapping windows clip to int8."""
+    kh, kw = window
+    sh, sw = stride or window
+    ih, iw = x_spatial
+    g = torch.div(gy.to(torch.int32), kh * kw, rounding_mode="trunc")
+    b, oh, ow, c = gy.shape
+    dil = _dilate_hw(g, sh, sw)
+    dh, dw = dil.shape[1], dil.shape[2]
+    gx = torch.zeros((b, ih, iw, c), dtype=torch.int32, device=gy.device)
+    for dy in range(kh):
+        for dx in range(kw):
+            # lax.dynamic_update_slice clamps the start so that the update fits
+            y0, x0 = min(dy, ih - dh), min(dx, iw - dw)
+            gx[:, y0:y0 + dh, x0:x0 + dw, :] += dil
+    return numerics.int8_clip(gx).to(torch.int8)

@@ -1,0 +1,51 @@
+"""NITI int8 elementwise ops: the exponent-aligned residual add, padding and
+the channel concat (port of ``mandheling_tpu/ops/eltwise.py``; reference
+`NITI_Eltwise_Int8.cpp:26`, `NITI_PAD_Int8`).
+
+Operands with different exponents are aligned to the larger one by a
+truncating right shift before the int32 add; the sum is then requantized
+forward-style, so everything stays power-of-two.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from . import numerics
+
+
+def add_int8(
+    a: torch.Tensor, a_exp: torch.Tensor, b: torch.Tensor, b_exp: torch.Tensor,
+    out_bits: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exponent-aligned integer residual add -> (intN, exp_out): align to
+    max(a_exp, b_exp) by x >> (max_exp - x_exp), add in int32, forward
+    requant. `out_bits` defaults to the wider operand's (15 for int16)."""
+    if out_bits is None:
+        out_bits = 15 if torch.int16 in (a.dtype, b.dtype) else 7
+    a_exp = a_exp.to(torch.int32)
+    b_exp = b_exp.to(torch.int32)
+    e = torch.maximum(a_exp, b_exp)
+    acc = numerics.trunc_shift_div(a, e - a_exp) + numerics.trunc_shift_div(b, e - b_exp)
+    return numerics.requant_forward(acc, e, out_bits)
+
+
+def pad_int8(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """Symmetric spatial zero-pad of an NHWC tensor (NITI_PAD_Int8)."""
+    return F.pad(x, (0, 0, pad, pad, pad, pad))
+
+
+def concat_int8(datas: Sequence[torch.Tensor],
+                exps: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exponent-aligned channel concat -> (int8, exp_out): every branch is
+    right-shifted (truncating) to e = max(exps), which keeps it int8."""
+    exps = [e.to(torch.int32) for e in exps]
+    e = exps[0]
+    for ei in exps[1:]:
+        e = torch.maximum(e, ei)
+    aligned = [numerics.trunc_shift_div(d, e - ei).to(torch.int8)
+               for d, ei in zip(datas, exps)]
+    return torch.cat(aligned, dim=-1), e

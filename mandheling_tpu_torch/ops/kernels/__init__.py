@@ -6,32 +6,45 @@ PyTorch versions, and the backend selector.
 | `matmul_int8`          | matmul_int8.py         | matmul_int8.py `_matmul_kernel`            |
 | `fused_matmul_max`     | fused_matmul_int8.py   | fused_matmul_int8.py `_small_max_kernel`, `_max_kernel` |
 | `fused_matmul_requant` | fused_matmul_int8.py   | fused_matmul_int8.py `_small_requant_kernel`, `_requant_kernel` |
+| `fused_conv_max`       | fused_conv_int8.py     | fused_conv_int8.py `_max_kernel` (`conv_max_pallas`) |
+| `fused_conv_requant`   | fused_conv_int8.py     | fused_conv_int8.py `_requant_kernel` (`conv_requant_pallas`) |
+| `fused_dwconv_max`     | fused_dwconv_int8.py   | fused_dwconv_int8.py `_max_kernel` (`dwconv_max_pallas`) |
+| `fused_dwconv_requant` | fused_dwconv_int8.py   | fused_dwconv_int8.py `_requant_kernel` (`dwconv_requant_pallas`) |
 """
 
 from typing import Dict
 
-from . import conv_int8, dispatch, fused_matmul_int8, matmul_int8
+from . import (conv_int8, dispatch, fused_conv_int8, fused_dwconv_int8, fused_matmul_int8,
+               matmul_int8)
 from .dispatch import get_backend, set_backend, use_backend
+
+# kernel name -> (module, name of its launch counter)
+_COUNTERS = {
+    "matmul_int8": (matmul_int8, "LAUNCHES"),
+    "fused_matmul_max": (fused_matmul_int8, "MAX_LAUNCHES"),
+    "fused_matmul_requant": (fused_matmul_int8, "REQUANT_LAUNCHES"),
+    "fused_conv_max": (fused_conv_int8, "MAX_LAUNCHES"),
+    "fused_conv_requant": (fused_conv_int8, "REQUANT_LAUNCHES"),
+    "fused_dwconv_max": (fused_dwconv_int8, "MAX_LAUNCHES"),
+    "fused_dwconv_requant": (fused_dwconv_int8, "REQUANT_LAUNCHES"),
+}
 
 
 def launch_counts() -> Dict[str, int]:
     """CUDA launches of each kernel since the last reset."""
-    return {
-        "matmul_int8": matmul_int8.LAUNCHES,
-        "fused_matmul_max": fused_matmul_int8.MAX_LAUNCHES,
-        "fused_matmul_requant": fused_matmul_int8.REQUANT_LAUNCHES,
-    }
+    return {name: getattr(mod, attr) for name, (mod, attr) in _COUNTERS.items()}
 
 
 def reset_launch_counts() -> None:
-    matmul_int8.LAUNCHES = 0
-    fused_matmul_int8.MAX_LAUNCHES = 0
-    fused_matmul_int8.REQUANT_LAUNCHES = 0
+    for mod, attr in _COUNTERS.values():
+        setattr(mod, attr, 0)
 
 
 __all__ = [
     "conv_int8",
     "dispatch",
+    "fused_conv_int8",
+    "fused_dwconv_int8",
     "fused_matmul_int8",
     "matmul_int8",
     "get_backend",

@@ -30,8 +30,10 @@ BUILD_DIR = _PKG / "_build"
 SOURCES = {
     "matmul_int8": "matmul_int8.cu",
     "fused_matmul_int8": "fused_matmul_int8.cu",
+    "fused_conv_int8": "fused_conv_int8.cu",
+    "fused_dwconv_int8": "fused_dwconv_int8.cu",
 }
-_HEADERS = ("gemm_s8.cuh",)
+_HEADERS = ("gemm_s8.cuh", "niti_epilogue.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -30,6 +30,14 @@ def _dilate_hw(x: torch.Tensor, dh: int, dw: int) -> torch.Tensor:
     return out
 
 
+def pad_hw(x: torch.Tensor, padding: Pads) -> torch.Tensor:
+    """Zero-pad H and W of an NHWC tensor; negative pads crop, as XLA's do."""
+    (pt, pb), (pl, pr) = padding
+    if (pt, pb, pl, pr) == (0, 0, 0, 0):
+        return x
+    return F.pad(x, (0, 0, pl, pr, pt, pb))
+
+
 def im2col(
     x: torch.Tensor,
     kernel: Tuple[int, int],
@@ -43,10 +51,7 @@ def im2col(
     kh, kw = kernel
     sh, sw = strides
     rdh, rdw = rhs_dilation
-    x = _dilate_hw(x, *lhs_dilation)
-    (pt, pb), (pl, pr) = padding
-    if (pt, pb, pl, pr) != (0, 0, 0, 0):
-        x = F.pad(x, (0, 0, pl, pr, pt, pb))
+    x = pad_hw(_dilate_hw(x, *lhs_dilation), padding)
     b, ih, iw, c = x.shape
     oh = (ih - ((kh - 1) * rdh + 1)) // sh + 1
     ow = (iw - ((kw - 1) * rdw + 1)) // sw + 1

@@ -1,0 +1,167 @@
+"""K3: the two-phase fused NITI conv, a hand-written Hopper kernel
+(``csrc/fused_conv_int8.cu``) and its plain PyTorch version.
+
+Replaces the TPU kernels of ``mandheling_tpu/ops/kernels/fused_conv_int8.py``:
+``_max_kernel`` (``conv_max_pallas``) and ``_requant_kernel``
+(``conv_requant_pallas``). It keeps their contract, not their banding: an
+implicit-GEMM int8 conv on K1's mma.sync mainloop that gathers its A tile
+from the NHWC input by index (stride and padding applied there, pads masked
+to 0), with K2's two epilogues.
+
+- phase 1 (:func:`conv_max`): max|conv(x, w)| as a 0-d int32; the int32
+  accumulator never reaches device memory.
+- glue (the caller, ``ops/conv.py``): ``range_estimate_from_max`` and
+  ``forward_shift`` on the device.
+- phase 2 (:func:`conv_requant`): recompute the conv and apply the psto
+  epilogue, reading the shift from device memory, writing int8 only.
+
+Bound on an H100: phase 2 by bytes at every shape it serves; phase 1, which
+writes 4 bytes, near the ridge at the MobileNetV2 stem and by the tensor
+cores' operations at LeNet's conv2 input grad (see the CUDA source).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Tuple
+
+import torch
+
+from .. import numerics
+from . import build
+from .conv_int8 import conv_acc
+from .matmul_int8 import matmul_acc_plain
+
+# Launches of the two CUDA kernels (plain integers; counted where they launch).
+MAX_LAUNCHES = 0
+REQUANT_LAUNCHES = 0
+
+Pads = Tuple[Tuple[int, int], Tuple[int, int]]
+
+_BAND_BUDGET = 4 * 2**20
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def supports(w_shape, padded_width: int, stride, band_budget: int = _BAND_BUDGET) -> bool:
+    """The JAX package's eligibility rule, unchanged (its band-matrix VMEM
+    budget), so that the same shapes take the fused route on both.
+    `padded_width` is the input width including the conv's padding."""
+    kh, kw, ic, oc = w_shape
+    sw = stride[1]
+    ow = (padded_width - kw) // sw + 1
+    if ow < 1:
+        return False
+    bn = min(_round_up(ow * oc, 128), 512)
+    return kh * padded_width * ic * bn <= band_budget
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = build.library("fused_conv_int8")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.mh_fused_conv_max.argtypes = [p, p, p] + [i] * 13 + [p]
+    lib.mh_fused_conv_max.restype = ctypes.c_int
+    lib.mh_fused_conv_requant.argtypes = [p, p, p, p] + [i] * 14 + [p]
+    lib.mh_fused_conv_requant.restype = ctypes.c_int
+    return lib
+
+
+def _out_spatial(x: torch.Tensor, w: torch.Tensor, pad: Pads, stride) -> Tuple[int, int]:
+    kh, kw = w.shape[:2]
+    hp = x.shape[1] + pad[0][0] + pad[0][1]
+    wp = x.shape[2] + pad[1][0] + pad[1][1]
+    return (hp - kh) // stride[0] + 1, (wp - kw) // stride[1] + 1
+
+
+def _check(x: torch.Tensor, w: torch.Tensor) -> None:
+    if x.dim() != 4 or w.dim() != 4 or x.shape[3] != w.shape[2]:
+        raise ValueError(f"need NHWC x and HWIO w, got {tuple(x.shape)}, {tuple(w.shape)}")
+    if x.dtype != torch.int8 or w.dtype != torch.int8:
+        raise TypeError(f"int8 operands only, got {x.dtype}, {w.dtype}")
+
+
+def conv_acc_plain(x: torch.Tensor, w: torch.Tensor, pad: Pads,
+                   stride=(1, 1)) -> torch.Tensor:
+    """int32 NHWC accumulator of the conv, exact on any device (im2col and
+    the float64 GEMM of K1's plain version)."""
+    _check(x, w)
+    return conv_acc(x, w, tuple(stride), pad, matmul=matmul_acc_plain)
+
+
+def conv_max_plain(x, w, pad: Pads, stride=(1, 1)) -> torch.Tensor:
+    return numerics.abs_max(conv_acc_plain(x, w, pad, stride))
+
+
+def conv_requant_plain(x, w, shift: torch.Tensor, pad: Pads, stride=(1, 1),
+                       grad: bool = False) -> torch.Tensor:
+    return numerics.psto_epilogue(conv_acc_plain(x, w, pad, stride), shift, grad)
+
+
+def _geometry(x: torch.Tensor, w: torch.Tensor, pad: Pads, stride):
+    _check(x, w)
+    if not (x.is_cuda and w.is_cuda) or x.device != w.device:
+        raise ValueError(f"K3 needs x and w on one CUDA device, got {x.device}, {w.device}")
+    if min(pad[0] + pad[1]) < 0:
+        raise ValueError(f"K3 takes no negative pads, got {pad}")
+    b, h, wd, c = x.shape
+    kh, kw, _, oc = w.shape
+    oh, ow = _out_spatial(x, w, pad, stride)
+    if b * max(oh, 0) * max(ow, 0) >= 2**31 or x.numel() >= 2**31:
+        raise ValueError("K3 indexes rows with int32")
+    geom = [b, h, wd, c, oh, ow, oc, kh, kw, stride[0], stride[1], pad[0][0], pad[1][0]]
+    return x.contiguous(), w.contiguous(), (b, max(oh, 0), max(ow, 0), oc), geom
+
+
+def conv_max_cuda(x: torch.Tensor, w: torch.Tensor, pad: Pads, stride=(1, 1)) -> torch.Tensor:
+    """Phase 1 on the card -> 0-d int32 max|conv| (INT32_MIN when empty)."""
+    global MAX_LAUNCHES
+    x, w, (b, oh, ow, oc), geom = _geometry(x, w, pad, stride)
+    out = torch.full((), -(2**31), dtype=torch.int32, device=x.device)
+    if b * oh * ow * oc == 0:
+        return out
+    err = _lib().mh_fused_conv_max(x.data_ptr(), w.data_ptr(), out.data_ptr(), *geom,
+                                   torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"fused_conv_max kernel launch failed: CUDA error {err}")
+    MAX_LAUNCHES += 1
+    return out
+
+
+def conv_requant_cuda(x: torch.Tensor, w: torch.Tensor, shift: torch.Tensor, pad: Pads,
+                      stride=(1, 1), grad: bool = False) -> torch.Tensor:
+    """Phase 2 on the card -> int8 NHWC (B, OH, OW, OC); `shift` is a 0-d
+    int32 on the operands' device and is read there by the kernel."""
+    global REQUANT_LAUNCHES
+    x, w, (b, oh, ow, oc), geom = _geometry(x, w, pad, stride)
+    if shift.device != x.device or shift.numel() != 1:
+        raise ValueError("shift must be a one-element tensor on the operands' device")
+    shift = shift.to(torch.int32).contiguous()
+    y = torch.empty((b, oh, ow, oc), dtype=torch.int8, device=x.device)
+    if y.numel() == 0:
+        return y
+    err = _lib().mh_fused_conv_requant(x.data_ptr(), w.data_ptr(), shift.data_ptr(),
+                                       y.data_ptr(), *geom, int(grad),
+                                       torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"fused_conv_requant kernel launch failed: CUDA error {err}")
+    REQUANT_LAUNCHES += 1
+    return y
+
+
+def conv_max(x: torch.Tensor, w: torch.Tensor, pad: Pads, stride=(1, 1)) -> torch.Tensor:
+    """Phase 1: the kernel on a CUDA tensor, its plain version on a CPU one."""
+    if x.is_cuda:
+        return conv_max_cuda(x, w, pad, stride)
+    return conv_max_plain(x, w, pad, stride)
+
+
+def conv_requant(x: torch.Tensor, w: torch.Tensor, shift: torch.Tensor, pad: Pads,
+                 stride=(1, 1), grad: bool = False) -> torch.Tensor:
+    """Phase 2: the kernel on a CUDA tensor, its plain version on a CPU one."""
+    if x.is_cuda:
+        return conv_requant_cuda(x, w, shift, pad, stride, grad)
+    return conv_requant_plain(x, w, shift, pad, stride, grad)

@@ -67,22 +67,13 @@ def _check_cuda(a: torch.Tensor, b: torch.Tensor) -> None:
         raise ValueError(f"K2 needs both operands on one CUDA device, got {a.device}, {b.device}")
 
 
-def _epilogue(acc: torch.Tensor, shift: torch.Tensor, grad: bool) -> torch.Tensor:
-    """psto requant; the forward variant wrap-casts when shift <= 0."""
-    shifted = numerics.psto_round(acc, shift)
-    if grad:
-        return shifted.to(torch.int8)
-    plain = acc.to(torch.int8).to(torch.int32)
-    return torch.where(shift > 0, shifted, plain).to(torch.int8)
-
-
 def matmul_max_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return torch.abs(matmul_acc_plain(a, b)).amax()
+    return numerics.abs_max(matmul_acc_plain(a, b))
 
 
 def matmul_requant_plain(a: torch.Tensor, b: torch.Tensor, shift: torch.Tensor,
                          grad: bool = False) -> torch.Tensor:
-    return _epilogue(matmul_acc_plain(a, b), shift.to(torch.int32), grad)
+    return numerics.psto_epilogue(matmul_acc_plain(a, b), shift, grad)
 
 
 def matmul_max_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -105,6 +105,25 @@ def psto_shift_int8(acc: torch.Tensor, shift) -> torch.Tensor:
     return psto_round(acc, shift).to(torch.int8)
 
 
+def psto_epilogue(acc: torch.Tensor, shift: torch.Tensor, grad: bool) -> torch.Tensor:
+    """Phase 2 of the two-phase fused kernels (K2, K3, K4): psto by `shift`
+    to int8; the forward variant (`grad` False) wrap-casts when shift <= 0."""
+    shift = shift.to(torch.int32)
+    shifted = psto_round(acc, shift)
+    if grad:
+        return shifted.to(torch.int8)
+    plain = acc.to(torch.int8).to(torch.int32)
+    return torch.where(shift > 0, shifted, plain).to(torch.int8)
+
+
+def abs_max(acc: torch.Tensor) -> torch.Tensor:
+    """max|acc| as a 0-d int32, INT32_MIN for an empty tensor (the identity
+    of jnp.max); |INT32_MIN| stays negative, as jnp.abs gives it."""
+    if acc.numel() == 0:
+        return torch.full((), -(2**31), dtype=torch.int32, device=acc.device)
+    return torch.abs(acc.to(torch.int32)).amax()
+
+
 def forward_shift(bw: torch.Tensor, out_bits: int = 7) -> torch.Tensor:
     """Effective forward shift: bw-out_bits, promoted to 2 when exactly 1,
     0 when <= 0 (NITI_Conv_Int8.cpp:262-305)."""

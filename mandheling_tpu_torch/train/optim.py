@@ -14,9 +14,13 @@ from ..ops.numerics import int8_clip
 def niti_sgd_update(model: Sequential, grads: List) -> None:
     """w <- clip_int8(w - g) for every layer with a weight grad; exponents
     unchanged (`NITI_SGD.hpp:20-57`). Updates the weight buffers in place,
-    where the JAX package returns new params: no second copy of the model."""
+    where the JAX package returns new params: no second copy of the model.
+    A block's grads are a nested list (a ResidualBlock's are its branch's):
+    the update recurses into the block's `branch`."""
     for layer, g in zip(model.layers, grads):
-        if g:
+        if isinstance(g, list):
+            niti_sgd_update(layer.branch, g)
+        elif g:
             new = int8_clip(layer.w.to(torch.int32) - g["w"].data.to(torch.int32))
             layer.w.copy_(new)
 

@@ -2,8 +2,10 @@
 ``mandheling_tpu/train/trainer.py``; reference `MnistUtils::train`,
 demo/MnistUtils.cpp:35-469).
 
-`NITIDSPInt8Train` is `train_niti` with the default backend "cuda": every
-contraction of the step runs through the hand-written kernels.
+`NITIDSPInt8Train` is `train_niti` with the default model (the NITI LeNet)
+and the default backend "cuda": every contraction of the step runs through
+the hand-written kernels. `model=mobilenet_v2_niti()` trains MobileNetV2
+(`MobilenetV2Train`) through the same loop.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 from ..data.loader import DataLoader, onehot_padded
 from ..device import resolve_device
 from ..models import NITI_LOGIT_CHANNELS, NUM_CLASSES, lenet_niti
+from ..nn.module import Sequential
 from ..ops.kernels import use_backend
 from ..utils.jax_params import load_jax_params
 from ..utils.profiler import StepTimer
@@ -46,15 +49,17 @@ def train_niti(
     start_params: Optional[List] = None,
     device=None,
     backend: str = "cuda",
+    model: Optional[Sequential] = None,
 ):
     """NITIInt8Train loop -> (model, final_test_accuracy).
 
-    Trains the NITI LeNet, drawn from `seed` unless `start_params`
-    (JAX-layout params, utils/jax_params.py) are given. `device` defaults to
-    the card; `backend` selects the kernels ("cuda") or their plain versions
+    Trains `model` (default: the NITI LeNet; any Sequential NITI model with
+    12 logit channels), drawn from `seed` unless `start_params` (JAX-layout
+    params, utils/jax_params.py) are given. `device` defaults to the card;
+    `backend` selects the kernels ("cuda") or their plain versions
     ("torch")."""
     device = resolve_device(device)
-    model = lenet_niti()
+    model = model if model is not None else lenet_niti()
     if start_params is None:
         model.reset_parameters(torch.Generator().manual_seed(seed))
     else:

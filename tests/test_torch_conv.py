@@ -117,8 +117,9 @@ def test_fused_route_matches_jax(stride, monkeypatch):
 
 def test_modes_and_margin():
     assert tconv.get_fused_conv_mode() == "matmul_only"
-    with pytest.raises(NotImplementedError):
-        tconv.set_fused_conv_mode("all")
+    tconv.set_fused_conv_mode("all")  # K3's route, ported
+    assert tconv.get_fused_conv_mode() == "all"
+    tconv.set_fused_conv_mode("matmul_only")
     with pytest.raises(ValueError):
         tconv.set_fused_conv_mode("bogus")
     assert tconv.get_fused_conv_mode() == "matmul_only"

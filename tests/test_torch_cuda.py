@@ -11,6 +11,8 @@ import pytest
 import torch
 
 from mandheling_tpu_torch.ops import numerics
+from mandheling_tpu_torch.ops.kernels import fused_conv_int8 as fconv
+from mandheling_tpu_torch.ops.kernels import fused_dwconv_int8 as fdw
 from mandheling_tpu_torch.ops.kernels import fused_matmul_int8 as fmm
 from mandheling_tpu_torch.ops.kernels import matmul_int8 as mm
 
@@ -64,3 +66,43 @@ def test_fused_kernels_match_plain(gen, m, k, n):
                         (bw - 3, True), (bw - 40, True), (bw + 40, True)]:
         got = fmm.matmul_requant_cuda(a, b, shift, grad)
         assert torch.equal(got, fmm.matmul_requant_plain(a, b, shift, grad)), (shift, grad)
+
+
+def _shift_cases(mx):
+    bw = numerics.range_estimate_from_max(mx)
+    return [(numerics.forward_shift(bw), False), (torch.zeros_like(bw), False),
+            (bw - 3, True), (bw - 40, True), (bw + 40, True)]
+
+
+@pytest.mark.parametrize("x_shape,w_shape,stride,pad", [
+    ((2, 9, 9, 3), (3, 3, 3, 8), (2, 2), ((0, 1), (0, 1))),
+    ((2, 9, 9, 3), (5, 5, 3, 8), (2, 2), ((1, 2), (1, 2))),
+    ((2, 33, 33, 8), (3, 3, 8, 16), (2, 2), ((1, 1), (1, 1))),
+    ((3, 32, 32, 3), (3, 3, 3, 32), (1, 1), ((1, 1), (1, 1))),
+    ((5, 28, 28, 1), (5, 5, 1, 20), (1, 1), ((0, 0), (0, 0))),
+    ((5, 12, 12, 20), (5, 5, 20, 52), (1, 1), ((0, 0), (0, 0))),
+    ((3, 8, 8, 52), (5, 5, 52, 20), (1, 1), ((4, 4), (4, 4))),
+    ((1, 7, 5, 70), (3, 2, 70, 65), (1, 2), ((2, 0), (0, 3))),
+])
+def test_fused_conv_kernels_match_plain(gen, x_shape, w_shape, stride, pad):
+    x, w = rand_int8(x_shape, gen), rand_int8(w_shape, gen)
+    mx = fconv.conv_max_cuda(x, w, pad, stride)
+    assert torch.equal(mx, fconv.conv_max_plain(x, w, pad, stride))
+    for shift, grad in _shift_cases(mx):
+        got = fconv.conv_requant_cuda(x, w, shift, pad, stride, grad)
+        assert torch.equal(got, fconv.conv_requant_plain(x, w, shift, pad, stride, grad))
+
+
+@pytest.mark.parametrize("xp_shape,k", [
+    ((4, 18, 18, 24), (3, 3)), ((2, 34, 34, 144), (3, 3)), ((2, 10, 10, 576), (3, 3)),
+    ((3, 6, 6, 960), (3, 3)), ((2, 11, 45, 33), (3, 3)), ((1, 9, 9, 7), (5, 5)),
+    ((2, 12, 12, 40), (7, 7)), ((2, 5, 5, 3), (1, 1)), ((2, 12, 40, 40), (3, 1)),
+    ((1, 7, 37, 65), (1, 3)), ((1, 4, 11, 9), (4, 11)),
+])
+def test_fused_dwconv_kernels_match_plain(gen, xp_shape, k):
+    xp, w = rand_int8(xp_shape, gen), rand_int8(k + (1, xp_shape[3]), gen)
+    mx = fdw.dwconv_max_cuda(xp, w)
+    assert torch.equal(mx, fdw.dwconv_max_plain(xp, w))
+    for shift, grad in _shift_cases(mx):
+        got = fdw.dwconv_requant_cuda(xp, w, shift, grad)
+        assert torch.equal(got, fdw.dwconv_requant_plain(xp, w, shift, grad))

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 
 from mandheling_tpu import data as jdata
+from mandheling_tpu.data import cifar as jcifar
 from mandheling_tpu_torch import data as tdata
 from mandheling_tpu_torch.utils.profiler import StepTimer
 
@@ -80,3 +81,33 @@ def test_step_timer_syncs_each_step():
     assert len(synced) == 3 and timer.samples_per_sec > 0
     assert timer.summary().startswith("3 steps, ")
     assert StepTimer().samples_per_sec == 0.0
+
+
+@pytest.mark.parametrize("n,seed", [(64, 0), (40, 1)])
+def test_synthetic_cifar_matches_jax(n, seed):
+    xj, yj = jcifar.synthetic_cifar(n, seed=seed)
+    xt, yt = tdata.synthetic_cifar(n, seed=seed)
+    assert xt.dtype == xj.dtype == np.uint8 and xt.shape == (n, 32, 32, 3)
+    np.testing.assert_array_equal(xt, xj)
+    np.testing.assert_array_equal(yt, yj)
+
+
+def test_cifar_bin_files_and_load_or_synthesize(tmp_path):
+    """The CIFAR-10 binary reader (label byte + CHW image) on files written
+    here, against the JAX package's; without files, the synthetic stand-in."""
+    rng = np.random.default_rng(0)
+    for name, n in [(f"data_batch_{i}.bin", 3) for i in range(1, 6)] + [("test_batch.bin", 4)]:
+        rec = np.concatenate([rng.integers(0, 10, (n, 1)), rng.integers(0, 256, (n, 3072))], 1)
+        rec.astype(np.uint8).tofile(tmp_path / name)
+    for train in (True, False):
+        xj, yj = jcifar.load_cifar10(str(tmp_path), train)
+        xt, yt = tdata.load_cifar10(str(tmp_path), train)
+        assert xt.shape == ((15 if train else 4), 32, 32, 3)
+        np.testing.assert_array_equal(xt, xj)
+        np.testing.assert_array_equal(yt, yj)
+        assert tdata.load_or_synthesize_cifar(str(tmp_path), train)[2]
+    x, y, real = tdata.load_or_synthesize_cifar(str(tmp_path / "none"), train=False, synth_n=64)
+    xj, yj, real_j = jcifar.load_or_synthesize_cifar(str(tmp_path / "none"), train=False,
+                                                          synth_n=64)
+    assert not real and not real_j and x.shape == (16, 32, 32, 3)
+    np.testing.assert_array_equal(x, xj)

@@ -35,3 +35,25 @@ def test_no_jax_imports(path):
 def test_guard_sees_the_package():
     assert len(FILES) > 20
     assert (ROOT / "chip_smoke.py").exists()
+    names = {str(p.relative_to(ROOT / "mandheling_tpu_torch")) for p in FILES
+             if ROOT / "mandheling_tpu_torch" in p.parents}
+    for module in ("ops/depthwise.py", "ops/eltwise.py", "ops/kernels/fused_conv_int8.py",
+                   "ops/kernels/fused_dwconv_int8.py", "nn/blocks.py", "models/mobilenet.py",
+                   "data/cifar.py"):
+        assert module in names
+
+
+@pytest.mark.parametrize("module", [
+    "mandheling_tpu_torch.ops.depthwise", "mandheling_tpu_torch.ops.eltwise",
+    "mandheling_tpu_torch.ops.kernels.fused_conv_int8",
+    "mandheling_tpu_torch.ops.kernels.fused_dwconv_int8", "mandheling_tpu_torch.nn.blocks",
+    "mandheling_tpu_torch.models.mobilenet", "mandheling_tpu_torch.data.cifar"])
+def test_new_modules_import_without_building(module):
+    """Importing a kernel module builds nothing: the build happens at the
+    first launch, on the card."""
+    import importlib
+
+    from mandheling_tpu_torch.ops.kernels import build
+
+    importlib.import_module(module)
+    assert not build._loaded

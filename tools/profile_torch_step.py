@@ -1,11 +1,15 @@
 #!/usr/bin/env python3
 """Where the time of one training step of the PyTorch/CUDA port goes, on the GPU.
 
-    python3 tools/profile_torch_step.py [--batch 64 2048] [--steps 20] [--out PATH]
+    python3 tools/profile_torch_step.py [--model lenet|mnv2] [--mode matmul_only|all]
+                                        [--batch 64 2048] [--steps 20] [--out PATH]
 
-For each batch size: the NITI LeNet train step of mandheling_tpu_torch with the
+For each batch size: the NITI train step of mandheling_tpu_torch with the
 hand-written kernels (the step `train_niti` runs, host-to-device copies
-included), timed without tracing, then traced with torch.profiler. Prints
+included) for the NITI LeNet on synthetic MNIST (default batches 64 and
+2048) or the full-width NITI MobileNetV2 on synthetic CIFAR (default batch
+256), in fused mode `--mode`, timed without tracing, then traced with
+torch.profiler. Prints
 wall ms/step (back to back, and synchronised after each step as the
 trainer's StepTimer does), device busy ms/step (the union of the CUDA activity
 intervals), the device's idle share, CUDA activities and top-level host ops
@@ -32,10 +36,19 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from mandheling_tpu_torch.data import onehot_padded, synthetic_mnist  # noqa: E402
-from mandheling_tpu_torch.models import NITI_LOGIT_CHANNELS, NUM_CLASSES, lenet_niti  # noqa: E402
+from mandheling_tpu_torch.data import onehot_padded, synthetic_cifar, synthetic_mnist  # noqa: E402
+from mandheling_tpu_torch.models import (NITI_LOGIT_CHANNELS, NUM_CLASSES, lenet_niti,  # noqa: E402
+                                         mobilenet_v2_niti)
+from mandheling_tpu_torch.ops.conv import use_fused_conv_mode  # noqa: E402
 from mandheling_tpu_torch.ops.kernels import build  # noqa: E402
 from mandheling_tpu_torch.train import make_train_step  # noqa: E402
+
+# model -> (constructor, synthetic data, default batches)
+MODELS = {
+    "lenet": (lenet_niti, synthetic_mnist, [64, 2048]),
+    "mnv2": (mobilenet_v2_niti, synthetic_cifar, [256]),
+}
+
 
 def union_us(intervals):
     total, end = 0.0, -1.0
@@ -49,10 +62,11 @@ def union_us(intervals):
     return total
 
 
-def profile_batch(batch: int, steps: int):
-    model = lenet_niti().reset_parameters(torch.Generator().manual_seed(0)).to("cuda")
+def profile_batch(model_name: str, batch: int, steps: int):
+    build_model, data, _ = MODELS[model_name]
+    model = build_model().reset_parameters(torch.Generator().manual_seed(0)).to("cuda")
     step = make_train_step(model)
-    x, y = synthetic_mnist(batch * steps, seed=5)
+    x, y = data(batch * steps, seed=5)
     xs = [x[i * batch:(i + 1) * batch].astype(np.float32) for i in range(steps)]
     ohs = [onehot_padded(y[i * batch:(i + 1) * batch], NUM_CLASSES, NITI_LOGIT_CHANNELS)
            for i in range(steps)]
@@ -96,7 +110,7 @@ def profile_batch(batch: int, steps: int):
     busy_ms = union_us([(e.time_range.start, e.time_range.end) for e in dev]) / 1e3 / steps
     wall_ms = float(np.median(walls))
     res = {
-        "batch": batch, "steps": steps, "wall_ms_per_step": wall_ms,
+        "model": model_name, "batch": batch, "steps": steps, "wall_ms_per_step": wall_ms,
         "wall_ms_per_step_runs": walls, "traced_ms_per_step": traced_ms,
         "synced_step_ms_median": float(np.median(synced)),
         "synced_step_ms_quartiles": [float(np.percentile(synced, 25)),
@@ -119,7 +133,11 @@ def profile_batch(batch: int, steps: int):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--batch", type=int, nargs="+", default=[64, 2048])
+    ap.add_argument("--model", choices=sorted(MODELS), default="lenet")
+    ap.add_argument("--mode", choices=["matmul_only", "all"], default="matmul_only",
+                    help="fused conv mode")
+    ap.add_argument("--batch", type=int, nargs="+",
+                    help="batch sizes (default: 64 2048 for lenet, 256 for mnv2)")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--out", help="write the full table here as JSON")
     args = ap.parse_args()
@@ -128,11 +146,13 @@ def main() -> int:
         return 2
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
-    print(f"card: {card}; torch {torch.__version__}", flush=True)
+    print(f"card: {card}; torch {torch.__version__}; model {args.model}, fused mode "
+          f"{args.mode}", flush=True)
     build.build_all()
     results = []
-    for batch in args.batch:
-        r = profile_batch(batch, args.steps)
+    for batch in args.batch or MODELS[args.model][2]:
+        with use_fused_conv_mode(args.mode):
+            r = profile_batch(args.model, batch, args.steps)
         results.append(r)
         busy = r["device_busy_ms_per_step"]
         print(f"batch {batch}: wall {r['wall_ms_per_step']:.3f} ms/step "
@@ -153,7 +173,8 @@ def main() -> int:
             print(f"  host   {t:9.1f} us/step {c:5.1f}x  {n[:90]}")
     if args.out:
         with open(args.out, "w") as f:
-            json.dump({"card": card, "torch": torch.__version__, "results": results}, f, indent=1)
+            json.dump({"card": card, "torch": torch.__version__, "mode": args.mode,
+                       "results": results}, f, indent=1)
     return 0
 
 

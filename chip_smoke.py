@@ -17,7 +17,10 @@ raises on failure (the script then exits non-zero and prints no result):
    stem and LeNet's convs, K4 (fused_dwconv_max / _requant) at the 7
    depthwise shapes of a batch-256 MobileNetV2 step; K3 and K4 also at the
    JAX package's test shapes and at ragged ones (K4 also at kernel sizes
-   other than 3x3); kernel, plain, library and bound times;
+   other than 3x3); K5 (fused_dwconv_fgrad) at the 7 stride-1 depthwise
+   filter-grad shapes of that step, the JAX test shape, ragged C, 5x5 and
+   3x1 kernels and a case whose sums wrap past 2^31; kernel, plain, library
+   and bound times;
 4. LeNet's main path at batch 64: `train_niti` on the card with the kernels,
    launch counts reset just before and read just after; then the same steps
    from the same params with the plain versions on the card and on the CPU.
@@ -29,14 +32,29 @@ raises on failure (the script then exits non-zero and prints no result):
 7. MobileNetV2 at full width through `train_niti(model=mobilenet_v2_niti())`
    on synthetic CIFAR: batch 256, kernels against plain on the card; batch
    32, kernels against plain on the CPU; batch 256 under fused mode "all";
-   then samples/s at batch 256;
-8. one JSON line listing every kernel, then the result line.
+   then samples/s at batch 256; then K1, its plain version and
+   torch._int_mm (the library yardstick) at every shape K1 takes in a
+   batch-256 train step;
+8. the r5 recipe, `mobilenet_v2_niti(dw_per_channel=True)` with filter-grad
+   margins 0/0, at full width: batch 256, kernels against plain on the
+   card; batches 32 and 16 (`MobilenetV2Train`'s), kernels against plain
+   on the CPU;
+9. the demo CLI `tools/run_train_demo_torch.py`: `MobilenetV2Train --epochs
+   1` in this process, launches counted and the shapes of K1 and K5 held to
+   those of the batch-16 run of phase 8; then as processes of their own
+   `MobilenetV2Train`, `NITIDSPInt8Train` and `MnistTrain` (one epoch) and
+   `MnistTrainSnapshot` twice, the second resuming from the first's file;
+10. the dot probe `tools/probes/dot_probe_torch.py`: K2's phase 1 (int8)
+   and K6 (fused_matmul_max_bf16) at (49152, K) x (K, 512), K in {28, 128,
+   256}, exactly equal to plain, and their times;
+11. one JSON line listing every kernel, then the result line.
 
 Every main-path run asserts its launch counts, per kernel, against the
 routes one train step and one eval step take (EXPECTED_PER_STEP). The
-shapes of K1's launches in the LeNet batch-64 run and of K4's in the
-MobileNetV2 batch-256 run are recorded; they must be the shapes phase 3
-checked, and K4's per-step counts weight its timings into the sums of one
+shapes of K1's launches in the LeNet batch-64 run and of K1's, K4's and
+K5's in the MobileNetV2 batch-256 run (K5's also in the recipe's) are
+recorded; K4's and K5's must be the shapes phase 3 checked, and the
+per-step counts weight the timings of K1, K4 and K5 into the sums of one
 train step.
 
 The last line of standard output is {"ok": true, "device": {...}}.
@@ -46,19 +64,26 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import functools
+import importlib.util
+import io
 import json
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from mandheling_tpu_torch.data import synthetic_cifar, synthetic_mnist
+from mandheling_tpu_torch.data import load_or_synthesize_cifar, synthetic_cifar, synthetic_mnist
 from mandheling_tpu_torch.models import (NITI_LOGIT_CHANNELS, NUM_CLASSES, lenet_niti,
                                          mobilenet_v2_niti)
+from mandheling_tpu_torch.ops import conv as conv_ops
+from mandheling_tpu_torch.ops import depthwise as dw_ops
 from mandheling_tpu_torch.ops import numerics
 from mandheling_tpu_torch.ops import kernels
 from mandheling_tpu_torch.ops.conv import use_fused_conv_mode
@@ -68,6 +93,8 @@ from mandheling_tpu_torch.data.loader import onehot_padded
 from mandheling_tpu_torch.train import make_eval_step, make_train_step
 from mandheling_tpu_torch.train.trainer import train_niti
 from mandheling_tpu_torch.utils.jax_params import export_jax_params, flat_weights
+
+ROOT = Path(__file__).resolve().parent
 
 # (what, M, K, N, A transposed) of every int8 contraction of a LeNet train
 # step at batch 64. The filter grads multiply im2col(x)^T, a strided view.
@@ -126,29 +153,55 @@ K4_CASES = K4_PATH_CASES + [
     ("ragged C 7, 5x5", (2, 9, 9, 7), (5, 5)),
     ("C 40, 3x1", (2, 12, 40, 40), (3, 1)),
 ]
+# K5: (what, pre-padded xp shape, kernel size); gy is xp's VALID stride-1
+# output. K5_PATH_CASES are the stride-1 depthwise filter grads of a
+# batch-256 MobileNetV2 train step (the same xp shapes as K4's), recorded
+# and held to this list; then the JAX package's test shape, ragged C, kernel
+# sizes other than 3x3 (the untiled instance) and a case whose sums wrap
+# past 2^31 (all -128: 147456 products of 2^14 per channel).
+K5_PATH_CASES = K4_PATH_CASES
+K5_WRAP_CASE = ("wraps: all -128, 147456 products", (9, 130, 130, 33), (3, 3))
+K5_CASES = K5_PATH_CASES + [
+    ("JAX test (4,16,16,24)", (4, 18, 18, 24), (3, 3)),
+    ("ragged C 33, 43 columns", (3, 11, 45, 33), (3, 3)),
+    ("ragged C 7", (5, 12, 12, 7), (3, 3)),
+    ("C 24, 5x5", (2, 13, 13, 24), (5, 5)),
+    ("C 40, 3x1", (2, 12, 40, 40), (3, 1)),
+    K5_WRAP_CASE,
+]
 
 # Kernel launches of one train step and of one eval step on each main path,
 # per kernel family (K2, K3 and K4 count each of their two phases): the
 # routes the `supports` rules give (the JAX package's, unchanged), the same
-# as the JAX package's Pallas backend takes.
+# as the JAX package's Pallas backend takes for K1-K4. K5 takes every
+# stride-1 depthwise filter grad (14 of 17 per MobileNetV2 train step), a
+# route the JAX package has but does not take. "mnv2pc" is the r5 recipe
+# (per-channel depthwise exponents, margins 0/0; `MobilenetV2Train`, batch
+# 16 on synthetic data), whose per-channel depthwise forms skip K4.
 EXPECTED_PER_STEP = {
     ("lenet", 64, "matmul_only"): ({"K1": 11}, {"K1": 4}),
     ("lenet", 2048, "matmul_only"): ({"K1": 10, "K2": 1}, {"K1": 4}),
     ("lenet", 64, "all"): ({"K1": 8, "K3": 3}, {"K1": 2, "K3": 2}),
-    ("mnv2", 256, "matmul_only"): ({"K1": 65, "K2": 42, "K4": 31}, {"K1": 15, "K2": 21, "K4": 14}),
-    ("mnv2", 32, "matmul_only"): ({"K1": 81, "K2": 26, "K4": 31}, {"K1": 23, "K2": 13, "K4": 14}),
-    ("mnv2", 256, "all"): ({"K1": 64, "K2": 42, "K3": 1, "K4": 31},
+    ("mnv2", 256, "matmul_only"): ({"K1": 65, "K2": 42, "K4": 31, "K5": 14},
+                                   {"K1": 15, "K2": 21, "K4": 14}),
+    ("mnv2", 32, "matmul_only"): ({"K1": 81, "K2": 26, "K4": 31, "K5": 14},
+                                  {"K1": 23, "K2": 13, "K4": 14}),
+    ("mnv2", 256, "all"): ({"K1": 64, "K2": 42, "K3": 1, "K4": 31, "K5": 14},
                            {"K1": 14, "K2": 21, "K3": 1, "K4": 14}),
+    ("mnv2pc", 256, "matmul_only"): ({"K1": 65, "K2": 42, "K5": 14}, {"K1": 15, "K2": 21}),
+    ("mnv2pc", 32, "matmul_only"): ({"K1": 81, "K2": 26, "K5": 14}, {"K1": 23, "K2": 13}),
+    ("mnv2pc", 16, "matmul_only"): ({"K1": 95, "K2": 12, "K5": 14}, {"K1": 30, "K2": 6}),
 }
 FAMILIES = {"K1": ("matmul_int8",), "K2": ("fused_matmul_max", "fused_matmul_requant"),
             "K3": ("fused_conv_max", "fused_conv_requant"),
-            "K4": ("fused_dwconv_max", "fused_dwconv_requant")}
+            "K4": ("fused_dwconv_max", "fused_dwconv_requant"),
+            "K5": ("fused_dwconv_fgrad",)}
 
 
 def peak_rates(name: str):
     """(int8 dense ops/s, device memory bytes/s) from NVIDIA's data sheets."""
     if "PCIe" in name:
-        return 756e12, 2.0e12, "H100 PCIe data sheet"
+        return 1513e12, 2.0e12, "H100 PCIe data sheet"
     if "NVL" in name:
         return 1671e12, 3.9e12, "H100 NVL data sheet"
     return 1979e12, 3.35e12, "H100 SXM data sheet"
@@ -182,8 +235,14 @@ def k4_key(xp, w):
     return (tuple(xp.shape), (w.shape[0], w.shape[1]))
 
 
+def k5_key(xp, gy, kernel):
+    """(xp shape, kernel size) of a K5 call."""
+    return (tuple(xp.shape), tuple(kernel))
+
+
 RECORD_K1 = {"K1": (matmul_int8, "matmul_acc_cuda", k1_key)}
 RECORD_K4 = {"K4": (fused_dwconv_int8, "dwconv_max_cuda", k4_key)}
+RECORD_K5 = {"K5": (fused_dwconv_int8, "dwconv_fgrad_acc_cuda", k5_key)}
 
 
 @contextlib.contextmanager
@@ -422,6 +481,166 @@ def check_k4(rates, mac_rate, gen):
     return rows, worst
 
 
+def check_k5(rates, mac_rate, gen):
+    """K5 against its plain version, byte for byte, and its times, at every
+    case. Bound: bytes (xp + gy + the int32 output) against int8
+    multiply-adds at the CUDA cores' rate."""
+    rows, worst = [], 0
+    for what, xps, (kh, kw) in K5_CASES:
+        b, hp, wp, c = xps
+        gys = (b, hp - kh + 1, wp - kw + 1, c)
+        wrap = (what, xps, (kh, kw)) == K5_WRAP_CASE
+        if wrap:
+            xp = torch.full(xps, -128, dtype=torch.int8, device="cuda")
+            gy = torch.full(gys, -128, dtype=torch.int8, device="cuda")
+        else:
+            xp, gy = rand_int8(xps, gen), rand_int8(gys, gen)
+        got = fused_dwconv_int8.dwconv_fgrad_acc_cuda(xp, gy, (kh, kw))
+        err = max_abs_err(got, fused_dwconv_int8.dwconv_fgrad_acc_plain(xp, gy, (kh, kw)))
+        if err:
+            raise AssertionError(f"K5 {what} differs from plain by {err}")
+        products = b * gys[1] * gys[2]
+        if wrap:
+            wrapped = (products * 2**14 + 2**31) % 2**32 - 2**31
+            if products * 2**14 < 2**31 or not bool((got == wrapped).all()):
+                raise AssertionError(f"K5 {what}: {got.flatten()[:3].tolist()} is not the "
+                                     f"int32 wrap {wrapped} of {products} x 2^14")
+        worst = max(worst, err)
+        macs = float(kh * kw * products * c)
+        nbytes = xp.numel() + gy.numel() + 4.0 * kh * kw * c
+        b_ms, b_by = bound(macs, nbytes, (mac_rate, rates[1]))
+        row = dict(what=what, xp=xps, kernel=(kh, kw), max_abs_err=err,
+                   ms=time_ms(lambda: fused_dwconv_int8.dwconv_fgrad_acc_cuda(xp, gy, (kh, kw))),
+                   plain_ms=time_ms(lambda: fused_dwconv_int8.dwconv_fgrad_acc_plain(
+                       xp, gy, (kh, kw)), launches=10, rounds=3),
+                   bound_ms=b_ms, bound_by=b_by, macs=macs, bytes=nbytes)
+        rows.append(row)
+        print(f"  K5 {what:32s} xp {xps} {kh}x{kw}: byte-equal | {row['ms']:.4f} ms (plain "
+              f"{row['plain_ms']:.4f}, bound {b_ms * 1e3:.2f} us {b_by})", flush=True)
+    return rows, worst
+
+
+def k1_library_rows(k1_per_step, rates, gen):
+    """K1, its plain version and torch._int_mm (the yardstick; the port never
+    calls it) at each (M, K, N, A transposed) K1 takes in one train step,
+    with the step's launches of each. _int_mm takes K and N multiples of 8
+    and M > 16; where it refuses the strided A^T view, it is timed on a
+    contiguous copy, and the row says so. Where it takes the view, it is
+    also timed on a contiguous copy of A^T (the copy not timed), as
+    library_contiguous_ms."""
+    rows = []
+    for (m, k, n, trans), count in sorted(k1_per_step.items()):
+        a = rand_int8((k, m), gen).t() if trans else rand_int8((m, k), gen)
+        b = rand_int8((k, n), gen)
+        want = matmul_int8.matmul_acc_plain(a, b)
+        err = max_abs_err(matmul_int8.matmul_acc_cuda(a, b), want)
+        if err:
+            raise AssertionError(f"K1 ({m},{k})x({k},{n}) differs from plain by {err}")
+        lib_ms, lib_contig_ms, note = None, None, "refused: needs M > 16 and K, N multiples of 8"
+        if int_mm_accepts(m, k, n):
+            a_lib, note = a, "as given"
+            try:
+                torch._int_mm(a_lib, b)
+            except RuntimeError:
+                a_lib, note = a.contiguous(), "on a contiguous copy of A^T (refuses the strided view)"
+            if not torch.equal(torch._int_mm(a_lib, b), want):
+                note += "; its result differs from K1's"
+            lib_ms = time_ms(lambda: torch._int_mm(a_lib, b), launches=20, rounds=3)
+            if trans and a_lib is a:
+                a_copy = a.contiguous()
+                lib_contig_ms = time_ms(lambda: torch._int_mm(a_copy, b), launches=20, rounds=3)
+            elif trans:
+                lib_contig_ms = lib_ms
+        ops, nbytes = 2.0 * m * n * k, m * k + k * n + 4.0 * m * n
+        b_ms, b_by = bound(ops, nbytes, rates)
+        rows.append(dict(m=m, k=k, n=n, a_transposed=trans, launches_per_train_step=count,
+                         ms=time_ms(lambda: matmul_int8.matmul_acc_cuda(a, b), launches=20, rounds=3),
+                         plain_ms=time_ms(lambda: matmul_int8.matmul_acc_plain(a, b), launches=5,
+                                          rounds=3),
+                         library_ms=lib_ms, library_contiguous_ms=lib_contig_ms,
+                         library_note=note, bound_ms=b_ms, bound_by=b_by,
+                         ops=ops, bytes=nbytes))
+        r = rows[-1]
+        print(f"  K1 ({m:6d},{k:6d})x({k:6d},{n:4d}){' A^T' if trans else '    '} x{count}: "
+              f"kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  _int_mm "
+              f"{'%.4f ms' % lib_ms if lib_ms is not None else 'n/a'} ({note}"
+              f"{'; on a contiguous copy %.4f ms' % lib_contig_ms if lib_contig_ms else ''})  bound "
+              f"{b_ms * 1e3:.2f} us ({b_by})", flush=True)
+    return rows
+
+
+def k1_library_summary(rows):
+    """Times of one train step's K1 launches, weighted by the recording;
+    K1 and _int_mm also over the shapes _int_mm takes, split into A as
+    given (forwards, input grads) and A^T (the filter grads' strided view)."""
+    def total(key, subset):
+        return sum(r["launches_per_train_step"] * r[key] for r in subset)
+
+    out = {"launches": sum(r["launches_per_train_step"] for r in rows),
+           "ms": total("ms", rows), "plain_ms": total("plain_ms", rows),
+           "bound_ms": total("bound_ms", rows)}
+    taken = [r for r in rows if r["library_ms"] is not None]
+    out.update(library_launches=sum(r["launches_per_train_step"] for r in taken),
+               ms_where_library_takes=total("ms", taken), library_ms=total("library_ms", taken))
+    for label, trans in (("a", False), ("a_t", True)):
+        sub = [r for r in taken if r["a_transposed"] == trans]
+        out[label] = {"launches": sum(r["launches_per_train_step"] for r in sub),
+                      "ms": total("ms", sub), "library_ms": total("library_ms", sub),
+                      "bound_ms": total("bound_ms", sub)}
+        if trans and all(r["library_contiguous_ms"] is not None for r in sub):
+            out[label]["library_contiguous_ms"] = total("library_contiguous_ms", sub)
+    return out
+
+
+def load_tool(relpath: str):
+    """Import a script of the checkout (tools/...) as a module."""
+    spec = importlib.util.spec_from_file_location(Path(relpath).stem, ROOT / relpath)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def cli_in_process(cli, argv, record):
+    """The demo CLI's main(argv) in this process -> (printed lines,
+    launches by kernel, the calls of `record`), counts reset just before
+    and read just after."""
+    out = io.StringIO()
+    kernels.reset_launch_counts()
+    with contextlib.redirect_stdout(out), recording(record) as seen:
+        cli.main(argv)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    kernels.reset_launch_counts()
+    return out.getvalue().splitlines(), counts, seen
+
+
+def cli_subprocesses(jobs, cwd, timeout=600):
+    """Run each {label: argv} of the demo CLI as its own process, all
+    started together; each must exit 0. Returns {label: stdout}."""
+    script = str(ROOT / "tools" / "run_train_demo_torch.py")
+    procs = {label: subprocess.Popen([sys.executable, script, *argv], cwd=cwd, text=True,
+                                     stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+             for label, argv in jobs.items()}
+    outs, failed = {}, []
+    try:
+        for label, proc in procs.items():
+            out, err = proc.communicate(timeout=timeout)
+            outs[label] = out
+            if proc.returncode != 0:
+                failed.append(f"{label}: exit {proc.returncode}\n{err[-3000:]}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failed:
+        raise AssertionError("demo CLI runs failed:\n" + "\n".join(failed))
+    for label, out in outs.items():
+        for ln in out.splitlines():
+            print(f"  [{label}] {ln}", flush=True)
+    return outs
+
+
 def params_equal(p, q) -> bool:
     a, b = flat_weights(p), flat_weights(q)
     return len(a) == len(b) and all(x.dtype == y.dtype and np.array_equal(x, y)
@@ -525,22 +744,24 @@ def per_step_counts(key, model, x, y, n_logits, record=None):
     return out, seen
 
 
-def k4_step_weights(run_seen, n_train, n_eval, step_seen):
-    """K4's launches per train step by (xp shape, kernel) as recorded,
+def path_step_weights(fam, run_seen, n_train, n_eval, step_seen, cases=None):
+    """Launches of kernel family `fam` per train step by key, as recorded:
     checked against the main path's recording (n_train train steps and
-    n_eval eval steps) and against K4_PATH_CASES, whose timings they weight."""
-    train, evals = step_seen[0]["K4"], step_seen[1]["K4"]
+    n_eval eval steps) and, given `cases`, against the listed shapes whose
+    timings they weight."""
+    train, evals = step_seen[0][fam], step_seen[1][fam]
     want = collections.Counter({k: n_train * v for k, v in train.items()})
     want.update({k: n_eval * v for k, v in evals.items()})
-    if run_seen["K4"] != want:
-        raise AssertionError(f"K4 shapes of the main path {dict(run_seen['K4'])} are not "
+    if run_seen[fam] != want:
+        raise AssertionError(f"{fam} shapes of the main path {dict(run_seen[fam])} are not "
                              f"{n_train} train and {n_eval} eval steps' {dict(want)}")
-    path = {(xps, k) for _, xps, k in K4_PATH_CASES}
-    if set(train) != path or not set(evals) <= path:
-        raise AssertionError(f"K4 shapes of a step {sorted(set(train) | set(evals))} "
-                             f"!= checked {sorted(path)}")
-    print(f"  K4 launches per phase by (xp, kernel), one train step: {dict(train)}; "
-          f"one eval step: {dict(evals)}", flush=True)
+    if cases is not None:
+        path = {(xps, k) for _, xps, k in cases}
+        if set(train) != path or not set(evals) <= path:
+            raise AssertionError(f"{fam} shapes of a step {sorted(set(train) | set(evals))} "
+                                 f"!= checked {sorted(path)}")
+        print(f"  {fam} launches by (xp, kernel), one train step: {dict(train)}; "
+              f"one eval step: {dict(evals)}", flush=True)
     return train
 
 
@@ -596,6 +817,7 @@ def main() -> int:
     k2_rows = check_k2(rates, gen)
     k3_rows, k3_err = check_k3(rates, gen)
     k4_rows, k4_err = check_k4(rates, mac_rate, gen)
+    k5_rows, k5_err = check_k5(rates, mac_rate, gen)
 
     runs = {}
     start = export_jax_params(lenet_niti().reset_parameters(torch.Generator().manual_seed(0)))
@@ -630,14 +852,17 @@ def main() -> int:
     mnv2_start = export_jax_params(
         mobilenet_v2_niti().reset_parameters(torch.Generator().manual_seed(0)))
     cifar_train, cifar_test = synthetic_cifar(512, seed=0), synthetic_cifar(256, seed=1)
+    record_mn = {**RECORD_K1, **RECORD_K4, **RECORD_K5}
     run_mn, runs["mnv2_b256"], seen_mn = main_path(
         "mnv2 b256", ("mnv2", 256, "matmul_only"), cifar_train, cifar_test, 1, mnv2_start,
-        [("cuda", "torch")], model_fn=mobilenet_v2_niti, record=RECORD_K4)
+        [("cuda", "torch")], model_fn=mobilenet_v2_niti, record=record_mn)
     xc, yc = synthetic_cifar(256, seed=2)
     _, seen_steps = per_step_counts(("mnv2", 256, "matmul_only"), run_mn["model"], xc, yc,
-                                    NITI_LOGIT_CHANNELS, record=RECORD_K4)
-    k4_per_step = k4_step_weights(seen_mn, len(cifar_train[0]) // 256,
-                                  len(cifar_test[0]) // 256, seen_steps)
+                                    NITI_LOGIT_CHANNELS, record=record_mn)
+    n_train, n_eval = len(cifar_train[0]) // 256, len(cifar_test[0]) // 256
+    k4_per_step = path_step_weights("K4", seen_mn, n_train, n_eval, seen_steps, K4_PATH_CASES)
+    k5_per_step = path_step_weights("K5", seen_mn, n_train, n_eval, seen_steps, K5_PATH_CASES)
+    k1_per_step = path_step_weights("K1", seen_mn, n_train, n_eval, seen_steps)
     _, runs["mnv2_b32"], _ = main_path(
         "mnv2 b32", ("mnv2", 32, "matmul_only"), synthetic_cifar(32, seed=3),
         synthetic_cifar(32, seed=4), 1, mnv2_start, [("cpu", "cuda")],
@@ -649,6 +874,88 @@ def main() -> int:
     rate_mn, line_mn = throughput(256, 10, mnv2_start, mobilenet_v2_niti, synthetic_cifar)
     print(f"  throughput on {name} ({card}): MobileNetV2 batch 256 {rate_mn:.1f} samples/s "
           f"[{line_mn}]", flush=True)
+    print(f"  K1 at the {len(k1_per_step)} shapes of a MobileNetV2 batch-256 train step, "
+          f"against torch._int_mm (the yardstick)", flush=True)
+    k1_mn_rows = k1_library_rows(k1_per_step, rates, gen)
+    k1_mn = k1_library_summary(k1_mn_rows)
+    print(f"  K1 over one train step ({k1_mn['launches']} launches): {k1_mn['ms']:.4f} ms, plain "
+          f"{k1_mn['plain_ms']:.4f} ms, bound {k1_mn['bound_ms']:.4f} ms; on the "
+          f"{k1_mn['library_launches']} launches _int_mm takes: K1 "
+          f"{k1_mn['ms_where_library_takes']:.4f} ms, _int_mm {k1_mn['library_ms']:.4f} ms "
+          f"(A as given: {k1_mn['a']['launches']} launches, K1 {k1_mn['a']['ms']:.4f} ms, _int_mm "
+          f"{k1_mn['a']['library_ms']:.4f} ms; A^T: {k1_mn['a_t']['launches']} launches, K1 "
+          f"{k1_mn['a_t']['ms']:.4f} ms, _int_mm {k1_mn['a_t']['library_ms']:.4f} ms, on "
+          f"contiguous copies {k1_mn['a_t'].get('library_contiguous_ms', float('nan')):.4f} ms)",
+          flush=True)
+
+    print("phase 8: the r5 recipe (per-channel depthwise exponents, filter-grad margins "
+          "0/0) at full width", flush=True)
+    recipe_fn = functools.partial(mobilenet_v2_niti, dw_per_channel=True)
+    recipe_start = export_jax_params(recipe_fn().reset_parameters(torch.Generator().manual_seed(0)))
+    with dw_ops.recipe_margins():
+        run_pc, runs["mnv2pc_b256"], seen_pc = main_path(
+            "mnv2pc b256", ("mnv2pc", 256, "matmul_only"), cifar_train, cifar_test, 1,
+            recipe_start, [("cuda", "torch")], model_fn=recipe_fn, record=RECORD_K5)
+        _, seen_pc_steps = per_step_counts(("mnv2pc", 256, "matmul_only"), run_pc["model"], xc,
+                                           yc, NITI_LOGIT_CHANNELS, record=RECORD_K5)
+        path_step_weights("K5", seen_pc, n_train, n_eval, seen_pc_steps, K5_PATH_CASES)
+        _, runs["mnv2pc_b32"], _ = main_path(
+            "mnv2pc b32", ("mnv2pc", 32, "matmul_only"), synthetic_cifar(32, seed=3),
+            synthetic_cifar(32, seed=4), 1, recipe_start, [("cpu", "cuda")], model_fn=recipe_fn)
+        # MobilenetV2Train's batch on synthetic data: K2 turns down contractions
+        # it takes at 32 and 256, so K1 and K5 meet shapes of their own here
+        _, runs["mnv2pc_b16"], seen_pc16 = main_path(
+            "mnv2pc b16", ("mnv2pc", 16, "matmul_only"), synthetic_cifar(32, seed=5),
+            synthetic_cifar(16, seed=6), 1, recipe_start, [("cpu", "cuda")], model_fn=recipe_fn,
+            record={**RECORD_K1, **RECORD_K5})
+    if (conv_ops.get_fgrad_margin(), dw_ops.get_dw_fgrad_margin()) != (2, 2):
+        raise AssertionError("the recipe's margins were not restored")
+
+    print("phase 9: the demo CLI (tools/run_train_demo_torch.py) on the card", flush=True)
+    cli = load_tool("tools/run_train_demo_torch.py")
+    lines, runs["cli_MobilenetV2Train"], seen_cli = cli_in_process(
+        cli, ["MobilenetV2Train", "--epochs", "1"], {**RECORD_K1, **RECORD_K5})
+    for ln in lines:
+        print(f"  [MobilenetV2Train, in this process] {ln}", flush=True)
+    if (conv_ops.get_fgrad_margin(), dw_ops.get_dw_fgrad_margin()) != (2, 2):
+        raise AssertionError("MobilenetV2Train did not restore the margins")
+    for fam in ("K1", "K5"):  # each shape the CLI's run gave a kernel was held to plain above
+        if set(seen_cli[fam]) != set(seen_pc16[fam]):
+            raise AssertionError(f"MobilenetV2Train's {fam} shapes {sorted(seen_cli[fam])} != "
+                                 f"those of the b16 run checked against the CPU "
+                                 f"{sorted(seen_pc16[fam])}")
+    print(f"  MobilenetV2Train: its {len(seen_cli['K1'])} K1 and {len(seen_cli['K5'])} K5 shapes "
+          f"are those of mnv2pc b16, byte-identical to the CPU", flush=True)
+    loss = float(re.search(r"epoch 0: loss (\S+)", "\n".join(lines)).group(1))
+    if not np.isfinite(loss) or not lines[-1].startswith("final test accuracy: "):
+        raise AssertionError(f"MobilenetV2Train printed {lines[-2:]}")
+    # the steps of the CLI's run: its synthetic CIFAR sets at batch 16
+    n_cli_train = len(load_or_synthesize_cifar(None, train=True, synth_n=512)[0])
+    n_cli_test = len(load_or_synthesize_cifar(None, train=False, synth_n=256)[0])
+    want = expected_launches(("mnv2pc", 16, "matmul_only"), n_cli_train // 16, n_cli_test // 16)
+    if family_counts(runs["cli_MobilenetV2Train"]) != want:
+        raise AssertionError(f"MobilenetV2Train launches {runs['cli_MobilenetV2Train']}, "
+                             f"expected {want} by kernel family")
+    print(f"  MobilenetV2Train launches {family_counts(runs['cli_MobilenetV2Train'])}", flush=True)
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        cli_subprocesses({
+            "MobilenetV2Train": ["MobilenetV2Train", "--epochs", "1"],
+            "NITIDSPInt8Train": ["NITIDSPInt8Train", "--epochs", "1"],
+            "MnistTrain": ["MnistTrain", "--epochs", "1"],
+            "MnistTrainSnapshot 1": ["MnistTrainSnapshot", "--epochs", "1"],
+        }, tmp)
+        again = cli_subprocesses({"MnistTrainSnapshot 2": ["MnistTrainSnapshot", "--epochs", "2"]},
+                                 tmp)
+    if "resumed from mnist.snapshot.npz at epoch 1" not in again["MnistTrainSnapshot 2"]:
+        raise AssertionError("the second MnistTrainSnapshot did not resume from the first's file")
+
+    print("phase 10: the dot probe (tools/probes/dot_probe_torch.py)", flush=True)
+    dot_probe = load_tool("tools/probes/dot_probe_torch.py")
+    kernels.reset_launch_counts()
+    probe_rows = dot_probe.probe(log=lambda ln: print(f"  {ln}", flush=True))
+    torch.cuda.synchronize()
+    probe_counts = kernels.launch_counts()
+    kernels.reset_launch_counts()
 
     names = list(kernels.launch_counts())
     launches = {n: sum(c[n] for c in runs.values()) for n in names}
@@ -666,7 +973,12 @@ def main() -> int:
          "ms": sum(r["ms"] for r in k1_rows), "plain_ms": sum(r["plain_ms"] for r in k1_rows),
          "bound_ms": k1_bound, "bound_by": k1_by,
          "library_ms": sum(r["library_ms"] for r in k1_rows) if lib_all else None,
-         "shapes": "the 11 contractions of one LeNet batch-64 train step; times are their sum"},
+         "shapes": "the 11 contractions of one LeNet batch-64 train step; times are their sum",
+         "mnv2_b256_train_step": dict(
+             k1_mn, shapes="every K1 launch of one MobileNetV2 batch-256 train step, as "
+             "recorded; times weighted by the launches; library_ms is torch._int_mm over "
+             "the launches it takes, beside K1's ms_where_library_takes",
+             by_shape=k1_mn_rows)},
     ]}
     for r in k2_rows:
         replaces = {"fused_matmul_max": "mandheling_tpu/ops/kernels/fused_matmul_int8.py:162",
@@ -710,6 +1022,38 @@ def main() -> int:
                   "launches_per_train_step"]) for r in k4_rows if r["launches_per_train_step"]},
               "library_note": "no PyTorch call computes an int8 depthwise conv on CUDA"}
          for ph in ("max", "requant")})
+    k5_step = {key: sum(k5_per_step.get((r["xp"], r["kernel"]), 0) * r[key] for r in k5_rows)
+               for key in ("ms", "plain_ms", "macs", "bytes")}
+    k5_step["bound_ms"], k5_step["bound_by"] = bound(k5_step["macs"], k5_step["bytes"],
+                                                     (mac_rate, rates[1]))
+    kernels_line["kernels"].append({
+        "name": "fused_dwconv_fgrad", "route": "cuda",
+        "source": "mandheling_tpu_torch/csrc/fused_dwconv_fgrad_int8.cu",
+        "replaces": "mandheling_tpu/ops/kernels/fused_dwconv_int8.py:224",
+        "launches": launches["fused_dwconv_fgrad"],
+        "launches_by_run": by_run["fused_dwconv_fgrad"], "max_abs_err": k5_err,
+        **{key: k5_step[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None,
+        "library_note": "no PyTorch call computes an int32 depthwise filter grad on CUDA",
+        "shapes": f"the {sum(k5_per_step.values())} launches of one MobileNetV2 batch-256 "
+                  "train step, as recorded; times are their sum",
+        "by_shape": {r["what"]: dict(r, launches_per_train_step=k5_per_step.get(
+            (r["xp"], r["kernel"]), 0)) for r in k5_rows}})
+    for variant, source in (("int8", "fused_matmul_int8.cu"), ("bf16", "matmul_max_bf16.cu")):
+        rows = [r for r in probe_rows if r["variant"] == variant]
+        top = rows[-1]  # K = 256
+        kernels_line["kernels"].append({
+            "name": top["kernel"] if variant == "bf16" else "fused_matmul_max (dot probe, int8)",
+            "route": "cuda", "source": f"mandheling_tpu_torch/csrc/{source}",
+            "replaces": "tools/probes/dot_probe.py:62", "launches": probe_counts[top["kernel"]],
+            "launches_by_run": {"dot_probe": probe_counts[top["kernel"]]},
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            **{key: top[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
+            "library_ms": None,
+            "library_note": "no single PyTorch call computes max|A.B| (torch._int_mm or a bf16 "
+                            "matmul gives the product only; the bf16 one rounds it to bf16)",
+            "shapes": f"({top['rows']},{top['k']})x({top['k']},{top['n']}), {variant} operands",
+            "by_k": {r["k"]: r for r in rows}})
     for kern in kernels_line["kernels"]:
         if kern["launches"] <= 0:
             raise AssertionError(f"{kern['name']} was not launched on the main path")

@@ -8,7 +8,9 @@ reference: the port keeps its layouts (NHWC / HWIO), its module names and its
 explicit fwd/bwd layer protocol, and is byte-identical to it. Entry points
 run on the card unless the caller passes ``device="cpu"``.
 
-This slice covers the NITI LeNet training path (``NITIDSPInt8Train``).
+It covers NITI LeNet training (``NITIDSPInt8Train``), NITI MobileNetV2
+training per-tensor and as the r5 recipe (``MobilenetV2Train``), the float
+LeNet baseline, checkpoints and the demo CLI ``tools/run_train_demo_torch.py``.
 """
 
 __version__ = "0.1.0"

@@ -14,9 +14,13 @@ bw-7, filter grad at bw - margin, the shared code of ops/numerics.py.
   as under the JAX package's Pallas backends. The strided forward and the
   per-channel forms run the taps as plain torch ops on the tensor's device,
   as the JAX package computes them outside Pallas.
-- The filter grad is a sum over (b, oh, ow) of tap products, in plain
-  torch, as the JAX package computes it outside Pallas (a batch-grouped
-  conv); the int32 sum wraps as XLA's does.
+- The filter grad is a sum over (b, oh, ow) of tap products; the int32 sum
+  wraps as XLA's does. Under the "cuda" backend every stride-1 one that
+  `supports_fgrad` takes runs through the filter-grad kernel K5
+  (``kernels/fused_dwconv_int8.dwconv_fgrad_acc``), in every fused mode, as
+  the int8 GEMM K1 follows the backend; the strided ones, and every one
+  under the "torch" backend, run the taps as plain torch ops (the JAX
+  package computes them all as a batch-grouped conv, outside Pallas).
 - A per-channel exponent vector (``nn/init.niti_xavier_int8_dw_per_channel``)
   is aligned to the smallest channel exponent by shifts capped by
   :func:`pc_shift_cap`.
@@ -24,16 +28,18 @@ bw-7, filter grad at bw - margin, the shared code of ops/numerics.py.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Sequence, Tuple
 
 import torch
 
 from . import allreduce, numerics
-from .conv import (_apply_act, _fused_enabled, _input_grad_pads, get_fused_conv_mode,
-                   resolve_padding)
+from .conv import (_apply_act, _fused_enabled, _input_grad_pads, get_fgrad_margin,
+                   get_fused_conv_mode, resolve_padding, set_fgrad_margin)
 from .kernels import fused_dwconv_int8 as _fdw
 from .kernels.conv_int8 import _dilate_hw, pad_hw
+from .kernels.dispatch import get_backend
 
 Pads = Tuple[Tuple[int, int], Tuple[int, int]]
 
@@ -74,7 +80,7 @@ def _per_channel_shifts(w_exp: torch.Tensor, taps: int = 9):
     w_exp = w_exp.to(torch.int32)
     if w_exp.dim() == 0:
         return w_exp, None
-    if not w_exp.is_cuda:
+    if w_exp.device.type == "cpu":
         check_pc_spread(w_exp, taps)
     e_base = w_exp.amin()
     return e_base, torch.clamp(w_exp - e_base, 0, pc_shift_cap(taps))
@@ -93,6 +99,21 @@ def set_dw_fgrad_margin(margin: int) -> None:
 
 def get_dw_fgrad_margin() -> int:
     return _DW_FGRAD_MARGIN
+
+
+@contextlib.contextmanager
+def recipe_margins(dense: int = 0, dw: int = 0):
+    """Dense and depthwise filter-grad margins `dense`/`dw` while inside
+    (by default 0/0, the MobileNetV2 recipe's, DIVERGENCE_r05.json); the
+    caller's margins come back after, whatever happens."""
+    saved = (get_fgrad_margin(), get_dw_fgrad_margin())
+    set_fgrad_margin(dense)
+    set_dw_fgrad_margin(dw)
+    try:
+        yield
+    finally:
+        set_fgrad_margin(saved[0])
+        set_dw_fgrad_margin(saved[1])
 
 
 def _dw_acc_taps(x: torch.Tensor, w: torch.Tensor, stride: Tuple[int, int],
@@ -189,19 +210,15 @@ def dwconv2d_filter_grad_acc(
 ) -> torch.Tensor:
     """int32 (KH, KW, 1, C) accumulator:
     dw[dy,dx,0,c] = sum_{b,oh,ow} xp[b, oh*s+dy, ow*s+dx, c] * gy[b,oh,ow,c].
-    torch sums int32 products in int64; the low 32 bits are kept, as XLA's
-    int32 accumulation wraps (b256 at 32x32 can pass 2^31)."""
+    Stride 1 under the "cuda" backend goes to K5 where `supports_fgrad`
+    takes the shape; the rest runs K5's plain taps, which keep the low 32
+    bits of int64 sums, as XLA's int32 accumulation wraps (b256 at 32x32 can
+    pass 2^31)."""
     kh, kw = kernel_spatial
-    sh, sw = stride
     xp = pad_hw(x, resolve_padding(padding, (kh, kw), stride, x.shape[1:3]))
-    oh, ow = gy.shape[1], gy.shape[2]
-    g = gy.to(torch.int32)
-    taps = []
-    for dy in range(kh):
-        for dx in range(kw):
-            tap = xp[:, dy:dy + (oh - 1) * sh + 1:sh, dx:dx + (ow - 1) * sw + 1:sw, :]
-            taps.append((tap.to(torch.int32) * g).sum(dim=(0, 1, 2)))
-    return torch.stack(taps).reshape(kh, kw, 1, -1).to(torch.int32)
+    if get_backend() == "cuda" and _fdw.supports_fgrad(xp.shape, gy.shape, (kh, kw), stride):
+        return _fdw.dwconv_fgrad_acc(xp, gy, (kh, kw))
+    return _fdw.dwconv_fgrad_acc_plain(xp, gy, (kh, kw), tuple(stride))
 
 
 def dwconv2d_filter_grad(

@@ -10,6 +10,8 @@ PyTorch versions, and the backend selector.
 | `fused_conv_requant`   | fused_conv_int8.py     | fused_conv_int8.py `_requant_kernel` (`conv_requant_pallas`) |
 | `fused_dwconv_max`     | fused_dwconv_int8.py   | fused_dwconv_int8.py `_max_kernel` (`dwconv_max_pallas`) |
 | `fused_dwconv_requant` | fused_dwconv_int8.py   | fused_dwconv_int8.py `_requant_kernel` (`dwconv_requant_pallas`) |
+| `fused_dwconv_fgrad`   | fused_dwconv_int8.py   | fused_dwconv_int8.py `_fgrad_kernel` (`dwconv_fgrad_acc_pallas`) |
+| `fused_matmul_max_bf16` | fused_matmul_int8.py  | tools/probes/dot_probe.py `make_dot.kernel`, bf16 operands (its int8 variant is `fused_matmul_max`) |
 """
 
 from typing import Dict
@@ -27,6 +29,8 @@ _COUNTERS = {
     "fused_conv_requant": (fused_conv_int8, "REQUANT_LAUNCHES"),
     "fused_dwconv_max": (fused_dwconv_int8, "MAX_LAUNCHES"),
     "fused_dwconv_requant": (fused_dwconv_int8, "REQUANT_LAUNCHES"),
+    "fused_dwconv_fgrad": (fused_dwconv_int8, "FGRAD_LAUNCHES"),
+    "fused_matmul_max_bf16": (fused_matmul_int8, "MAX_BF16_LAUNCHES"),
 }
 
 

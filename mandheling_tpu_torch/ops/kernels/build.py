@@ -32,6 +32,8 @@ SOURCES = {
     "fused_matmul_int8": "fused_matmul_int8.cu",
     "fused_conv_int8": "fused_conv_int8.cu",
     "fused_dwconv_int8": "fused_dwconv_int8.cu",
+    "fused_dwconv_fgrad_int8": "fused_dwconv_fgrad_int8.cu",
+    "matmul_max_bf16": "matmul_max_bf16.cu",
 }
 _HEADERS = ("gemm_s8.cuh", "niti_epilogue.cuh")
 NVCC_FLAGS = (

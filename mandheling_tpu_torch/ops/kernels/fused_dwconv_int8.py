@@ -1,7 +1,9 @@
-"""K4: the two-phase fused NITI depthwise conv, a hand-written Hopper kernel
-(``csrc/fused_dwconv_int8.cu``) and its plain PyTorch version.
+"""K4, the two-phase fused NITI depthwise conv, and K5, the depthwise
+filter-grad accumulator: hand-written Hopper kernels
+(``csrc/fused_dwconv_int8.cu``, ``csrc/fused_dwconv_fgrad_int8.cu``) and
+their plain PyTorch versions.
 
-Replaces the TPU kernels of ``mandheling_tpu/ops/kernels/fused_dwconv_int8.py``:
+K4 replaces the TPU kernels of ``mandheling_tpu/ops/kernels/fused_dwconv_int8.py``
 ``_max_kernel`` (``dwconv_max_pallas``) and ``_requant_kernel``
 (``dwconv_requant_pallas``). Both take the pre-padded input xp
 (B, Hp, Wp, C) and the (KH, KW, 1, C) weight of a VALID stride-1 depthwise
@@ -21,9 +23,14 @@ CUDA cores' int8 rate (IDP4A, 67 T multiply-adds/s: 132 SMs x 64 x 4 x
 1.98 GHz) the operations take at most 0.4 of the bytes' time (see the CUDA
 source).
 
-The TPU's third kernel here, ``dwconv_fgrad_acc_pallas``, is on no path of
-the JAX package (``ops/depthwise.py`` computes the filter grad outside
-Pallas) and is not ported yet.
+K5 (:func:`dwconv_fgrad_acc`) replaces the third TPU kernel here,
+``_fgrad_kernel`` (``dwconv_fgrad_acc_pallas``): the int32 (KH, KW, 1, C)
+filter-grad accumulator of a stride-1 depthwise conv, from xp and the
+output diff gy (B, OH, OW, C) in one pass, wrapping modulo 2^32 as the TPU
+kernel's int32 sums do. No path of the JAX package routes that kernel; the
+port routes K5 for every stride-1 depthwise filter grad that
+:func:`supports_fgrad` takes, under the "cuda" backend
+(``ops/depthwise.py``). Bound: bytes (see the CUDA source).
 """
 
 from __future__ import annotations
@@ -36,9 +43,10 @@ import torch
 from .. import numerics
 from . import build
 
-# Launches of the two CUDA kernels (plain integers; counted where they launch).
+# Launches of the CUDA kernels (plain integers; counted where they launch).
 MAX_LAUNCHES = 0
 REQUANT_LAUNCHES = 0
+FGRAD_LAUNCHES = 0
 
 # The JAX package's VMEM budget, which its eligibility rule is written in.
 _VMEM_BUDGET = 6 * 2**20
@@ -53,6 +61,33 @@ def supports(b: int, hp: int, wp: int, oh: int, ow: int, c: int) -> bool:
     take the fused route on both: one padded image fits its VMEM budget."""
     cpad = _round_up(c, 128)
     return (hp * wp + 5 * oh * ow * 4 + ow) * cpad <= _VMEM_BUDGET
+
+
+def supports_fgrad(xp_shape, gy_shape, kernel, stride=(1, 1)) -> bool:
+    """The JAX package's rule for its filter-grad kernel, unchanged: stride
+    1, gy the VALID output of xp, and one padded image within its VMEM
+    budget (``dwconv_fgrad_acc_pallas`` returns None otherwise)."""
+    kh, kw = kernel
+    _, hp, wp, c = xp_shape
+    oh, ow = gy_shape[1], gy_shape[2]
+    if tuple(stride) != (1, 1) or (oh, ow) != (hp - kh + 1, wp - kw + 1):
+        return False
+    return (hp * wp + 3 * oh * ow * 4) * _round_up(c, 128) <= _VMEM_BUDGET
+
+
+def dwconv_fgrad_acc_plain(xp: torch.Tensor, gy: torch.Tensor, kernel,
+                           stride=(1, 1)) -> torch.Tensor:
+    """int32 (KH, KW, 1, C): sum over (b, oh, ow) of xp[b, oh*s+dy, ow*s+dx, c]
+    * gy[b, oh, ow, c]. torch sums the int32 products in int64; the low 32
+    bits are kept, as the TPU kernel's int32 sums (and XLA's) wrap."""
+    kh, kw = kernel
+    sh, sw = stride
+    _, oh, ow, c = gy.shape
+    g = gy.to(torch.int32)
+    taps = [(xp[:, dy:dy + (oh - 1) * sh + 1:sh, dx:dx + (ow - 1) * sw + 1:sw, :]
+             .to(torch.int32) * g).sum(dim=(0, 1, 2))
+            for dy in range(kh) for dx in range(kw)]
+    return torch.stack(taps).reshape(kh, kw, 1, c).to(torch.int32)
 
 
 def dwconv_acc_plain(xp: torch.Tensor, w: torch.Tensor, stride=(1, 1)) -> torch.Tensor:
@@ -156,3 +191,50 @@ def dwconv_requant(xp: torch.Tensor, w: torch.Tensor, shift: torch.Tensor,
     if xp.is_cuda:
         return dwconv_requant_cuda(xp, w, shift, grad)
     return dwconv_requant_plain(xp, w, shift, grad)
+
+
+@functools.lru_cache(maxsize=None)
+def _fgrad_lib() -> ctypes.CDLL:
+    lib = build.library("fused_dwconv_fgrad_int8")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.mh_dwconv_fgrad_acc.argtypes = [p, p, p] + [i] * 6 + [p]
+    lib.mh_dwconv_fgrad_acc.restype = ctypes.c_int
+    return lib
+
+
+def dwconv_fgrad_acc_cuda(xp: torch.Tensor, gy: torch.Tensor, kernel) -> torch.Tensor:
+    """K5 on the card -> int32 (KH, KW, 1, C)."""
+    global FGRAD_LAUNCHES
+    kh, kw = kernel
+    if xp.dim() != 4 or gy.dim() != 4 or xp.shape[0] != gy.shape[0] or xp.shape[3] != gy.shape[3]:
+        raise ValueError(f"need xp (B, Hp, Wp, C) and gy (B, OH, OW, C), got "
+                         f"{tuple(xp.shape)}, {tuple(gy.shape)}")
+    if xp.dtype != torch.int8 or gy.dtype != torch.int8:
+        raise TypeError(f"int8 operands only, got {xp.dtype}, {gy.dtype}")
+    if not (xp.is_cuda and gy.is_cuda) or xp.device != gy.device:
+        raise ValueError(f"K5 needs xp and gy on one CUDA device, got {xp.device}, {gy.device}")
+    b, hp, wp, c = xp.shape
+    oh, ow = hp - kh + 1, wp - kw + 1
+    if (gy.shape[1], gy.shape[2]) != (oh, ow):
+        raise ValueError(f"gy {tuple(gy.shape)} is not the VALID stride-1 output of xp "
+                         f"{tuple(xp.shape)} under a {kh}x{kw} kernel")
+    if b * oh > 32 * 65535:
+        raise ValueError(f"K5 takes up to {32 * 65535} (b, oh) rows, got {b * oh}")
+    out = torch.zeros((kh, kw, 1, c), dtype=torch.int32, device=xp.device)
+    if b * oh * ow * c == 0:
+        return out
+    xp, gy = xp.contiguous(), gy.contiguous()
+    err = _fgrad_lib().mh_dwconv_fgrad_acc(xp.data_ptr(), gy.data_ptr(), out.data_ptr(),
+                                           b, hp, wp, c, kh, kw,
+                                           torch.cuda.current_stream(xp.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"fused_dwconv_fgrad kernel launch failed: CUDA error {err}")
+    FGRAD_LAUNCHES += 1
+    return out
+
+
+def dwconv_fgrad_acc(xp: torch.Tensor, gy: torch.Tensor, kernel) -> torch.Tensor:
+    """K5: the kernel on a CUDA tensor, its plain version on a CPU one."""
+    if xp.is_cuda:
+        return dwconv_fgrad_acc_cuda(xp, gy, kernel)
+    return dwconv_fgrad_acc_plain(xp, gy, kernel)

@@ -15,6 +15,12 @@ covers both the small-K/N and the tiled branch.
 
 Bound on an H100: the fc2 input grad at batch 2048 does ~23 int8 operations
 per byte moved, so device memory bounds it.
+
+K6 (:func:`matmul_max_bf16`, ``csrc/matmul_max_bf16.cu``) is phase 1 with
+the int8 operands multiplied as bf16 on the tensor cores and summed in
+float32, then converted to int32: the bf16 variant of the TPU micro-probe
+``tools/probes/dot_probe.py`` (``tools/probes/dot_probe_torch.py`` runs
+both). No training path calls it.
 """
 
 from __future__ import annotations
@@ -28,9 +34,10 @@ from .. import numerics
 from . import build
 from .matmul_int8 import _check, matmul_acc_plain
 
-# Launches of the two CUDA kernels (plain integers; counted where they launch).
+# Launches of the CUDA kernels (plain integers; counted where they launch).
 MAX_LAUNCHES = 0
 REQUANT_LAUNCHES = 0
+MAX_BF16_LAUNCHES = 0
 
 _SMALL_KN = 512
 _MIN_ACC_BYTES = 2 * 2**20
@@ -135,3 +142,48 @@ def matmul_requant(a: torch.Tensor, b: torch.Tensor, shift: torch.Tensor,
     if a.is_cuda:
         return matmul_requant_cuda(a, b, shift, grad)
     return matmul_requant_plain(a, b, shift, grad)
+
+
+@functools.lru_cache(maxsize=None)
+def _bf16_lib() -> ctypes.CDLL:
+    lib = build.library("matmul_max_bf16")
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.mh_matmul_max_bf16.argtypes = [p, p, p, i, i, i, ll, ll, ll, ll, p]
+    lib.mh_matmul_max_bf16.restype = ctypes.c_int
+    return lib
+
+
+def matmul_max_bf16_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """max|A @ B| with the operands as bf16 and the sums in float32, then
+    int32, as the TPU probe computes it. Every int8 is exact in bf16 and in
+    float32, so the product is taken in float32; its sums are exact, and
+    equal ``matmul_max_plain``, while they stay below 2^24."""
+    acc = (a.to(torch.float32) @ b.to(torch.float32)).to(torch.int32)
+    return numerics.abs_max(acc)
+
+
+def matmul_max_bf16_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """K6 on the card -> 0-d int32 max|a @ b| (INT32_MIN for an empty product)."""
+    global MAX_BF16_LAUNCHES
+    _check_cuda(a, b)
+    m, k = a.shape
+    n = b.shape[1]
+    out = torch.full((), _INT32_MIN, dtype=torch.int32, device=a.device)
+    if m == 0 or n == 0:
+        return out
+    err = _bf16_lib().mh_matmul_max_bf16(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
+        a.stride(0), a.stride(1), b.stride(0), b.stride(1),
+        torch.cuda.current_stream(a.device).cuda_stream,
+    )
+    if err:
+        raise RuntimeError(f"fused_matmul_max_bf16 kernel launch failed: CUDA error {err}")
+    MAX_BF16_LAUNCHES += 1
+    return out
+
+
+def matmul_max_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """K6: the kernel on a CUDA tensor, its plain version on a CPU one."""
+    if a.is_cuda:
+        return matmul_max_bf16_cuda(a, b)
+    return matmul_max_bf16_plain(a, b)

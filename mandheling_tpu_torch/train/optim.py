@@ -1,9 +1,10 @@
-"""NITI-SGD and the reference's inv learning-rate schedule (port of the
-NITI parts of ``mandheling_tpu/train/optim.py``)."""
+"""NITI-SGD, float SGD with momentum and weight decay, and the reference's
+inv learning-rate schedule (port of ``mandheling_tpu/train/optim.py`` but
+ADAM and the exp / multistep schedules)."""
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Sequence
 
 import torch
 
@@ -23,6 +24,22 @@ def niti_sgd_update(model: Sequential, grads: List) -> None:
         elif g:
             new = int8_clip(layer.w.to(torch.int32) - g["w"].data.to(torch.int32))
             layer.w.copy_(new)
+
+
+def sgd_init(params: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Zero velocities, one per parameter."""
+    return [torch.zeros_like(p) for p in params]
+
+
+@torch.no_grad()
+def sgd_update(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
+               velocity: List[torch.Tensor], lr: float, momentum: float = 0.9,
+               weight_decay: float = 5e-4) -> None:
+    """Reference float SGD (optimizer/SGD.cpp:79-100): v <- m*v + lr*(g +
+    wd*w); w <- w - v. Updates the parameters and velocities in place."""
+    for w, g, v in zip(params, grads, velocity):
+        v.copy_(momentum * v + lr * (g + weight_decay * w))
+        w.sub_(v)
 
 
 def lr_inv(base_lr: float, step, gamma: float = 1e-4, power: float = 0.75) -> float:

@@ -106,3 +106,39 @@ def test_fused_dwconv_kernels_match_plain(gen, xp_shape, k):
     for shift, grad in _shift_cases(mx):
         got = fdw.dwconv_requant_cuda(xp, w, shift, grad)
         assert torch.equal(got, fdw.dwconv_requant_plain(xp, w, shift, grad))
+
+
+@pytest.mark.parametrize("xp_shape,k", [
+    ((4, 18, 18, 24), (3, 3)), ((2, 34, 34, 144), (3, 3)), ((3, 10, 10, 576), (3, 3)),
+    ((5, 6, 6, 960), (3, 3)), ((3, 11, 45, 33), (3, 3)), ((5, 12, 12, 7), (3, 3)),
+    ((1, 3, 3, 1), (3, 3)), ((2, 13, 13, 24), (5, 5)), ((2, 12, 40, 40), (3, 1)),
+    ((1, 7, 37, 65), (1, 3)), ((2, 12, 12, 40), (7, 7)),
+])
+def test_dwconv_fgrad_kernel_matches_plain(gen, xp_shape, k):
+    """K5: the int32 depthwise filter-grad accumulator, byte for byte."""
+    b, hp, wp, c = xp_shape
+    xp = rand_int8(xp_shape, gen)
+    gy = rand_int8((b, hp - k[0] + 1, wp - k[1] + 1, c), gen)
+    got = fdw.dwconv_fgrad_acc_cuda(xp, gy, k)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fdw.dwconv_fgrad_acc_plain(xp, gy, k))
+
+
+def test_dwconv_fgrad_kernel_wraps(gen):
+    """Sums past 2^31 wrap as int32: all -128 over 147456 products a channel."""
+    xp = torch.full((9, 130, 130, 33), -128, dtype=torch.int8, device="cuda")
+    gy = torch.full((9, 128, 128, 33), -128, dtype=torch.int8, device="cuda")
+    want = (9 * 128 * 128 * 2**14 + 2**31) % 2**32 - 2**31
+    got = fdw.dwconv_fgrad_acc_cuda(xp, gy, (3, 3))
+    assert torch.equal(got, fdw.dwconv_fgrad_acc_plain(xp, gy, (3, 3)))
+    assert bool((got == want).all())
+
+
+@pytest.mark.parametrize("m,k,n", [(49152, 28, 512), (1000, 256, 512), (65, 37, 70),
+                                   (3, 5, 2), (128, 2600, 64)])
+def test_matmul_max_bf16_kernel_matches_plain(gen, m, k, n):
+    """K6 at operands in [-80, 80), where every float32 sum is exact."""
+    a, b = rand_int8((m, k), gen, -80, 80), rand_int8((k, n), gen, -80, 80)
+    got = fmm.matmul_max_bf16_cuda(a, b)
+    assert torch.equal(got, fmm.matmul_max_bf16_plain(a, b))
+    assert torch.equal(got, fmm.matmul_max_plain(a, b))

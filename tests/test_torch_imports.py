@@ -1,6 +1,8 @@
-"""The port stands alone: no module of mandheling_tpu_torch, and neither
-chip_smoke.py nor tools/profile_torch_step.py, imports jax or anything of
-the JAX package (not even a module there that uses no jax)."""
+"""The port stands alone: no module of mandheling_tpu_torch, and none of
+chip_smoke.py, tools/profile_torch_step.py, the demo CLI
+tools/run_train_demo_torch.py and the probe tools/probes/dot_probe_torch.py,
+imports jax or anything of the JAX package (not even a module there that
+uses no jax)."""
 
 import ast
 from pathlib import Path
@@ -9,7 +11,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "mandheling_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_step.py"]
+    ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_step.py",
+    ROOT / "tools" / "run_train_demo_torch.py", ROOT / "tools" / "probes" / "dot_probe_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "mandheling_tpu")
 
 
@@ -39,7 +42,7 @@ def test_guard_sees_the_package():
              if ROOT / "mandheling_tpu_torch" in p.parents}
     for module in ("ops/depthwise.py", "ops/eltwise.py", "ops/kernels/fused_conv_int8.py",
                    "ops/kernels/fused_dwconv_int8.py", "nn/blocks.py", "models/mobilenet.py",
-                   "data/cifar.py"):
+                   "data/cifar.py", "nn/transform.py", "utils/checkpoint.py"):
         assert module in names
 
 
@@ -47,7 +50,9 @@ def test_guard_sees_the_package():
     "mandheling_tpu_torch.ops.depthwise", "mandheling_tpu_torch.ops.eltwise",
     "mandheling_tpu_torch.ops.kernels.fused_conv_int8",
     "mandheling_tpu_torch.ops.kernels.fused_dwconv_int8", "mandheling_tpu_torch.nn.blocks",
-    "mandheling_tpu_torch.models.mobilenet", "mandheling_tpu_torch.data.cifar"])
+    "mandheling_tpu_torch.models.mobilenet", "mandheling_tpu_torch.data.cifar",
+    "mandheling_tpu_torch.nn.transform", "mandheling_tpu_torch.utils.checkpoint",
+    "mandheling_tpu_torch.train.trainer"])
 def test_new_modules_import_without_building(module):
     """Importing a kernel module builds nothing: the build happens at the
     first launch, on the card."""

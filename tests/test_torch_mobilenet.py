@@ -123,15 +123,11 @@ def test_reduced_mnv2_steps_byte_identical_to_jax(jax_runs, batches, recipe, mod
     assert_weights_equal(export_jax_params(model), start)
     step = make_train_step(model)
     losses = []
-    set_margins(tconv, tdw, margin)
-    try:
-        with use_backend(backend), tconv.use_fused_conv_mode(mode):
-            for x, oh in zip(xs, ohs):
-                losses.append(float(step(torch.from_numpy(x), torch.from_numpy(oh))))
-            correct = int(make_eval_step(model)(torch.from_numpy(xs[0]),
-                                                torch.from_numpy(labels)))
-    finally:
-        set_margins(tconv, tdw, 2)
+    with tdw.recipe_margins(margin, margin), use_backend(backend), \
+            tconv.use_fused_conv_mode(mode):
+        for x, oh in zip(xs, ohs):
+            losses.append(float(step(torch.from_numpy(x), torch.from_numpy(oh))))
+        correct = int(make_eval_step(model)(torch.from_numpy(xs[0]), torch.from_numpy(labels)))
     final = export_jax_params(model)
     assert_weights_equal(final, final_j)
     assert any(not np.array_equal(a, b)
@@ -200,7 +196,8 @@ def test_chip_smoke_launch_table_is_the_routes(monkeypatch):
     """chip_smoke.py asserts the launches of every main path against
     EXPECTED_PER_STEP. Rehearsed here on the meta device (shapes only, no
     data): each dispatch call a train step and an eval step make, per
-    kernel family, at the table's models, batches and fused modes."""
+    kernel family, at the table's models ("mnv2pc": the r5 recipe's
+    per-channel depthwise MobileNetV2), batches and fused modes."""
     from mandheling_tpu_torch.models import lenet_niti
     from mandheling_tpu_torch.ops.kernels import fused_conv_int8, fused_dwconv_int8
     from mandheling_tpu_torch.ops.kernels import fused_matmul_int8, matmul_int8
@@ -211,14 +208,16 @@ def test_chip_smoke_launch_table_is_the_routes(monkeypatch):
                            ("K2r", fused_matmul_int8, "matmul_requant"),
                            ("K3", fused_conv_int8, "conv_max"), ("K3r", fused_conv_int8, "conv_requant"),
                            ("K4", fused_dwconv_int8, "dwconv_max"),
-                           ("K4r", fused_dwconv_int8, "dwconv_requant")]:
+                           ("K4r", fused_dwconv_int8, "dwconv_requant"),
+                           ("K5", fused_dwconv_int8, "dwconv_fgrad_acc")]:
         real = getattr(mod, name)
 
         def counted(*a, _fam=fam, _real=real, **k):
             calls[_fam] = calls.get(_fam, 0) + 1
             return _real(*a, **k)
         monkeypatch.setattr(mod, name, counted)
-    model_fns = {"lenet": (lenet_niti, (28, 28, 1)), "mnv2": (mobilenet_v2_niti, (32, 32, 3))}
+    model_fns = {"lenet": (lenet_niti, (28, 28, 1)), "mnv2": (mobilenet_v2_niti, (32, 32, 3)),
+                 "mnv2pc": (lambda: mobilenet_v2_niti(dw_per_channel=True), (32, 32, 3))}
     for (model_name, batch, mode), want in cs.EXPECTED_PER_STEP.items():
         build, hwc = model_fns[model_name]
         model = build().to("meta")
@@ -261,3 +260,27 @@ def test_chip_smoke_k4_path_cases_are_the_step_shapes():
     per_train, per_eval = cs.EXPECTED_PER_STEP[("mnv2", 256, "matmul_only")]
     assert sum(train["K4"].values()) == per_train["K4"]
     assert sum(evals["K4"].values()) == per_eval["K4"]
+
+
+@pytest.mark.parametrize("per_channel", [False, True])
+def test_chip_smoke_k5_path_cases_are_the_step_shapes(per_channel):
+    """chip_smoke.py times K5 at K5_PATH_CASES and weights them by the
+    launches it records in a batch-256 MobileNetV2 step, per-tensor and
+    under the recipe. Rehearsed here on the meta device with its recorder:
+    a train step's K5 shapes are the listed ones (14 launches), an eval
+    step makes none."""
+    from mandheling_tpu_torch.ops.kernels import fused_dwconv_int8
+
+    cs = _load_chip_smoke()
+    model = mobilenet_v2_niti(dw_per_channel=per_channel).to("meta")
+    x = torch.zeros((256, 32, 32, 3), device="meta")
+    oh = torch.zeros((256, MOBILENET_V2_NITI_LOGITS), dtype=torch.int32, device="meta")
+    spec = {"K5": (fused_dwconv_int8, "dwconv_fgrad_acc", cs.k5_key)}
+    with cs.recording(spec) as train:
+        make_train_step(model)(x, oh)
+    with cs.recording(spec) as evals:
+        make_eval_step(model)(x, torch.zeros(256, dtype=torch.int64, device="meta"))
+    assert set(train["K5"]) == {(xps, k) for _, xps, k in cs.K5_PATH_CASES}
+    assert not evals["K5"]
+    key = ("mnv2pc" if per_channel else "mnv2", 256, "matmul_only")
+    assert sum(train["K5"].values()) == cs.EXPECTED_PER_STEP[key][0]["K5"] == 14

@@ -2,14 +2,15 @@
 """Where the time of one training step of the PyTorch/CUDA port goes, on the GPU.
 
     python3 tools/profile_torch_step.py [--model lenet|mnv2] [--mode matmul_only|all]
-                                        [--batch 64 2048] [--steps 20] [--out PATH]
+                                        [--recipe] [--batch 64 2048] [--steps 20] [--out PATH]
 
 For each batch size: the NITI train step of mandheling_tpu_torch with the
 hand-written kernels (the step `train_niti` runs, host-to-device copies
 included) for the NITI LeNet on synthetic MNIST (default batches 64 and
 2048) or the full-width NITI MobileNetV2 on synthetic CIFAR (default batch
-256), in fused mode `--mode`, timed without tracing, then traced with
-torch.profiler. Prints
+256; `--recipe`: the r5 recipe, per-channel depthwise exponents and
+filter-grad margins 0/0, as `MobilenetV2Train` trains it), in fused mode
+`--mode`, timed without tracing, then traced with torch.profiler. Prints
 wall ms/step (back to back, and synchronised after each step as the
 trainer's StepTimer does), device busy ms/step (the union of the CUDA activity
 intervals), the device's idle share, CUDA activities and top-level host ops
@@ -23,6 +24,8 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
+import functools
 import json
 import os
 import subprocess
@@ -40,6 +43,7 @@ from mandheling_tpu_torch.data import onehot_padded, synthetic_cifar, synthetic_
 from mandheling_tpu_torch.models import (NITI_LOGIT_CHANNELS, NUM_CLASSES, lenet_niti,  # noqa: E402
                                          mobilenet_v2_niti)
 from mandheling_tpu_torch.ops.conv import use_fused_conv_mode  # noqa: E402
+from mandheling_tpu_torch.ops.depthwise import recipe_margins  # noqa: E402
 from mandheling_tpu_torch.ops.kernels import build  # noqa: E402
 from mandheling_tpu_torch.train import make_train_step  # noqa: E402
 
@@ -62,8 +66,10 @@ def union_us(intervals):
     return total
 
 
-def profile_batch(model_name: str, batch: int, steps: int):
+def profile_batch(model_name: str, batch: int, steps: int, recipe: bool = False):
     build_model, data, _ = MODELS[model_name]
+    if recipe:
+        build_model = functools.partial(build_model, dw_per_channel=True)
     model = build_model().reset_parameters(torch.Generator().manual_seed(0)).to("cuda")
     step = make_train_step(model)
     x, y = data(batch * steps, seed=5)
@@ -110,7 +116,7 @@ def profile_batch(model_name: str, batch: int, steps: int):
     busy_ms = union_us([(e.time_range.start, e.time_range.end) for e in dev]) / 1e3 / steps
     wall_ms = float(np.median(walls))
     res = {
-        "model": model_name, "batch": batch, "steps": steps, "wall_ms_per_step": wall_ms,
+        "model": model_name, "recipe": recipe, "batch": batch, "steps": steps, "wall_ms_per_step": wall_ms,
         "wall_ms_per_step_runs": walls, "traced_ms_per_step": traced_ms,
         "synced_step_ms_median": float(np.median(synced)),
         "synced_step_ms_quartiles": [float(np.percentile(synced, 25)),
@@ -138,21 +144,26 @@ def main() -> int:
                     help="fused conv mode")
     ap.add_argument("--batch", type=int, nargs="+",
                     help="batch sizes (default: 64 2048 for lenet, 256 for mnv2)")
+    ap.add_argument("--recipe", action="store_true",
+                    help="mnv2 only: per-channel depthwise exponents and margins 0/0")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--out", help="write the full table here as JSON")
     args = ap.parse_args()
+    if args.recipe and args.model != "mnv2":
+        ap.error("--recipe is the MobileNetV2 recipe: use it with --model mnv2")
     if not torch.cuda.is_available():
         print("profile_torch_step: needs a CUDA device", file=sys.stderr)
         return 2
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
-    print(f"card: {card}; torch {torch.__version__}; model {args.model}, fused mode "
-          f"{args.mode}", flush=True)
+    print(f"card: {card}; torch {torch.__version__}; model {args.model}"
+          f"{' (r5 recipe)' if args.recipe else ''}, fused mode {args.mode}", flush=True)
     build.build_all()
     results = []
     for batch in args.batch or MODELS[args.model][2]:
-        with use_fused_conv_mode(args.mode):
-            r = profile_batch(args.model, batch, args.steps)
+        margins = recipe_margins() if args.recipe else contextlib.nullcontext()
+        with use_fused_conv_mode(args.mode), margins:
+            r = profile_batch(args.model, batch, args.steps, args.recipe)
         results.append(r)
         busy = r["device_busy_ms_per_step"]
         print(f"batch {batch}: wall {r['wall_ms_per_step']:.3f} ms/step "
@@ -174,6 +185,7 @@ def main() -> int:
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "torch": torch.__version__, "mode": args.mode,
+                       "recipe": args.recipe,
                        "results": results}, f, indent=1)
     return 0
 

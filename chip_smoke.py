@@ -11,7 +11,8 @@ raises on failure (the script then exits non-zero and prints no result):
    source, all started together;
 3. each kernel against its plain PyTorch version on the card, byte for byte,
    at the shapes the training steps give it: K1 (matmul_int8) at the 11
-   contractions of a batch-64 LeNet step, K2 (fused_matmul_max / _requant)
+   contractions of a batch-64 LeNet step, each in the operand layout the
+   step gives it (K1_SHAPES), K2 (fused_matmul_max / _requant)
    at the fc2 input grad of batch 2048 and at a shape of the JAX package's
    tiled branch (K > 512), K3 (fused_conv_max / _requant) at the MobileNetV2
    stem and LeNet's convs, K4 (fused_dwconv_max / _requant) at the 7
@@ -33,8 +34,11 @@ raises on failure (the script then exits non-zero and prints no result):
    on synthetic CIFAR: batch 256, kernels against plain on the card; batch
    32, kernels against plain on the CPU; batch 256 under fused mode "all";
    then samples/s at batch 256; then K1, its plain version and
-   torch._int_mm (the library yardstick) at every shape K1 takes in a
-   batch-256 train step;
+   torch._int_mm (the library yardstick) at every shape and layout K1 takes
+   in a batch-256 train step, and K2's two phases, their plain versions and
+   bounds (phase 2's also on the CUDA cores) at every shape and layout K2
+   takes there (K2_PATH_CASES), each warm and cold (operands rotated over
+   more than the L2);
 8. the r5 recipe, `mobilenet_v2_niti(dw_per_channel=True)` with filter-grad
    margins 0/0, at full width: batch 256, kernels against plain on the
    card; batches 32 and 16 (`MobilenetV2Train`'s), kernels against plain
@@ -53,9 +57,10 @@ Every main-path run asserts its launch counts, per kernel, against the
 routes one train step and one eval step take (EXPECTED_PER_STEP). The
 shapes of K1's launches in the LeNet batch-64 run and of K1's, K4's and
 K5's in the MobileNetV2 batch-256 run (K5's also in the recipe's) are
-recorded; K4's and K5's must be the shapes phase 3 checked, and the
-per-step counts weight the timings of K1, K4 and K5 into the sums of one
-train step.
+recorded, and K2's there with their operand layouts; K4's and K5's must be
+the shapes phase 3 checked, K2's those of K2_PATH_CASES, and the per-step
+counts weight the timings of K1, K2, K4 and K5 into the sums of one train
+step.
 
 The last line of standard output is {"ok": true, "device": {...}}.
 """
@@ -96,26 +101,48 @@ from mandheling_tpu_torch.utils.jax_params import export_jax_params, flat_weight
 
 ROOT = Path(__file__).resolve().parent
 
-# (what, M, K, N, A transposed) of every int8 contraction of a LeNet train
-# step at batch 64. The filter grads multiply im2col(x)^T, a strided view.
+# (what, M, K, N, A's layout, B's layout) of every int8 contraction of a
+# LeNet train step at batch 64, the layouts as matmul_int8.layout classes
+# them: A "k" (k contiguous) or "m" (the filter grads' im2col(x)^T view); B
+# "n" (HWIO weights, gy) or "k" (the rot180 / io-swapped weights).
 K1_SHAPES = [
-    ("conv1 fwd", 36864, 25, 20, False),
-    ("conv2 fwd", 4096, 500, 52, False),
-    ("fc1 fwd", 64, 832, 500, False),
-    ("fc2 fwd", 64, 500, 12, False),
-    ("fc2 igrad", 64, 12, 500, False),
-    ("fc2 fgrad", 500, 64, 12, True),
-    ("fc1 igrad", 64, 500, 832, False),
-    ("fc1 fgrad", 832, 64, 500, True),
-    ("conv2 igrad", 9216, 1300, 20, False),
-    ("conv2 fgrad", 500, 4096, 52, True),
-    ("conv1 fgrad", 25, 36864, 20, True),
+    ("conv1 fwd", 36864, 25, 20, "k", "n"),
+    ("conv2 fwd", 4096, 500, 52, "k", "n"),
+    ("fc1 fwd", 64, 832, 500, "k", "n"),
+    ("fc2 fwd", 64, 500, 12, "k", "n"),
+    ("fc2 igrad", 64, 12, 500, "k", "k"),
+    ("fc2 fgrad", 500, 64, 12, "m", "n"),
+    ("fc1 igrad", 64, 500, 832, "k", "k"),
+    ("fc1 fgrad", 832, 64, 500, "m", "n"),
+    ("conv2 igrad", 9216, 1300, 20, "k", "n"),
+    ("conv2 fgrad", 500, 4096, 52, "m", "n"),
+    ("conv1 fgrad", 25, 36864, 20, "m", "n"),
 ]
 K2_SHAPE = ("fc2 igrad b2048", 2048, 12, 500)
 # K > 512: a shape of the JAX package's tiled branch (matmul_max_pallas /
 # matmul_requant_pallas past `_small_max`), which `supports` keeps off the
-# main path; the one CUDA design serves both branches, timed at each.
+# main path; timed beside the main path's shape.
 K2_TILED_SHAPE = ("tiled branch, fc1 fwd widths b2048", 2048, 832, 500)
+# K2's calls in a batch-256 MobileNetV2 train or eval step, (M, K, N, A's
+# layout, B's layout): the 1x1 forwards (B "n") and input grads (B "k") that
+# `supports` takes. The run records them and holds them to this list.
+K2_PATH_CASES = [
+    (16384, 64, 192, "k", "k"), (16384, 64, 384, "k", "k"), (16384, 64, 384, "k", "n"),
+    (16384, 96, 384, "k", "k"), (16384, 192, 64, "k", "n"), (16384, 384, 64, "k", "k"),
+    (16384, 384, 64, "k", "n"), (16384, 384, 96, "k", "n"), (65536, 32, 144, "k", "k"),
+    (65536, 32, 192, "k", "k"), (65536, 32, 192, "k", "n"), (65536, 144, 32, "k", "n"),
+    (65536, 192, 32, "k", "k"), (65536, 192, 32, "k", "n"), (262144, 16, 32, "k", "k"),
+    (262144, 16, 96, "k", "n"), (262144, 24, 96, "k", "k"), (262144, 24, 144, "k", "k"),
+    (262144, 24, 144, "k", "n"), (262144, 32, 16, "k", "n"), (262144, 96, 16, "k", "k"),
+    (262144, 96, 24, "k", "n"), (262144, 144, 24, "k", "k"), (262144, 144, 24, "k", "n"),
+]
+# Integer operations of one output of K2's psto epilogue (niti_epilogue.cuh
+# psto_round and the int8 cast, the terms that depend only on the shift
+# hoisted), counted from the source: phase 2's floor on the CUDA cores.
+PSTO_INT_OPS = 25
+# Operand copies rotated over more than this many bytes for a time with a
+# cold L2 (the H100's is 50 MB).
+COLD_BYTES = 64 * 2**20
 K1_PER_TRAIN_STEP, K1_PER_EVAL_STEP = 11, 4
 
 # K3: (what, x shape, w shape, stride, pads). The first four are the
@@ -226,8 +253,24 @@ def bound(ops: float, nbytes: float, rates):
 
 
 def k1_key(a, b):
-    """(M, K, N, A transposed) of a K1 call."""
-    return (a.shape[0], a.shape[1], b.shape[1], a.stride(0) == 1 and a.stride(1) != 1)
+    """(M, K, N, A's layout, B's layout) of a K1 or K2 call."""
+    m, k = a.shape
+    n = b.shape[1]
+    return (m, k, n, *matmul_int8.layout(m, k, n, a.stride(), b.stride()))
+
+
+def operands(m, k, n, a_layout, b_layout, gen, copies=1):
+    """[(a, b)] * copies: random int8 operands in the given layouts."""
+    out = []
+    for _ in range(copies):
+        a = rand_int8((k, m), gen).t() if a_layout == "m" else rand_int8((m, k), gen)
+        b = rand_int8((n, k), gen).t() if b_layout == "k" else rand_int8((k, n), gen)
+        out.append((a, b))
+    return out
+
+
+def cold_copies(m, k, n):
+    return min(1000, max(2, -(-COLD_BYTES // (m * k + k * n))))
 
 
 def k4_key(xp, w):
@@ -241,6 +284,7 @@ def k5_key(xp, gy, kernel):
 
 
 RECORD_K1 = {"K1": (matmul_int8, "matmul_acc_cuda", k1_key)}
+RECORD_K2 = {"K2": (fused_matmul_int8, "matmul_max_cuda", k1_key)}
 RECORD_K4 = {"K4": (fused_dwconv_int8, "dwconv_max_cuda", k4_key)}
 RECORD_K5 = {"K5": (fused_dwconv_int8, "dwconv_fgrad_acc_cuda", k5_key)}
 
@@ -263,19 +307,23 @@ def recording(spec):
             setattr(mod, name, reals[label])
 
 
-def time_ms(fn, launches: int = 50, rounds: int = 5) -> float:
+def time_ms(fn, launches: int = 50, rounds: int = 5, sets=None) -> float:
     """Median over `rounds` of the device time per call of `fn`, for calls
     issued back to back: a sleep kernel holds the stream while the host
-    queues them, so host overhead between calls does not reach the clock."""
-    fn()
+    queues them, so host overhead between calls does not reach the clock.
+    Given operand `sets`, fn(*set) cycles through them (each call at least
+    once a round): with sets over more than the L2, a cold-cache time."""
+    sets = sets or [()]
+    launches = max(launches, len(sets))
+    fn(*sets[0])
     torch.cuda.synchronize()
     per_call = []
     for _ in range(rounds):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(50_000_000)
         start.record()
-        for _ in range(launches):
-            fn()
+        for i in range(launches):
+            fn(*sets[i % len(sets)])
         end.record()
         torch.cuda.synchronize()
         per_call.append(start.elapsed_time(end) / launches)
@@ -307,9 +355,8 @@ def card_line() -> str:
 
 def check_k1(rates, gen):
     rows = []
-    for what, m, k, n, trans in K1_SHAPES:
-        a = rand_int8((k, m), gen).t() if trans else rand_int8((m, k), gen)
-        b = rand_int8((k, n), gen)
+    for what, m, k, n, al, bl in K1_SHAPES:
+        (a, b), = operands(m, k, n, al, bl, gen)
         got = matmul_int8.matmul_acc_cuda(a, b)
         err = max_abs_err(got, matmul_int8.matmul_acc_plain(a, b))
         if err:
@@ -321,10 +368,11 @@ def check_k1(rates, gen):
         lib_ms = time_ms(lambda: torch._int_mm(a, b)) if int_mm_accepts(m, k, n) else None
         ops, nbytes = 2.0 * m * n * k, m * k + k * n + 4.0 * m * n
         b_ms, b_by = bound(ops, nbytes, rates)
-        rows.append(dict(what=what, m=m, k=k, n=n, a_transposed=trans, max_abs_err=err,
-                         ms=ms, plain_ms=plain_ms, library_ms=lib_ms, ops=ops, bytes=nbytes,
-                         bound_ms=b_ms, bound_by=b_by))
-        print(f"  K1 {what:12s} ({m:5d},{k:5d})x({k:5d},{n:3d}){' A^T' if trans else '    '}"
+        route = matmul_int8.plan(m, k, n, a.stride(), b.stride()).route
+        rows.append(dict(what=what, m=m, k=k, n=n, a_layout=al, b_layout=bl, route=route,
+                         max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, ops=ops,
+                         bytes=nbytes, bound_ms=b_ms, bound_by=b_by))
+        print(f"  K1 {what:12s} ({m:5d},{k:5d})x({k:5d},{n:3d}) A {al} B {bl} ({route})"
               f" err {err} | kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
               f"_int_mm {'%.4f ms' % lib_ms if lib_ms is not None else 'n/a (K, N not multiples of 8)'}"
               f"  bound {b_ms * 1e3:.2f} us ({b_by})", flush=True)
@@ -522,73 +570,134 @@ def check_k5(rates, mac_rate, gen):
 
 def k1_library_rows(k1_per_step, rates, gen):
     """K1, its plain version and torch._int_mm (the yardstick; the port never
-    calls it) at each (M, K, N, A transposed) K1 takes in one train step,
-    with the step's launches of each. _int_mm takes K and N multiples of 8
-    and M > 16; where it refuses the strided A^T view, it is timed on a
-    contiguous copy, and the row says so. Where it takes the view, it is
-    also timed on a contiguous copy of A^T (the copy not timed), as
-    library_contiguous_ms."""
+    calls it) at each (M, K, N, A's layout, B's layout) K1 takes in one
+    train step, in that layout, with the step's launches of each; K1 also
+    cold (operands rotated over more than the L2). _int_mm takes K and N
+    multiples of 8 and M > 16; where it refuses the operands as given (a
+    strided A^T or B), it is timed on contiguous copies, and the row says
+    so."""
     rows = []
-    for (m, k, n, trans), count in sorted(k1_per_step.items()):
-        a = rand_int8((k, m), gen).t() if trans else rand_int8((m, k), gen)
-        b = rand_int8((k, n), gen)
+    for (m, k, n, al, bl), count in sorted(k1_per_step.items()):
+        (a, b), = operands(m, k, n, al, bl, gen)
         want = matmul_int8.matmul_acc_plain(a, b)
         err = max_abs_err(matmul_int8.matmul_acc_cuda(a, b), want)
         if err:
             raise AssertionError(f"K1 ({m},{k})x({k},{n}) differs from plain by {err}")
-        lib_ms, lib_contig_ms, note = None, None, "refused: needs M > 16 and K, N multiples of 8"
+        lib_ms, note = None, "refused: needs M > 16 and K, N multiples of 8"
         if int_mm_accepts(m, k, n):
-            a_lib, note = a, "as given"
+            a_lib, b_lib, note = a, b, "as given"
             try:
-                torch._int_mm(a_lib, b)
+                torch._int_mm(a_lib, b_lib)
             except RuntimeError:
-                a_lib, note = a.contiguous(), "on a contiguous copy of A^T (refuses the strided view)"
-            if not torch.equal(torch._int_mm(a_lib, b), want):
+                a_lib, b_lib = a.contiguous(), b.contiguous()
+                note = "on contiguous copies (refuses the operands as given)"
+            if not torch.equal(torch._int_mm(a_lib, b_lib), want):
                 note += "; its result differs from K1's"
-            lib_ms = time_ms(lambda: torch._int_mm(a_lib, b), launches=20, rounds=3)
-            if trans and a_lib is a:
-                a_copy = a.contiguous()
-                lib_contig_ms = time_ms(lambda: torch._int_mm(a_copy, b), launches=20, rounds=3)
-            elif trans:
-                lib_contig_ms = lib_ms
+            lib_ms = time_ms(lambda: torch._int_mm(a_lib, b_lib), launches=20, rounds=3)
         ops, nbytes = 2.0 * m * n * k, m * k + k * n + 4.0 * m * n
         b_ms, b_by = bound(ops, nbytes, rates)
-        rows.append(dict(m=m, k=k, n=n, a_transposed=trans, launches_per_train_step=count,
+        cold = operands(m, k, n, al, bl, gen, cold_copies(m, k, n))
+        rows.append(dict(m=m, k=k, n=n, a_layout=al, b_layout=bl,
+                         route=matmul_int8.plan(m, k, n, a.stride(), b.stride()).route,
+                         launches_per_train_step=count,
                          ms=time_ms(lambda: matmul_int8.matmul_acc_cuda(a, b), launches=20, rounds=3),
+                         cold_ms=time_ms(matmul_int8.matmul_acc_cuda, rounds=3, sets=cold),
                          plain_ms=time_ms(lambda: matmul_int8.matmul_acc_plain(a, b), launches=5,
                                           rounds=3),
-                         library_ms=lib_ms, library_contiguous_ms=lib_contig_ms,
-                         library_note=note, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=lib_ms, library_note=note, bound_ms=b_ms, bound_by=b_by,
                          ops=ops, bytes=nbytes))
+        del cold
         r = rows[-1]
-        print(f"  K1 ({m:6d},{k:6d})x({k:6d},{n:4d}){' A^T' if trans else '    '} x{count}: "
-              f"kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  _int_mm "
-              f"{'%.4f ms' % lib_ms if lib_ms is not None else 'n/a'} ({note}"
-              f"{'; on a contiguous copy %.4f ms' % lib_contig_ms if lib_contig_ms else ''})  bound "
+        print(f"  K1 ({m:6d},{k:6d})x({k:6d},{n:4d}) A {al} B {bl} x{count}: kernel "
+              f"{r['ms']:.4f} ms (cold {r['cold_ms']:.4f})  plain {r['plain_ms']:.4f} ms  _int_mm "
+              f"{'%.4f ms' % lib_ms if lib_ms is not None else 'n/a'} ({note})  bound "
               f"{b_ms * 1e3:.2f} us ({b_by})", flush=True)
     return rows
 
 
 def k1_library_summary(rows):
     """Times of one train step's K1 launches, weighted by the recording;
-    K1 and _int_mm also over the shapes _int_mm takes, split into A as
-    given (forwards, input grads) and A^T (the filter grads' strided view)."""
+    K1 and _int_mm also over the shapes _int_mm takes, split into A row-major
+    ("a": the forwards and input grads) and MN-major ("a_t": the filter
+    grads' im2col^T view)."""
     def total(key, subset):
         return sum(r["launches_per_train_step"] * r[key] for r in subset)
 
     out = {"launches": sum(r["launches_per_train_step"] for r in rows),
-           "ms": total("ms", rows), "plain_ms": total("plain_ms", rows),
-           "bound_ms": total("bound_ms", rows)}
+           "ms": total("ms", rows), "cold_ms": total("cold_ms", rows),
+           "plain_ms": total("plain_ms", rows), "bound_ms": total("bound_ms", rows)}
     taken = [r for r in rows if r["library_ms"] is not None]
     out.update(library_launches=sum(r["launches_per_train_step"] for r in taken),
                ms_where_library_takes=total("ms", taken), library_ms=total("library_ms", taken))
-    for label, trans in (("a", False), ("a_t", True)):
-        sub = [r for r in taken if r["a_transposed"] == trans]
+    for label, al in (("a", "k"), ("a_t", "m")):
+        sub = [r for r in taken if r["a_layout"] == al]
+        every = [r for r in rows if r["a_layout"] == al]
         out[label] = {"launches": sum(r["launches_per_train_step"] for r in sub),
                       "ms": total("ms", sub), "library_ms": total("library_ms", sub),
-                      "bound_ms": total("bound_ms", sub)}
-        if trans and all(r["library_contiguous_ms"] is not None for r in sub):
-            out[label]["library_contiguous_ms"] = total("library_contiguous_ms", sub)
+                      "bound_ms": total("bound_ms", sub),
+                      "all_launches": sum(r["launches_per_train_step"] for r in every),
+                      "all_ms": total("ms", every), "all_cold_ms": total("cold_ms", every),
+                      "all_bound_ms": total("bound_ms", every)}
+    return out
+
+
+def k2_path_rows(k2_per_step, rates, int_rate, gen):
+    """K2's two phases at each (M, K, N, A's layout, B's layout) it takes in
+    one train step, in that layout: byte-equal to plain (the forward
+    requant of the path, with the shift phase 1 gives), warm and cold times,
+    the plain versions' times, and the bounds: bytes against the tensor
+    cores, and for phase 2 also its psto epilogue on the CUDA cores."""
+    rows = []
+    for key in sorted(k2_per_step):
+        m, k, n, al, bl = key
+        (a, b), = operands(m, k, n, al, bl, gen)
+        cold = operands(m, k, n, al, bl, gen, cold_copies(m, k, n))
+        mx = fused_matmul_int8.matmul_max_cuda(a, b)
+        shift = numerics.forward_shift(numerics.range_estimate_from_max(mx))
+        err = max(max_abs_err(mx, fused_matmul_int8.matmul_max_plain(a, b)),
+                  max_abs_err(fused_matmul_int8.matmul_requant_cuda(a, b, shift),
+                              fused_matmul_int8.matmul_requant_plain(a, b, shift)))
+        if err:
+            raise AssertionError(f"K2 at {key} differs from plain by {err}")
+        ops = 2.0 * m * n * k
+        row = dict(key=list(key), launches_per_train_step=k2_per_step[key], max_abs_err=err)
+        requant = lambda x, y: fused_matmul_int8.matmul_requant_cuda(x, y, shift)  # noqa: E731
+        for phase, fn, plain, nbytes in [
+            ("max", fused_matmul_int8.matmul_max_cuda, fused_matmul_int8.matmul_max_plain,
+             m * k + k * n + 4.0),
+            ("requant", requant,
+             lambda x, y: fused_matmul_int8.matmul_requant_plain(x, y, shift),
+             m * k + k * n + 4.0 + m * n),
+        ]:
+            b_ms, b_by = bound(ops, nbytes, rates)
+            row[phase] = dict(ms=time_ms(fn, launches=20, rounds=3, sets=[(a, b)]),
+                              cold_ms=time_ms(fn, rounds=3, sets=cold),
+                              plain_ms=time_ms(plain, launches=5, rounds=3, sets=[(a, b)]),
+                              bound_ms=b_ms, bound_by=b_by, ops=ops, bytes=nbytes)
+        row["requant"]["epilogue_floor_ms"] = m * n * PSTO_INT_OPS / int_rate * 1e3
+        del cold
+        rows.append(row)
+        print(f"  K2 {key} x{row['launches_per_train_step']}: byte-equal | max "
+              f"{row['max']['ms']:.4f} ms (cold {row['max']['cold_ms']:.4f}, plain "
+              f"{row['max']['plain_ms']:.4f}, bound {row['max']['bound_ms'] * 1e3:.2f} us) | "
+              f"requant {row['requant']['ms']:.4f} ms (cold {row['requant']['cold_ms']:.4f}, plain "
+              f"{row['requant']['plain_ms']:.4f}, bound {row['requant']['bound_ms'] * 1e3:.2f} us, "
+              f"psto floor {row['requant']['epilogue_floor_ms'] * 1e3:.2f} us)", flush=True)
+    return rows
+
+
+def k2_path_summary(rows, rates):
+    """Each phase over one train step's K2 launches, weighted by the
+    recording; the bound of the sum from the summed operations and bytes."""
+    out = {"launches": sum(r["launches_per_train_step"] for r in rows)}
+    for phase in ("max", "requant"):
+        tot = {key: sum(r["launches_per_train_step"] * r[phase][key] for r in rows)
+               for key in ("ms", "cold_ms", "plain_ms", "ops", "bytes")}
+        tot["bound_ms"], tot["bound_by"] = bound(tot["ops"], tot["bytes"], rates)
+        if phase == "requant":
+            tot["epilogue_floor_ms"] = sum(r["launches_per_train_step"] * r[phase]["epilogue_floor_ms"]
+                                           for r in rows)
+        out[phase] = tot
     return out
 
 
@@ -744,10 +853,10 @@ def per_step_counts(key, model, x, y, n_logits, record=None):
     return out, seen
 
 
-def path_step_weights(fam, run_seen, n_train, n_eval, step_seen, cases=None):
+def path_step_weights(fam, run_seen, n_train, n_eval, step_seen, keys=None):
     """Launches of kernel family `fam` per train step by key, as recorded:
     checked against the main path's recording (n_train train steps and
-    n_eval eval steps) and, given `cases`, against the listed shapes whose
+    n_eval eval steps) and, given `keys`, against the listed keys whose
     timings they weight."""
     train, evals = step_seen[0][fam], step_seen[1][fam]
     want = collections.Counter({k: n_train * v for k, v in train.items()})
@@ -755,12 +864,11 @@ def path_step_weights(fam, run_seen, n_train, n_eval, step_seen, cases=None):
     if run_seen[fam] != want:
         raise AssertionError(f"{fam} shapes of the main path {dict(run_seen[fam])} are not "
                              f"{n_train} train and {n_eval} eval steps' {dict(want)}")
-    if cases is not None:
-        path = {(xps, k) for _, xps, k in cases}
-        if set(train) != path or not set(evals) <= path:
+    if keys is not None:
+        if set(train) != set(keys) or not set(evals) <= set(keys):
             raise AssertionError(f"{fam} shapes of a step {sorted(set(train) | set(evals))} "
-                                 f"!= checked {sorted(path)}")
-        print(f"  {fam} launches by (xp, kernel), one train step: {dict(train)}; "
+                                 f"!= checked {sorted(keys)}")
+        print(f"  {fam} launches by shape, one train step: {dict(train)}; "
               f"one eval step: {dict(evals)}", flush=True)
     return train
 
@@ -797,6 +905,7 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     rates = peak_rates(name)
     mac_rate = int8_mac_rate()
+    int_rate = mac_rate / 4  # 32-bit integer operations on the CUDA cores: 64 per SM and clock
     print(f"card (nvidia-smi name, power.limit): {card}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; peaks from the {rates[2]}: "
           f"{rates[0] / 1e12:.0f} int8 TOP/s, {rates[1] / 1e12:.2f} TB/s; CUDA-core int8 "
@@ -827,7 +936,7 @@ def main() -> int:
         "lenet b64", ("lenet", 64, "matmul_only"), synthetic_mnist(64, seed=128),
         synthetic_mnist(64, seed=129), 3, start, plain_both, record=RECORD_K1)
     shapes = set(seen64["K1"])
-    want_shapes = {(m, k, n, tr) for _, m, k, n, tr in K1_SHAPES}
+    want_shapes = {tuple(c[1:]) for c in K1_SHAPES}
     if shapes != want_shapes:
         raise AssertionError(f"K1 shapes of the step {sorted(shapes)} != checked {sorted(want_shapes)}")
     x64, y64 = synthetic_mnist(64, seed=7)
@@ -852,7 +961,7 @@ def main() -> int:
     mnv2_start = export_jax_params(
         mobilenet_v2_niti().reset_parameters(torch.Generator().manual_seed(0)))
     cifar_train, cifar_test = synthetic_cifar(512, seed=0), synthetic_cifar(256, seed=1)
-    record_mn = {**RECORD_K1, **RECORD_K4, **RECORD_K5}
+    record_mn = {**RECORD_K1, **RECORD_K2, **RECORD_K4, **RECORD_K5}
     run_mn, runs["mnv2_b256"], seen_mn = main_path(
         "mnv2 b256", ("mnv2", 256, "matmul_only"), cifar_train, cifar_test, 1, mnv2_start,
         [("cuda", "torch")], model_fn=mobilenet_v2_niti, record=record_mn)
@@ -860,9 +969,12 @@ def main() -> int:
     _, seen_steps = per_step_counts(("mnv2", 256, "matmul_only"), run_mn["model"], xc, yc,
                                     NITI_LOGIT_CHANNELS, record=record_mn)
     n_train, n_eval = len(cifar_train[0]) // 256, len(cifar_test[0]) // 256
-    k4_per_step = path_step_weights("K4", seen_mn, n_train, n_eval, seen_steps, K4_PATH_CASES)
-    k5_per_step = path_step_weights("K5", seen_mn, n_train, n_eval, seen_steps, K5_PATH_CASES)
+    k4_per_step = path_step_weights("K4", seen_mn, n_train, n_eval, seen_steps,
+                                    {(xps, k) for _, xps, k in K4_PATH_CASES})
+    k5_per_step = path_step_weights("K5", seen_mn, n_train, n_eval, seen_steps,
+                                    {(xps, k) for _, xps, k in K5_PATH_CASES})
     k1_per_step = path_step_weights("K1", seen_mn, n_train, n_eval, seen_steps)
+    k2_per_step = path_step_weights("K2", seen_mn, n_train, n_eval, seen_steps, K2_PATH_CASES)
     _, runs["mnv2_b32"], _ = main_path(
         "mnv2 b32", ("mnv2", 32, "matmul_only"), synthetic_cifar(32, seed=3),
         synthetic_cifar(32, seed=4), 1, mnv2_start, [("cpu", "cuda")],
@@ -878,15 +990,25 @@ def main() -> int:
           f"against torch._int_mm (the yardstick)", flush=True)
     k1_mn_rows = k1_library_rows(k1_per_step, rates, gen)
     k1_mn = k1_library_summary(k1_mn_rows)
-    print(f"  K1 over one train step ({k1_mn['launches']} launches): {k1_mn['ms']:.4f} ms, plain "
-          f"{k1_mn['plain_ms']:.4f} ms, bound {k1_mn['bound_ms']:.4f} ms; on the "
+    print(f"  K1 over one train step ({k1_mn['launches']} launches): {k1_mn['ms']:.4f} ms (cold "
+          f"{k1_mn['cold_ms']:.4f}), plain {k1_mn['plain_ms']:.4f} ms, bound {k1_mn['bound_ms']:.4f} ms;"
+          f" A row-major ({k1_mn['a']['all_launches']} launches) {k1_mn['a']['all_ms']:.4f} ms, A "
+          f"MN-major ({k1_mn['a_t']['all_launches']}) {k1_mn['a_t']['all_ms']:.4f} ms; on the "
           f"{k1_mn['library_launches']} launches _int_mm takes: K1 "
           f"{k1_mn['ms_where_library_takes']:.4f} ms, _int_mm {k1_mn['library_ms']:.4f} ms "
-          f"(A as given: {k1_mn['a']['launches']} launches, K1 {k1_mn['a']['ms']:.4f} ms, _int_mm "
-          f"{k1_mn['a']['library_ms']:.4f} ms; A^T: {k1_mn['a_t']['launches']} launches, K1 "
-          f"{k1_mn['a_t']['ms']:.4f} ms, _int_mm {k1_mn['a_t']['library_ms']:.4f} ms, on "
-          f"contiguous copies {k1_mn['a_t'].get('library_contiguous_ms', float('nan')):.4f} ms)",
-          flush=True)
+          f"(A row-major: {k1_mn['a']['launches']} launches, K1 {k1_mn['a']['ms']:.4f} ms, _int_mm "
+          f"{k1_mn['a']['library_ms']:.4f} ms; A MN-major: {k1_mn['a_t']['launches']} launches, K1 "
+          f"{k1_mn['a_t']['ms']:.4f} ms, _int_mm {k1_mn['a_t']['library_ms']:.4f} ms)", flush=True)
+    print(f"  K2 at the {len(k2_per_step)} shapes of a MobileNetV2 batch-256 train step", flush=True)
+    k2_mn_rows = k2_path_rows(k2_per_step, rates, int_rate, gen)
+    k2_mn = k2_path_summary(k2_mn_rows, rates)
+    for ph in ("max", "requant"):
+        t = k2_mn[ph]
+        print(f"  K2 {ph} over one train step ({k2_mn['launches']} launches): {t['ms']:.4f} ms "
+              f"(cold {t['cold_ms']:.4f}), plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']})"
+              + (f", psto epilogue floor {t['epilogue_floor_ms']:.4f} ms" if ph == "requant" else ""),
+              flush=True)
 
     print("phase 8: the r5 recipe (per-channel depthwise exponents, filter-grad margins "
           "0/0) at full width", flush=True)
@@ -898,7 +1020,8 @@ def main() -> int:
             recipe_start, [("cuda", "torch")], model_fn=recipe_fn, record=RECORD_K5)
         _, seen_pc_steps = per_step_counts(("mnv2pc", 256, "matmul_only"), run_pc["model"], xc,
                                            yc, NITI_LOGIT_CHANNELS, record=RECORD_K5)
-        path_step_weights("K5", seen_pc, n_train, n_eval, seen_pc_steps, K5_PATH_CASES)
+        path_step_weights("K5", seen_pc, n_train, n_eval, seen_pc_steps,
+                          {(xps, k) for _, xps, k in K5_PATH_CASES})
         _, runs["mnv2pc_b32"], _ = main_path(
             "mnv2pc b32", ("mnv2pc", 32, "matmul_only"), synthetic_cifar(32, seed=3),
             synthetic_cifar(32, seed=4), 1, recipe_start, [("cpu", "cuda")], model_fn=recipe_fn)
@@ -977,12 +1100,14 @@ def main() -> int:
          "mnv2_b256_train_step": dict(
              k1_mn, shapes="every K1 launch of one MobileNetV2 batch-256 train step, as "
              "recorded; times weighted by the launches; library_ms is torch._int_mm over "
-             "the launches it takes, beside K1's ms_where_library_takes",
+             "the launches it takes, beside K1's ms_where_library_takes; cold_ms with operands "
+             "rotated over more than the L2",
              by_shape=k1_mn_rows)},
     ]}
     for r in k2_rows:
         replaces = {"fused_matmul_max": "mandheling_tpu/ops/kernels/fused_matmul_int8.py:162",
                     "fused_matmul_requant": "mandheling_tpu/ops/kernels/fused_matmul_int8.py:182"}
+        phase = "max" if r["name"] == "fused_matmul_max" else "requant"
         kernels_line["kernels"].append({
             "name": r["name"], "route": "cuda",
             "source": "mandheling_tpu_torch/csrc/fused_matmul_int8.cu",
@@ -991,7 +1116,14 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
             "shapes": f"{r['what']}: ({r['m']},{r['k']})x({r['k']},{r['n']})",
-            "tiled_branch": r["tiled_branch"]})
+            "tiled_branch": r["tiled_branch"],
+            "mnv2_b256_train_step": dict(
+                k2_mn[phase], launches=k2_mn["launches"],
+                shapes="every K2 launch of one MobileNetV2 batch-256 train step, as recorded "
+                       "and held to K2_PATH_CASES; times weighted by the launches",
+                by_shape=[dict(x[phase], key=x["key"], max_abs_err=x["max_abs_err"],
+                               launches_per_train_step=x["launches_per_train_step"])
+                          for x in k2_mn_rows])})
     stem = k3_rows[0]
     stem["max_abs_err"] = k3_err
     kernels_line["kernels"] += fused_entries(

@@ -5,52 +5,147 @@
 // serves every NITI contraction of the training step: forwards, input grads
 // (through im2col) and filter grads (patches^T read by strides).
 //
-// Bound: at the LeNet shapes every contraction does at most ~90 int8
-// operations per byte it must move, far below the ~590 at which an H100
-// SXM's tensor cores (1979 TOP/s) rather than its memory (3.35 TB/s) would
-// bound it; so the bytes bound it and, at batch 64, the launch.
+// Bound: every contraction of the LeNet and MobileNetV2 steps does far fewer
+// int8 operations per byte it must move than the ~590 at which an H100 SXM's
+// tensor cores (1979 TOP/s) rather than its memory (3.35 TB/s) would bound
+// it; so the bytes bound it and, at LeNet's batch 64, the launch.
 //
-// Design: 64x64x32 shared tiles, mma.sync m16n8k32, ragged edges masked in
-// the kernel (no host-side padding). When the M x N tiles alone cannot fill
-// the card (the filter grads: 25 x 20 outputs over K = 36864), the K loop is
-// split across blocks that add their partial sums with atomicAdd; int32
-// addition wraps and is associative, so the result is exact and independent
-// of the order.
-#include "gemm_s8.cuh"
+// Design (gemm_s8_sm90.cuh): a K-major route on wgmma for the forwards and
+// input grads, an MN-major route on mma.sync with in-register byte
+// transposes for the filter grads, both fed by cp.async rings. Each block
+// stages its int32 tile in shared memory and stores it 16 bytes a thread.
+// When the output tiles alone cannot fill the card (the filter grads' skinny
+// outputs over K up to 262144), blockIdx.z splits K: each split stores its
+// partial tile into a workspace slice, and a second kernel adds the slices
+// modulo 2^32, which is exact (int32 sums wrap) and the same in any order.
+// Atomic adds into one output were the first design: hundreds of splits
+// adding into the same few thousand words serialised at L2.
+#include "gemm_s8_sm90.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(mh::THREADS)
-    matmul_s8s32_kernel(mh::Operands p, int32_t* c, int kt_per_split) {
-  __shared__ __align__(16) mh::Smem s;
-  const int m0 = blockIdx.x * mh::BM, n0 = blockIdx.y * mh::BN;
-  const int kt_total = (p.K + mh::BK - 1) / mh::BK;
-  const int kt0 = blockIdx.z * kt_per_split;
-  const int kt1 = min(kt_total, kt0 + kt_per_split);
-  mh::Acc acc;
-  mh::mainloop(s, p, m0, n0, kt0, kt1, acc);
-  const bool split = gridDim.z > 1;
-  const long long ldc = p.N;
-  mh::for_each_acc(p, m0, n0, acc, [&](int row, int col, int v) {
-    int32_t* dst = c + row * ldc + col;
-    if (split)
-      atomicAdd(dst, v);
-    else
-      *dst = v;
-  });
+// The output of split blockIdx.z: c itself, or its slice of the workspace.
+__device__ __forceinline__ int32_t* split_out(const mh90::Gemm& p, int32_t* c, int32_t* ws) {
+  return gridDim.z > 1 ? ws + static_cast<long long>(blockIdx.z) * p.M * p.N : c;
+}
+
+template <int WG, int BN>
+__global__ void __launch_bounds__(128 * WG)
+    matmul_kmajor_kernel(mh90::Gemm p, int32_t* c, int32_t* ws) {
+  using T = mh90::KMajor<WG, BN>;
+  uint8_t* ring = mh90::aligned_smem();
+  const int m0 = blockIdx.y * T::BM, n0 = blockIdx.x * BN;
+  const int k_begin = blockIdx.z * p.k_per_split;
+  const int k_end = min(p.K, k_begin + p.k_per_split);
+  int acc[BN / 32][16];
+  mh90::mainloop_kmajor<WG, BN>(ring, p, m0, n0, k_begin, k_end, acc);
+  int32_t* cs = reinterpret_cast<int32_t*>(ring);
+  mh90::for_each_kmajor<BN>(acc, [&](int r, int q, int v) { cs[r * (BN + 4) + q] = v; });
+  __syncthreads();
+  mh90::store_tile_s32<T::BM, BN, T::NT>(cs, split_out(p, c, ws), p.M, p.N, m0, n0);
+}
+
+template <int WGM>
+__global__ void __launch_bounds__(128)
+    matmul_mnmajor_kernel(mh90::Gemm p, int32_t* c, int32_t* ws) {
+  using T = mh90::MNMajor<WGM>;
+  extern __shared__ __align__(16) uint8_t ring[];
+  const int m0 = blockIdx.y * T::BM, n0 = blockIdx.x * T::BN;
+  const int k_begin = blockIdx.z * p.k_per_split;
+  const int k_end = min(p.K, k_begin + p.k_per_split);
+  mh90::MNAcc acc;
+  mh90::mainloop_mnmajor<WGM>(ring, p, m0, n0, k_begin, k_end, acc);
+  int32_t* cs = reinterpret_cast<int32_t*>(ring);
+  mh90::for_each_mnmajor<WGM>(acc, [&](int r, int q, int v) { cs[r * (T::BN + 4) + q] = v; });
+  __syncthreads();
+  mh90::store_tile_s32<T::BM, T::BN, T::NT>(cs, split_out(p, c, ws), p.M, p.N, m0, n0);
+}
+
+// c[i] = the sum modulo 2^32 of ws[z][i] over the splits z; 16 bytes a
+// load and store where M * N % 4 == 0 (every slice is then 16-byte aligned).
+__global__ void __launch_bounds__(256)
+    reduce_splits_kernel(const int32_t* ws, int32_t* c, long long mn, int splits) {
+  const long long i = 4 * (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x);
+  if (i >= mn) return;
+  if ((mn & 3) == 0) {
+    uint4 sum = make_uint4(0, 0, 0, 0);
+    for (int z = 0; z < splits; ++z) {
+      const uint4 v = *reinterpret_cast<const uint4*>(ws + z * mn + i);
+      sum.x += v.x; sum.y += v.y; sum.z += v.z; sum.w += v.w;
+    }
+    *reinterpret_cast<uint4*>(c + i) = sum;
+    return;
+  }
+  for (long long j = i; j < min(i + 4, mn); ++j) {
+    unsigned sum = 0;
+    for (int z = 0; z < splits; ++z) sum += static_cast<unsigned>(ws[z * mn + j]);
+    c[j] = static_cast<int32_t>(sum);
+  }
+}
+
+template <int WG, int BN>
+int launch_kmajor(const mh90::Gemm& p, int32_t* c, int32_t* ws, int splits, cudaStream_t st) {
+  using T = mh90::KMajor<WG, BN>;
+  const dim3 grid((p.N + BN - 1) / BN, (p.M + T::BM - 1) / T::BM, splits);
+  const int smem = T::smem(p.k_per_split, T::BM * (BN + 4) * 4);
+  return mh90::launch(matmul_kmajor_kernel<WG, BN>, grid, T::NT, smem, T::MAX_SMEM, st, p, c,
+                      ws);
+}
+
+template <int WG>
+int launch_kmajor_bn(const mh90::Gemm& p, int32_t* c, int32_t* ws, int bn, int splits,
+                     cudaStream_t st) {
+  switch (bn) {
+    case 32: return launch_kmajor<WG, 32>(p, c, ws, splits, st);
+    case 64: return launch_kmajor<WG, 64>(p, c, ws, splits, st);
+    case 96: return launch_kmajor<WG, 96>(p, c, ws, splits, st);
+    case 128: return launch_kmajor<WG, 128>(p, c, ws, splits, st);
+    case 160: return launch_kmajor<WG, 160>(p, c, ws, splits, st);
+    case 192: return launch_kmajor<WG, 192>(p, c, ws, splits, st);
+    case 256: return launch_kmajor<WG, 256>(p, c, ws, splits, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <int WGM>
+int launch_mnmajor(const mh90::Gemm& p, int32_t* c, int32_t* ws, int splits, cudaStream_t st) {
+  using T = mh90::MNMajor<WGM>;
+  const dim3 grid((p.N + T::BN - 1) / T::BN, (p.M + T::BM - 1) / T::BM, splits);
+  return mh90::launch(matmul_mnmajor_kernel<WGM>, grid, T::NT, T::SMEM, T::SMEM, st, p, c, ws);
+}
+
+int launch(const mh90::Gemm& p, int32_t* c, int32_t* ws, int route, int warps, int bn,
+           int splits, cudaStream_t st) {
+  if (route == 0) {
+    if (warps == 1) return launch_kmajor_bn<1>(p, c, ws, bn, splits, st);
+    if (warps == 2) return launch_kmajor_bn<2>(p, c, ws, bn, splits, st);
+  } else if (route == 1) {
+    if (warps == 1) return launch_mnmajor<1>(p, c, ws, splits, st);
+    if (warps == 2) return launch_mnmajor<2>(p, c, ws, splits, st);
+    if (warps == 4) return launch_mnmajor<4>(p, c, ws, splits, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// c must be zeroed by the caller when splits > 1. Returns cudaGetLastError().
-extern "C" int mh_matmul_s8s32(const void* a, const void* b, void* c, int M,
-                               int N, int K, long long sam, long long sak,
-                               long long sbk, long long sbn, int kt_per_split,
-                               int splits, void* stream) {
-  const mh::Operands p{static_cast<const int8_t*>(a), static_cast<const int8_t*>(b),
-                       M, N, K, sam, sak, sbk, sbn};
-  const dim3 grid((M + mh::BM - 1) / mh::BM, (N + mh::BN - 1) / mh::BN, splits);
-  matmul_s8s32_kernel<<<grid, mh::THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      p, static_cast<int32_t*>(c), kt_per_split);
+// route 0: K-major (sak == sbk == 1), `warps` = warpgroups (1 or 2), bn the
+// tile width; route 1: MN-major (sam == sbn == 1), `warps` = warps along M
+// (1, 2 or 4). With splits > 1, ws holds splits x M x N int32. Returns the
+// first CUDA error of the launches.
+extern "C" int mh_matmul_s8s32(const void* a, const void* b, void* c, void* ws, int M, int N,
+                               int K, long long sam, long long sak, long long sbk, long long sbn,
+                               int route, int a_width, int b_width, int warps, int bn,
+                               int k_per_split, int splits, void* stream) {
+  const mh90::Gemm p{static_cast<const int8_t*>(a), static_cast<const int8_t*>(b), M, N, K,
+                     sam, sak, sbk, sbn, a_width, b_width, k_per_split};
+  int32_t* cp = static_cast<int32_t*>(c);
+  int32_t* wp = static_cast<int32_t*>(ws);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int err = launch(p, cp, wp, route, warps, bn, splits, st);
+  if (err || splits == 1) return err;
+  const long long mn = static_cast<long long>(M) * N;
+  const unsigned blocks = static_cast<unsigned>((mn + 4 * 256 - 1) / (4 * 256));
+  reduce_splits_kernel<<<blocks, 256, 0, st>>>(wp, cp, mn, splits);
   return static_cast<int>(cudaGetLastError());
 }

@@ -13,8 +13,12 @@ covers both the small-K/N and the tiled branch.
 - phase 2 (:func:`matmul_requant`): recompute A @ B and apply the psto
   epilogue, reading the shift from device memory, writing int8 only.
 
-Bound on an H100: the fc2 input grad at batch 2048 does ~23 int8 operations
-per byte moved, so device memory bounds it.
+Bound on an H100: every shape ``supports`` takes (K, N <= 512) does few int8
+operations per byte moved, so device memory bounds it; phase 2 also has a
+floor on the CUDA cores (the psto epilogue's ~30 integer operations an
+output). Both phases run K1's K-major wgmma route (``plan(..., fused=True)``:
+an N-major B is copied K-major first, and BN covers N up to 256, so a phase
+reads A once).
 
 K6 (:func:`matmul_max_bf16`, ``csrc/matmul_max_bf16.cu``) is phase 1 with
 the int8 operands multiplied as bf16 on the tensor cores and summed in
@@ -32,7 +36,7 @@ import torch
 
 from .. import numerics
 from . import build
-from .matmul_int8 import _check, matmul_acc_plain
+from .matmul_int8 import _check, matmul_acc_plain, plan, prepare
 
 # Launches of the CUDA kernels (plain integers; counted where they launch).
 MAX_LAUNCHES = 0
@@ -61,9 +65,9 @@ def supports(m: int, k: int, n: int) -> bool:
 def _lib() -> ctypes.CDLL:
     lib = build.library("fused_matmul_int8")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.mh_fused_matmul_max.argtypes = [p, p, p, i, i, i, ll, ll, ll, ll, p]
+    lib.mh_fused_matmul_max.argtypes = [p, p, p, i, i, i, ll, ll, i, i, i, p]
     lib.mh_fused_matmul_max.restype = ctypes.c_int
-    lib.mh_fused_matmul_requant.argtypes = [p, p, p, p, i, i, i, ll, ll, ll, ll, i, p]
+    lib.mh_fused_matmul_requant.argtypes = [p, p, p, p, i, i, i, ll, ll, i, i, i, i, p]
     lib.mh_fused_matmul_requant.restype = ctypes.c_int
     return lib
 
@@ -72,6 +76,13 @@ def _check_cuda(a: torch.Tensor, b: torch.Tensor) -> None:
     _check(a, b)
     if not (a.is_cuda and b.is_cuda) or a.device != b.device:
         raise ValueError(f"K2 needs both operands on one CUDA device, got {a.device}, {b.device}")
+
+
+def _kmajor(a: torch.Tensor, b: torch.Tensor):
+    """(a, b, plan) with both operands K-major, as K2's kernels read them."""
+    m, k = a.shape
+    pl = plan(m, k, b.shape[1], a.stride(), b.stride(), a.data_ptr(), b.data_ptr(), fused=True)
+    return (*prepare(a, b, pl), pl)
 
 
 def matmul_max_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -93,10 +104,10 @@ def matmul_max_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     out = torch.full((), _INT32_MIN, dtype=torch.int32, device=a.device)
     if m == 0 or n == 0:
         return out
+    a, b, pl = _kmajor(a, b)
     err = _lib().mh_fused_matmul_max(
-        a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
-        a.stride(0), a.stride(1), b.stride(0), b.stride(1),
-        torch.cuda.current_stream(a.device).cuda_stream,
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, a.stride(0), b.stride(1),
+        pl.a_width, pl.b_width, pl.bn, torch.cuda.current_stream(a.device).cuda_stream,
     )
     if err:
         raise RuntimeError(f"fused_matmul_max kernel launch failed: CUDA error {err}")
@@ -118,9 +129,10 @@ def matmul_requant_cuda(a: torch.Tensor, b: torch.Tensor, shift: torch.Tensor,
     y = torch.empty((m, n), dtype=torch.int8, device=a.device)
     if m == 0 or n == 0:
         return y
+    a, b, pl = _kmajor(a, b)
     err = _lib().mh_fused_matmul_requant(
-        a.data_ptr(), b.data_ptr(), shift.data_ptr(), y.data_ptr(), m, n, k,
-        a.stride(0), a.stride(1), b.stride(0), b.stride(1), int(grad),
+        a.data_ptr(), b.data_ptr(), shift.data_ptr(), y.data_ptr(), m, n, k, a.stride(0),
+        b.stride(1), pl.a_width, pl.b_width, pl.bn, int(grad),
         torch.cuda.current_stream(a.device).cuda_stream,
     )
     if err:

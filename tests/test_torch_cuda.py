@@ -55,8 +55,99 @@ def test_matmul_kernel_wraps(gen):
     assert int(got[0, 0]) == int(want)
 
 
+def _shift_cases(mx):
+    bw = numerics.range_estimate_from_max(mx)
+    return [(numerics.forward_shift(bw), False), (torch.zeros_like(bw), False),
+            (bw - 3, True), (bw - 40, True), (bw + 40, True)]
+
+
+def _operands(layout, m, k, n, gen):
+    """(a, b) of shape (m, k) x (k, n) in one of the layouts K1 meets: "fwd"
+    (A K-major, B N-major: im2col x HWIO), "igrad" (A and B K-major: the
+    rot180 / io-swapped 1x1 weights), "fgrad" (A MN-major: im2col^T; B
+    N-major: gy), "strided" (neither of A's strides is 1) and "offset" (A
+    K-major at an odd address: the byte path)."""
+    if layout == "fwd":
+        return rand_int8((m, k), gen), rand_int8((k, n), gen)
+    if layout == "igrad":
+        return rand_int8((m, k), gen), rand_int8((n, k), gen).t()
+    if layout == "fgrad":
+        return rand_int8((k, m), gen).t(), rand_int8((k, n), gen)
+    if layout == "strided":
+        return rand_int8((m, 2 * k), gen)[:, ::2], rand_int8((k, n), gen)
+    return rand_int8((m * k + 1,), gen)[1:].view(m, k), rand_int8((k, n), gen)
+
+
+@pytest.mark.parametrize("layout", ["fwd", "igrad", "fgrad", "strided", "offset"])
+@pytest.mark.parametrize("width", [64, 40, 36, 27])  # K % 16 = 0, 8, 4, odd
+def test_matmul_layouts_and_alignments(gen, layout, width):
+    """Each layout class at each alignment class of the rows the kernel
+    copies (K for the K-major route, M for the filter grads' MN-major one),
+    at ragged M and N; the filter grads over a K long enough to split."""
+    m, k, n = (width, 3000, 70) if layout == "fgrad" else (129, width, 70)
+    a, b = _operands(layout, m, k, n, gen)
+    pl = mm.plan(m, k, n, a.stride(), b.stride(), a.data_ptr(), b.data_ptr())
+    assert pl.route == ("mnmajor" if layout == "fgrad" else "kmajor")
+    got = mm.matmul_acc_cuda(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, mm.matmul_acc_plain(a, b)), pl
+
+
+@pytest.mark.parametrize("layout", ["fwd", "igrad"])
+@pytest.mark.parametrize("k,n", [(16, 96), (24, 144)])
+def test_matmul_below_one_wgmma_kstep(gen, layout, k, n):
+    """K = 16 and 24: less than one 32-byte wgmma k-step, the rest zero-filled."""
+    a, b = _operands(layout, 300, k, n, gen)
+    assert torch.equal(mm.matmul_acc_cuda(a, b), mm.matmul_acc_plain(a, b))
+    mx = fmm.matmul_max_cuda(a, b)
+    assert torch.equal(mx, fmm.matmul_max_plain(a, b))
+    for shift, grad in _shift_cases(mx):
+        got = fmm.matmul_requant_cuda(a, b, shift, grad)
+        assert torch.equal(got, fmm.matmul_requant_plain(a, b, shift, grad))
+
+
+@pytest.mark.parametrize("layout", ["fwd", "igrad"])
+@pytest.mark.parametrize("n", [16, 96, 144, 384])
+def test_fused_kernels_tile_width(gen, layout, n):
+    """K2 at the MobileNetV2 widths: one tile of BN >= N up to 256 (each
+    phase reads A once), two at 384; M not a multiple of the tile."""
+    a, b = _operands(layout, 2056, 24, n, gen)
+    assert (mm.kmajor_bn(n) >= n) == (n <= 256)
+    mx = fmm.matmul_max_cuda(a, b)
+    assert torch.equal(mx, fmm.matmul_max_plain(a, b))
+    for shift, grad in _shift_cases(mx):
+        got = fmm.matmul_requant_cuda(a, b, shift, grad)
+        assert torch.equal(got, fmm.matmul_requant_plain(a, b, shift, grad)), (shift, grad)
+
+
+def test_matmul_kernel_wraps_unsplit_wgmma(gen):
+    """Sums past 2^31 wrap in wgmma's own accumulators: enough output tiles
+    that K is not split, K = 140000 of (-128)^2 each."""
+    m, k, n = 1024, 140000, 1056
+    a = torch.full((m, k), -128, dtype=torch.int8, device="cuda")
+    b = torch.full((n, k), -128, dtype=torch.int8, device="cuda").t()
+    pl = mm.plan(m, k, n, a.stride(), b.stride())
+    assert pl.route == "kmajor" and pl.splits == 1
+    got = mm.matmul_acc_cuda(a, b)
+    assert bool((got == (k * 128 * 128 + 2**31) % 2**32 - 2**31).all())
+
+
+def test_matmul_kernel_wraps_mnmajor_split(gen):
+    """The filter grads' MN-major route: split-K partial sums whose total
+    wraps past 2^31."""
+    k = 140000
+    a = torch.full((k, 3), -128, dtype=torch.int8, device="cuda").t()
+    b = torch.full((k, 5), -128, dtype=torch.int8, device="cuda")
+    pl = mm.plan(3, k, 5, a.stride(), b.stride())
+    assert pl.route == "mnmajor" and pl.splits > 1
+    got = mm.matmul_acc_cuda(a, b)
+    assert torch.equal(got, mm.matmul_acc_plain(a, b))
+    assert bool((got == (k * 128 * 128 + 2**31) % 2**32 - 2**31).all())
+
+
 @pytest.mark.parametrize("m,k,n", [(2048, 12, 500), (300, 100, 70), (1024, 24, 144),
-                                   (2047, 37, 513), (5, 3, 2)])
+                                   (2047, 37, 513), (5, 3, 2), (1100, 0, 40),
+                                   (2048, 832, 500), (1024, 512, 512)])
 def test_fused_kernels_match_plain(gen, m, k, n):
     a, b = rand_int8((m, k), gen), rand_int8((k, n), gen)
     mx = fmm.matmul_max_cuda(a, b)
@@ -66,12 +157,6 @@ def test_fused_kernels_match_plain(gen, m, k, n):
                         (bw - 3, True), (bw - 40, True), (bw + 40, True)]:
         got = fmm.matmul_requant_cuda(a, b, shift, grad)
         assert torch.equal(got, fmm.matmul_requant_plain(a, b, shift, grad)), (shift, grad)
-
-
-def _shift_cases(mx):
-    bw = numerics.range_estimate_from_max(mx)
-    return [(numerics.forward_shift(bw), False), (torch.zeros_like(bw), False),
-            (bw - 3, True), (bw - 40, True), (bw + 40, True)]
 
 
 @pytest.mark.parametrize("x_shape,w_shape,stride,pad", [

@@ -15,10 +15,15 @@ raises on failure (the script then exits non-zero and prints no result):
    step gives it (K1_SHAPES), K2 (fused_matmul_max / _requant)
    at the fc2 input grad of batch 2048 and at a shape of the JAX package's
    tiled branch (K > 512), K3 (fused_conv_max / _requant) at the MobileNetV2
-   stem and LeNet's convs, K4 (fused_dwconv_max / _requant) at the 7
-   depthwise shapes of a batch-256 MobileNetV2 step; K3 and K4 also at the
-   JAX package's test shapes and at ragged ones (K4 also at kernel sizes
-   other than 3x3); K5 (fused_dwconv_fgrad) at the 7 stride-1 depthwise
+   stem and LeNet's convs, K4 (fused_dwconv_max / _requant) at the 10
+   depthwise shapes of a batch-256 MobileNetV2 step (x unpadded with its
+   pads; the strided input grads' gy undilated with the stride as the
+   dilation), each per-tensor and with the recipe's per-channel shifts,
+   with w as given and rotated; K3 and K4 also at the JAX package's test
+   shapes and at ragged ones (K4 at each channel class, C % 16 = 0, C % 4 =
+   0 only and ragged, each map class, a row count that is not a multiple of
+   a thread's run of rows, dilation 2, shifts 0..12 on all -128 operands,
+   and kernel sizes other than 3x3); K5 (fused_dwconv_fgrad) at the 7 stride-1 depthwise
    filter-grad shapes of that step, the JAX test shape, ragged C, 5x5 and
    3x1 kernels and a case whose sums wrap past 2^31; kernel, plain, library
    and bound times;
@@ -41,10 +46,10 @@ raises on failure (the script then exits non-zero and prints no result):
    more than the L2);
 8. the r5 recipe, `mobilenet_v2_niti(dw_per_channel=True)` with filter-grad
    margins 0/0, at full width: batch 256, kernels against plain on the
-   card; batches 32 and 16 (`MobilenetV2Train`'s), kernels against plain
-   on the CPU;
+   card (K4's shapes recorded and held to K4_PATH_CASES); batches 32 and 16
+   (`MobilenetV2Train`'s), kernels against plain on the CPU;
 9. the demo CLI `tools/run_train_demo_torch.py`: `MobilenetV2Train --epochs
-   1` in this process, launches counted and the shapes of K1 and K5 held to
+   1` in this process, launches counted and the shapes of K1, K4 and K5 held to
    those of the batch-16 run of phase 8; then as processes of their own
    `MobilenetV2Train`, `NITIDSPInt8Train` and `MnistTrain` (one epoch) and
    `MnistTrainSnapshot` twice, the second resuming from the first's file;
@@ -56,11 +61,11 @@ raises on failure (the script then exits non-zero and prints no result):
 Every main-path run asserts its launch counts, per kernel, against the
 routes one train step and one eval step take (EXPECTED_PER_STEP). The
 shapes of K1's launches in the LeNet batch-64 run and of K1's, K4's and
-K5's in the MobileNetV2 batch-256 run (K5's also in the recipe's) are
-recorded, and K2's there with their operand layouts; K4's and K5's must be
-the shapes phase 3 checked, K2's those of K2_PATH_CASES, and the per-step
-counts weight the timings of K1, K2, K4 and K5 into the sums of one train
-step.
+K5's in the MobileNetV2 batch-256 run (K4's and K5's also in the recipe's)
+are recorded, and K2's there with their operand layouts; K4's and K5's must
+be the shapes phase 3 checked, K2's those of K2_PATH_CASES, and the
+per-step counts weight the timings of K1, K2, K4 and K5 into the sums of
+one train step (K4's per-channel timings into the recipe's).
 
 The last line of standard output is {"ok": true, "device": {...}}.
 """
@@ -160,12 +165,50 @@ K3_CASES = [
     ("JAX test 33x33 s2", (2, 33, 33, 8), (3, 3, 8, 16), (2, 2), ((1, 1), (1, 1))),
     ("ragged 3x2 s(1,2)", (1, 7, 5, 70), (3, 2, 70, 65), (1, 2), ((2, 0), (0, 3))),
 ]
-# K4: (what, pre-padded xp shape, kernel size). K4_PATH_CASES are the
-# depthwise shapes of a batch-256 MobileNetV2 step, which the run records
-# and holds to this list; then the JAX package's test shape (4, 16, 16, 24)
-# padded, ragged ones (C not a multiple of 32, two column tiles) and kernel
-# sizes other than 3x3 (the untiled instance).
+# K4: (what, x shape, kernel size, pads, dilation). K4_PATH_CASES are the
+# depthwise calls of a batch-256 MobileNetV2 step, per-tensor and under the
+# recipe alike (the stride-1 forwards and input grads at SAME pads; the input
+# grads of the three stride-2 layers on their undilated gy, dilation 2),
+# which the runs record and hold to this list; then the JAX package's test
+# shape, each channel class (C % 16 = 0 is the path's; C % 4 = 0 only; ragged
+# C, the byte-wise instance), output rows that are not a multiple of a
+# thread's run of 8, and kernel sizes other than 3x3 (the untiled instance),
+# with pads and dilations. K4_SATURATED: all -128 operands with per-channel
+# shifts 0..12 (the 3x3 cap): |acc| 147456 << 12, the largest the recipe
+# allows.
+SAME3 = ((1, 1), (1, 1))
 K4_PATH_CASES = [
+    ("MNv2 b256 32ch 32x32", (256, 32, 32, 32), (3, 3), SAME3, (1, 1)),
+    ("MNv2 b256 96ch 32x32", (256, 32, 32, 96), (3, 3), SAME3, (1, 1)),
+    ("MNv2 b256 144ch 32x32", (256, 32, 32, 144), (3, 3), SAME3, (1, 1)),
+    ("MNv2 b256 192ch 16x16", (256, 16, 16, 192), (3, 3), SAME3, (1, 1)),
+    ("MNv2 b256 384ch 8x8", (256, 8, 8, 384), (3, 3), SAME3, (1, 1)),
+    ("MNv2 b256 576ch 8x8", (256, 8, 8, 576), (3, 3), SAME3, (1, 1)),
+    ("MNv2 b256 960ch 4x4", (256, 4, 4, 960), (3, 3), SAME3, (1, 1)),
+    ("MNv2 b256 144ch igrad s2 to 32x32", (256, 16, 16, 144), (3, 3), ((2, 1), (2, 1)), (2, 2)),
+    ("MNv2 b256 192ch igrad s2 to 16x16", (256, 8, 8, 192), (3, 3), ((2, 1), (2, 1)), (2, 2)),
+    ("MNv2 b256 576ch igrad s2 to 8x8", (256, 4, 4, 576), (3, 3), ((2, 1), (2, 1)), (2, 2)),
+]
+K4_SATURATED = ("all -128, shifts 0..12", (3, 13, 11, 48), (3, 3), SAME3, (1, 1))
+K4_CASES = K4_PATH_CASES + [
+    ("JAX test (4,16,16,24)", (4, 16, 16, 24), (3, 3), SAME3, (1, 1)),
+    ("C 20 (C % 4 only), 13x11", (3, 13, 11, 20), (3, 3), SAME3, (1, 1)),
+    ("ragged C 33, 43 columns", (3, 9, 43, 33), (3, 3), SAME3, (1, 1)),
+    ("ragged C 7, SAME s2 igrad pads (0, 1)", (2, 7, 9, 7), (3, 3), ((1, 2), (1, 2)), (2, 2)),
+    ("C 36, dilation 2, pads (2, 1)", (2, 5, 6, 36), (3, 3), ((2, 1), (2, 1)), (2, 2)),
+    ("C 40, 20x37 rows", (2, 20, 37, 40), (3, 3), ((0, 1), (1, 0)), (1, 1)),
+    ("ragged C 7, 5x5", (2, 9, 9, 7), (5, 5), ((2, 2), (2, 2)), (1, 1)),
+    ("C 24, 5x5, dilation 2", (2, 6, 5, 24), (5, 5), ((3, 2), (2, 3)), (2, 2)),
+    ("C 40, 3x1", (2, 12, 40, 40), (3, 1), ((1, 1), (0, 0)), (1, 1)),
+    K4_SATURATED,
+]
+# K5: (what, pre-padded xp shape, kernel size); gy is xp's VALID stride-1
+# output. K5_PATH_CASES are the stride-1 depthwise filter grads of a
+# batch-256 MobileNetV2 train step (K4's stride-1 shapes, padded), recorded
+# and held to this list; then the JAX package's test shape, ragged C, kernel
+# sizes other than 3x3 (the untiled instance) and a case whose sums wrap
+# past 2^31 (all -128: 147456 products of 2^14 per channel).
+K5_PATH_CASES = [
     ("MNv2 b256 32ch 32x32", (256, 34, 34, 32), (3, 3)),
     ("MNv2 b256 96ch 32x32", (256, 34, 34, 96), (3, 3)),
     ("MNv2 b256 144ch 32x32", (256, 34, 34, 144), (3, 3)),
@@ -174,19 +217,6 @@ K4_PATH_CASES = [
     ("MNv2 b256 576ch 8x8", (256, 10, 10, 576), (3, 3)),
     ("MNv2 b256 960ch 4x4", (256, 6, 6, 960), (3, 3)),
 ]
-K4_CASES = K4_PATH_CASES + [
-    ("JAX test (4,16,16,24)", (4, 18, 18, 24), (3, 3)),
-    ("ragged C 33, 43 columns", (3, 11, 45, 33), (3, 3)),
-    ("ragged C 7, 5x5", (2, 9, 9, 7), (5, 5)),
-    ("C 40, 3x1", (2, 12, 40, 40), (3, 1)),
-]
-# K5: (what, pre-padded xp shape, kernel size); gy is xp's VALID stride-1
-# output. K5_PATH_CASES are the stride-1 depthwise filter grads of a
-# batch-256 MobileNetV2 train step (the same xp shapes as K4's), recorded
-# and held to this list; then the JAX package's test shape, ragged C, kernel
-# sizes other than 3x3 (the untiled instance) and a case whose sums wrap
-# past 2^31 (all -128: 147456 products of 2^14 per channel).
-K5_PATH_CASES = K4_PATH_CASES
 K5_WRAP_CASE = ("wraps: all -128, 147456 products", (9, 130, 130, 33), (3, 3))
 K5_CASES = K5_PATH_CASES + [
     ("JAX test (4,16,16,24)", (4, 18, 18, 24), (3, 3)),
@@ -204,7 +234,8 @@ K5_CASES = K5_PATH_CASES + [
 # stride-1 depthwise filter grad (14 of 17 per MobileNetV2 train step), a
 # route the JAX package has but does not take. "mnv2pc" is the r5 recipe
 # (per-channel depthwise exponents, margins 0/0; `MobilenetV2Train`, batch
-# 16 on synthetic data), whose per-channel depthwise forms skip K4.
+# 16 on synthetic data), whose per-channel depthwise forms take K4 where
+# their per-tensor twins do (with their alignment shifts as K4's operand).
 EXPECTED_PER_STEP = {
     ("lenet", 64, "matmul_only"): ({"K1": 11}, {"K1": 4}),
     ("lenet", 2048, "matmul_only"): ({"K1": 10, "K2": 1}, {"K1": 4}),
@@ -215,9 +246,12 @@ EXPECTED_PER_STEP = {
                                   {"K1": 23, "K2": 13, "K4": 14}),
     ("mnv2", 256, "all"): ({"K1": 64, "K2": 42, "K3": 1, "K4": 31, "K5": 14},
                            {"K1": 14, "K2": 21, "K3": 1, "K4": 14}),
-    ("mnv2pc", 256, "matmul_only"): ({"K1": 65, "K2": 42, "K5": 14}, {"K1": 15, "K2": 21}),
-    ("mnv2pc", 32, "matmul_only"): ({"K1": 81, "K2": 26, "K5": 14}, {"K1": 23, "K2": 13}),
-    ("mnv2pc", 16, "matmul_only"): ({"K1": 95, "K2": 12, "K5": 14}, {"K1": 30, "K2": 6}),
+    ("mnv2pc", 256, "matmul_only"): ({"K1": 65, "K2": 42, "K4": 31, "K5": 14},
+                                     {"K1": 15, "K2": 21, "K4": 14}),
+    ("mnv2pc", 32, "matmul_only"): ({"K1": 81, "K2": 26, "K4": 31, "K5": 14},
+                                    {"K1": 23, "K2": 13, "K4": 14}),
+    ("mnv2pc", 16, "matmul_only"): ({"K1": 95, "K2": 12, "K4": 31, "K5": 14},
+                                    {"K1": 30, "K2": 6, "K4": 14}),
 }
 FAMILIES = {"K1": ("matmul_int8",), "K2": ("fused_matmul_max", "fused_matmul_requant"),
             "K3": ("fused_conv_max", "fused_conv_requant"),
@@ -273,9 +307,10 @@ def cold_copies(m, k, n):
     return min(1000, max(2, -(-COLD_BYTES // (m * k + k * n))))
 
 
-def k4_key(xp, w):
-    """(xp shape, kernel size) of a K4 call."""
-    return (tuple(xp.shape), (w.shape[0], w.shape[1]))
+def k4_key(x, w, pads=((0, 0), (0, 0)), dilation=(1, 1), **_):
+    """(x shape, kernel size, pads, dilation) of a K4 call; the forward and
+    the input grad (w rotated) of one shape are one key."""
+    return (tuple(x.shape), (w.shape[0], w.shape[1]), tuple(map(tuple, pads)), tuple(dilation))
 
 
 def k5_key(xp, gy, kernel):
@@ -297,7 +332,7 @@ def recording(spec):
     reals = {label: getattr(mod, name) for label, (mod, name, _) in spec.items()}
     for label, (mod, name, key) in spec.items():
         def counted(*args, _real=reals[label], _seen=seen[label], _key=key, **kwargs):
-            _seen[_key(*args)] += 1
+            _seen[_key(*args, **kwargs)] += 1
             return _real(*args, **kwargs)
         setattr(mod, name, counted)
     try:
@@ -489,43 +524,99 @@ def check_k3(rates, gen):
     return rows, worst
 
 
-def check_k4(rates, mac_rate, gen):
-    """K4 against its plain version, and its times, at every case. The
-    operations bound uses the CUDA cores' int8 multiply-add rate."""
+def k4_valid_taps(x, kernel, pads, dilation) -> int:
+    """Multiply-adds of one channel of a K4 call that this run's data needs:
+    the taps that land on x and not on a pad or an inserted zero."""
+    kh, kw = kernel
+    ones = torch.ones((1,) + tuple(x.shape[1:3]) + (1,), dtype=torch.int8, device=x.device)
+    hits = fused_dwconv_int8.dwconv_shifted_acc_plain(
+        ones, torch.ones((kh, kw, 1, 1), dtype=torch.int8, device=x.device), pads, dilation)
+    return int(hits.sum()) * x.shape[0]
+
+
+def k4_row_instructions(x, kernel, pads, dilation) -> int:
+    """IDP4A and IMAD that K4 runs for a call's taps: in the 3x3 instance on
+    C % 4 == 0, one per output, channel and kernel row that lands on x (a
+    row's 3 taps of a channel are one IDP4A); elsewhere one per valid tap."""
+    kh, kw = kernel
+    b, h, w, c = x.shape
+    if (kh, kw) != (3, 3) or c % 4:
+        return k4_valid_taps(x, kernel, pads, dilation) * c
+    ow = (w - 1) * dilation[1] + 1 + sum(pads[1]) - kw + 1
+    rows = k4_valid_taps(x[:, :, :1], (kh, 1), (pads[0], (0, 0)), (dilation[0], 1))
+    return rows * ow * c
+
+
+def check_k4(rates, mac_rate, int_rate, gen):
+    """K4 against its plain version, byte for byte, at every case: phase 1
+    and the forward and gradient requants of phase 2, per-tensor and with
+    per-channel shifts in [0, 12], with w as given and rotated by 180
+    degrees; and its times, per-tensor and per-channel. Bounds: bytes (x,
+    w, the shifts and the output once) against the int8 multiply-adds at
+    the CUDA cores' IDP4A rate; beside it the CUDA-core floor of the
+    kernel's integer instructions (k4_row_instructions for the taps, and
+    per output the shift with |.| and max, or with psto_round's and the
+    byte pack)."""
     rows, worst = [], 0
-    for what, xps, (kh, kw) in K4_CASES:
-        xp, w = rand_int8(xps, gen), rand_int8((kh, kw, 1, xps[3]), gen)
-        mx = fused_dwconv_int8.dwconv_max_cuda(xp, w)
-        errs = [max_abs_err(mx, fused_dwconv_int8.dwconv_max_plain(xp, w))]
-        bw = numerics.range_estimate_from_max(mx)
-        shift = numerics.forward_shift(bw)
-        for s, grad in [(shift, False), (torch.zeros_like(bw), False), (bw - 2, True),
-                        (bw - 40, True)]:
-            errs.append(max_abs_err(fused_dwconv_int8.dwconv_requant_cuda(xp, w, s, grad),
-                                    fused_dwconv_int8.dwconv_requant_plain(xp, w, s, grad)))
+    for what, xs, (kh, kw), pads, dil in K4_CASES:
+        c = xs[3]
+        if (what, xs, (kh, kw), pads, dil) == K4_SATURATED:
+            x = torch.full(xs, -128, dtype=torch.int8, device="cuda")
+            w = torch.full((kh, kw, 1, c), -128, dtype=torch.int8, device="cuda")
+            pc = torch.arange(c, dtype=torch.int32, device="cuda") % 13
+        else:
+            x, w = rand_int8(xs, gen), rand_int8((kh, kw, 1, c), gen)
+            pc = torch.randint(0, 13, (c,), generator=gen, dtype=torch.int32, device="cuda")
+        errs = []
+        for pcs, rot in [(None, False), (None, True), (pc, False), (pc, True)]:
+            k4 = dict(pads=pads, dilation=dil, pc_shift=pcs, rot180=rot)
+            mx = fused_dwconv_int8.dwconv_max_cuda(x, w, **k4)
+            errs.append(max_abs_err(mx, fused_dwconv_int8.dwconv_max_plain(x, w, **k4)))
+            bw = numerics.range_estimate_from_max(mx)
+            for s, grad in [(numerics.forward_shift(bw), False), (torch.zeros_like(bw), False),
+                            (bw - 2, True), (bw - 40, True)]:
+                errs.append(max_abs_err(
+                    fused_dwconv_int8.dwconv_requant_cuda(x, w, s, grad, **k4),
+                    fused_dwconv_int8.dwconv_requant_plain(x, w, s, grad, **k4)))
         if any(errs):
             raise AssertionError(f"K4 {what} differs from plain: {errs}")
+        if (what, xs, (kh, kw), pads, dil) == K4_SATURATED:
+            mx = fused_dwconv_int8.dwconv_max_cuda(x, w, pads=pads, pc_shift=pc)
+            if int(mx) != 9 * 2**14 << 12:
+                raise AssertionError(f"K4 {what}: max {int(mx)}, not 147456 << 12")
         worst = max(worst, *errs)
-        b, hp, wp, c = xps
-        outs = b * (hp - kh + 1) * (wp - kw + 1) * c
-        macs = float(kh * kw * outs)
-        row = dict(what=what, xp=xps, kernel=(kh, kw), max_abs_err=max(errs))
-        for phase, fn, plain, nbytes in [
-            ("max", lambda: fused_dwconv_int8.dwconv_max_cuda(xp, w),
-             lambda: fused_dwconv_int8.dwconv_max_plain(xp, w), xp.numel() + w.numel() + 4.0),
-            ("requant", lambda: fused_dwconv_int8.dwconv_requant_cuda(xp, w, shift),
-             lambda: fused_dwconv_int8.dwconv_requant_plain(xp, w, shift),
-             xp.numel() + w.numel() + 4.0 + outs),
-        ]:
-            b_ms, b_by = bound(macs, nbytes, (mac_rate, rates[1]))
-            row[phase] = dict(ms=time_ms(fn), plain_ms=time_ms(plain, launches=10, rounds=3),
-                              bound_ms=b_ms, bound_by=b_by, macs=macs, bytes=nbytes)
+        b = xs[0]
+        oh = (xs[1] - 1) * dil[0] + 1 + sum(pads[0]) - kh + 1
+        ow = (xs[2] - 1) * dil[1] + 1 + sum(pads[1]) - kw + 1
+        outs = b * oh * ow * c
+        macs = float(k4_valid_taps(x, (kh, kw), pads, dil) * c)
+        tap_instr = float(k4_row_instructions(x, (kh, kw), pads, dil))
+        row = dict(what=what, x=xs, kernel=(kh, kw), pads=pads, dilation=dil,
+                   max_abs_err=max(errs), outputs=outs)
+        for form, pcs in (("", None), ("pc_", pc)):
+            k4 = dict(pads=pads, dilation=dil, pc_shift=pcs)
+            shift = numerics.forward_shift(numerics.range_estimate_from_max(
+                fused_dwconv_int8.dwconv_max_cuda(x, w, **k4)))
+            in_bytes = x.numel() + w.numel() + (0 if pcs is None else 4 * c)
+            for phase, fn, plain, nbytes, epi_ops in [
+                ("max", lambda: fused_dwconv_int8.dwconv_max_cuda(x, w, **k4),
+                 lambda: fused_dwconv_int8.dwconv_max_plain(x, w, **k4), in_bytes + 4.0, 3),
+                ("requant", lambda: fused_dwconv_int8.dwconv_requant_cuda(x, w, shift, **k4),
+                 lambda: fused_dwconv_int8.dwconv_requant_plain(x, w, shift, **k4),
+                 in_bytes + 4.0 + outs, 2 + PSTO_INT_OPS),
+            ]:
+                b_ms, b_by = bound(macs, nbytes, (mac_rate, rates[1]))
+                instr = tap_instr + outs * epi_ops
+                row[form + phase] = dict(
+                    ms=time_ms(fn), plain_ms=time_ms(plain, launches=5, rounds=3),
+                    bound_ms=b_ms, bound_by=b_by, macs=macs, bytes=nbytes,
+                    instructions=instr, cuda_core_floor_ms=instr / int_rate * 1e3)
         rows.append(row)
-        print(f"  K4 {what:24s} xp {xps} {kh}x{kw}: byte-equal | max {row['max']['ms']:.4f} ms "
-              f"(plain {row['max']['plain_ms']:.4f}, bound {row['max']['bound_ms'] * 1e3:.2f} us "
-              f"{row['max']['bound_by']}) | requant {row['requant']['ms']:.4f} ms (plain "
-              f"{row['requant']['plain_ms']:.4f}, bound {row['requant']['bound_ms'] * 1e3:.2f} us "
-              f"{row['requant']['bound_by']})", flush=True)
+        print(f"  K4 {what:34s} x {xs} {kh}x{kw} pads {pads} dil {dil}: byte-equal (x4 forms) | "
+              + " | ".join(f"{f}{ph} {row[f + ph]['ms']:.4f} ms (plain {row[f + ph]['plain_ms']:.4f},"
+                           f" bound {row[f + ph]['bound_ms'] * 1e3:.2f} us {row[f + ph]['bound_by']},"
+                           f" floor {row[f + ph]['cuda_core_floor_ms'] * 1e3:.2f} us)"
+                           for f in ("", "pc_") for ph in ("max", "requant")), flush=True)
     return rows, worst
 
 
@@ -925,7 +1016,7 @@ def main() -> int:
     k1_rows = check_k1(rates, gen)
     k2_rows = check_k2(rates, gen)
     k3_rows, k3_err = check_k3(rates, gen)
-    k4_rows, k4_err = check_k4(rates, mac_rate, gen)
+    k4_rows, k4_err = check_k4(rates, mac_rate, int_rate, gen)
     k5_rows, k5_err = check_k5(rates, mac_rate, gen)
 
     runs = {}
@@ -969,8 +1060,8 @@ def main() -> int:
     _, seen_steps = per_step_counts(("mnv2", 256, "matmul_only"), run_mn["model"], xc, yc,
                                     NITI_LOGIT_CHANNELS, record=record_mn)
     n_train, n_eval = len(cifar_train[0]) // 256, len(cifar_test[0]) // 256
-    k4_per_step = path_step_weights("K4", seen_mn, n_train, n_eval, seen_steps,
-                                    {(xps, k) for _, xps, k in K4_PATH_CASES})
+    k4_keys = {(xs, k, pads, dil) for _, xs, k, pads, dil in K4_PATH_CASES}
+    k4_per_step = path_step_weights("K4", seen_mn, n_train, n_eval, seen_steps, k4_keys)
     k5_per_step = path_step_weights("K5", seen_mn, n_train, n_eval, seen_steps,
                                     {(xps, k) for _, xps, k in K5_PATH_CASES})
     k1_per_step = path_step_weights("K1", seen_mn, n_train, n_eval, seen_steps)
@@ -1017,9 +1108,13 @@ def main() -> int:
     with dw_ops.recipe_margins():
         run_pc, runs["mnv2pc_b256"], seen_pc = main_path(
             "mnv2pc b256", ("mnv2pc", 256, "matmul_only"), cifar_train, cifar_test, 1,
-            recipe_start, [("cuda", "torch")], model_fn=recipe_fn, record=RECORD_K5)
+            recipe_start, [("cuda", "torch")], model_fn=recipe_fn,
+            record={**RECORD_K4, **RECORD_K5})
         _, seen_pc_steps = per_step_counts(("mnv2pc", 256, "matmul_only"), run_pc["model"], xc,
-                                           yc, NITI_LOGIT_CHANNELS, record=RECORD_K5)
+                                           yc, NITI_LOGIT_CHANNELS,
+                                           record={**RECORD_K4, **RECORD_K5})
+        k4_pc_per_step = path_step_weights("K4", seen_pc, n_train, n_eval, seen_pc_steps,
+                                           k4_keys)
         path_step_weights("K5", seen_pc, n_train, n_eval, seen_pc_steps,
                           {(xps, k) for _, xps, k in K5_PATH_CASES})
         _, runs["mnv2pc_b32"], _ = main_path(
@@ -1030,24 +1125,25 @@ def main() -> int:
         _, runs["mnv2pc_b16"], seen_pc16 = main_path(
             "mnv2pc b16", ("mnv2pc", 16, "matmul_only"), synthetic_cifar(32, seed=5),
             synthetic_cifar(16, seed=6), 1, recipe_start, [("cpu", "cuda")], model_fn=recipe_fn,
-            record={**RECORD_K1, **RECORD_K5})
+            record={**RECORD_K1, **RECORD_K4, **RECORD_K5})
     if (conv_ops.get_fgrad_margin(), dw_ops.get_dw_fgrad_margin()) != (2, 2):
         raise AssertionError("the recipe's margins were not restored")
 
     print("phase 9: the demo CLI (tools/run_train_demo_torch.py) on the card", flush=True)
     cli = load_tool("tools/run_train_demo_torch.py")
     lines, runs["cli_MobilenetV2Train"], seen_cli = cli_in_process(
-        cli, ["MobilenetV2Train", "--epochs", "1"], {**RECORD_K1, **RECORD_K5})
+        cli, ["MobilenetV2Train", "--epochs", "1"], {**RECORD_K1, **RECORD_K4, **RECORD_K5})
     for ln in lines:
         print(f"  [MobilenetV2Train, in this process] {ln}", flush=True)
     if (conv_ops.get_fgrad_margin(), dw_ops.get_dw_fgrad_margin()) != (2, 2):
         raise AssertionError("MobilenetV2Train did not restore the margins")
-    for fam in ("K1", "K5"):  # each shape the CLI's run gave a kernel was held to plain above
+    for fam in ("K1", "K4", "K5"):  # each shape the CLI's run gave a kernel was held to plain above
         if set(seen_cli[fam]) != set(seen_pc16[fam]):
             raise AssertionError(f"MobilenetV2Train's {fam} shapes {sorted(seen_cli[fam])} != "
                                  f"those of the b16 run checked against the CPU "
                                  f"{sorted(seen_pc16[fam])}")
-    print(f"  MobilenetV2Train: its {len(seen_cli['K1'])} K1 and {len(seen_cli['K5'])} K5 shapes "
+    print(f"  MobilenetV2Train: its {len(seen_cli['K1'])} K1, {len(seen_cli['K4'])} K4 and "
+          f"{len(seen_cli['K5'])} K5 shapes "
           f"are those of mnv2pc b16, byte-identical to the CPU", flush=True)
     loss = float(re.search(r"epoch 0: loss (\S+)", "\n".join(lines)).group(1))
     if not np.isfinite(loss) or not lines[-1].startswith("final test accuracy: "):
@@ -1136,13 +1232,25 @@ def main() -> int:
               "library_note": "no PyTorch call computes an int8 conv on CUDA"}
          for ph in ("max", "requant")})
     k4_step = {"max_abs_err": k4_err}
+    k4_recipe = {}
     for r in k4_rows:
-        r["launches_per_train_step"] = k4_per_step.get((r["xp"], r["kernel"]), 0)
+        key = (r["x"], r["kernel"], r["pads"], r["dilation"])
+        r["launches_per_train_step"] = k4_per_step.get(key, 0)
+        r["recipe_launches_per_train_step"] = k4_pc_per_step.get(key, 0)
     for ph in ("max", "requant"):
-        k4_step[ph] = {key: sum(r["launches_per_train_step"] * r[ph][key] for r in k4_rows)
-                       for key in ("ms", "plain_ms", "macs", "bytes")}
-        k4_step[ph]["bound_ms"], k4_step[ph]["bound_by"] = bound(
-            k4_step[ph]["macs"], k4_step[ph]["bytes"], (mac_rate, rates[1]))
+        for out, form, n in ((k4_step, "", "launches_per_train_step"),
+                             (k4_recipe, "pc_", "recipe_launches_per_train_step")):
+            out[ph] = {key: sum(r[n] * r[form + ph][key] for r in k4_rows)
+                       for key in ("ms", "plain_ms", "macs", "bytes", "instructions",
+                                   "cuda_core_floor_ms")}
+            out[ph]["bound_ms"], out[ph]["bound_by"] = bound(
+                out[ph]["macs"], out[ph]["bytes"], (mac_rate, rates[1]))
+        print(f"  K4 {ph} over one MobileNetV2 b256 train step ({sum(k4_per_step.values())} "
+              f"launches): {k4_step[ph]['ms']:.4f} ms, plain {k4_step[ph]['plain_ms']:.4f}, bound "
+              f"{k4_step[ph]['bound_ms']:.4f} ({k4_step[ph]['bound_by']}), CUDA-core floor "
+              f"{k4_step[ph]['cuda_core_floor_ms']:.4f}; the recipe's "
+              f"({sum(k4_pc_per_step.values())} launches, per-channel): {k4_recipe[ph]['ms']:.4f} ms,"
+              f" plain {k4_recipe[ph]['plain_ms']:.4f}", flush=True)
     kernels_line["kernels"] += fused_entries(
         "fused_dwconv", "mandheling_tpu_torch/csrc/fused_dwconv_int8.cu",
         {"max": "mandheling_tpu/ops/kernels/fused_dwconv_int8.py:150",
@@ -1150,7 +1258,9 @@ def main() -> int:
         k4_step, launches, by_run,
         {ph: {"shapes": f"the {sum(k4_per_step.values())} launches of one MobileNetV2 "
                         "batch-256 train step, as recorded; times are their sum",
-              "by_shape": {r["what"]: dict(r[ph], launches_per_train_step=r[
+              "cuda_core_floor_ms": k4_step[ph]["cuda_core_floor_ms"],
+              "recipe_train_step": dict(k4_recipe[ph], launches=sum(k4_pc_per_step.values())),
+              "by_shape": {r["what"]: dict(r[ph], pc=r["pc_" + ph], launches_per_train_step=r[
                   "launches_per_train_step"]) for r in k4_rows if r["launches_per_train_step"]},
               "library_note": "no PyTorch call computes an int8 depthwise conv on CUDA"}
          for ph in ("max", "requant")})

@@ -5,151 +5,472 @@
 // Replaces the TPU kernels of mandheling_tpu/ops/kernels/fused_dwconv_int8.py:
 // `_max_kernel` (the pallas_call in `dwconv_max_pallas`) and
 // `_requant_kernel` (`dwconv_requant_pallas`). Same contract: a VALID
-// stride-1 depthwise conv over the pre-padded xp (B, Hp, Wp, C) with w
-// (KH, KW, 1, C); the forward or the gradient psto epilogue. Strided input
-// gradients reach it on the zero-dilated output diff.
+// stride-1 depthwise conv with w (KH, KW, 1, C) over the padded input; the
+// forward or the gradient psto epilogue. Three operands widen it, each doing
+// in the kernel what a caller did in torch around it:
 //
-// A depthwise conv has no channel contraction, so there is no tensor-core
-// work: KH*KW multiply-adds of int8 operands into int32 per output, on the
-// CUDA cores. A block takes 32 channels (one per lane: NHWC channels are
-// contiguous, so a warp reads 32 neighbouring bytes; ragged C is masked), TR
-// output rows and TW output columns of one image, and each of its TY warps
-// computes every TY-th output column. The 3x3 instance, the only kernel size
-// of the MobileNet paths, stages the (TR+KH-1) x (TW+KW-1) halo tile of xp
-// for its channels in shared memory and keeps the 9 weights of its lane's
-// channel in registers. Every other kernel size, as the JAX kernel takes any,
-// goes to one instance that reads the taps of xp and w from global memory
-// through the cache. The epilogues are K2's and K3's (niti_epilogue.cuh).
+// - x comes unpadded, with its top and left pads (the bottom and right ones
+//   follow from OH, OW): taps outside x read zero;
+// - a dilation (dh, dw): the input is x with dh-1 zero rows and dw-1 zero
+//   columns inserted between its own, as the input grad of a strided conv
+//   sees the output diff. The kernel reads x undilated and skips the taps
+//   that land on inserted zeros; with `rot`, it reads w rotated by 180
+//   degrees, the input grad's filter;
+// - an optional per-channel left shift s_c (int32 (C,), or null), applied
+//   to each accumulator as (int)((unsigned)acc << s_c) before phase 1's
+//   absolute value and phase 2's epilogue: the wrap of torch's and XLA's
+//   int32 <<, the per-channel depthwise exponents' alignment.
 //
-// Bound: at (256, 34, 34, 144), 3x3, phase 1 does 340 M multiply-adds of
-// int8 operands on 43 MB. The CUDA cores' int8 rate is that of IDP4A, four
-// int8 multiply-adds per instruction at the IMAD issue rate of 64 per SM and
-// clock: 67 T/s on an H100 SXM (132 SMs x 64 x 4 x 1.98 GHz), so 5.1 us of
-// operations against 12.7 us of bytes. Bytes bound both phases; phase 2
-// also writes 38 MB of int8, 24.0 us in all.
+// No channel contraction, so no tensor-core work: KH*KW multiply-adds of
+// int8 operands per output on the CUDA cores. NHWC keeps channels
+// contiguous, so a thread takes 4 channels in one 32-bit word (C % 4 == 0;
+// a byte-wise instance takes the rest) and neighbouring threads neighbouring
+// words of one output row: each load of a warp covers 128 contiguous bytes,
+// and so does each phase-2 store. For 3x3, the only kernel size of the
+// MobileNets, a thread walks a run of up to kRows output rows of one column
+// with its 3x3 window in registers: each output row loads one new input row
+// of 3 words (the next one in flight while the current one is multiplied),
+// and 6 PRMT turn them into one word per channel holding that row's 3
+// horizontal taps, so a row of the window costs one IDP4A per channel (3 an
+// output, not 9). The three window rows rotate through the registers, never
+// copied. Columns and pads are resolved once per thread and rows by a cursor,
+// with no division per element; the grid is flat over (image, row run,
+// column, channel word), so a block spans images at small maps and every
+// block has 256 threads of work. With a dilation the columns are ordered by
+// class (ow mod dw), so a warp's threads share which columns are inserted
+// zeros and skip those loads together, and a block which rows are (their
+// IDP4A skipped too). Phase 1
+// ends in one launch: per-block maxima and a last-block reduction. Every
+// other kernel size, as the JAX kernel takes any, goes to one untiled
+// instance that reads its taps through the cache. The epilogues are K2's and
+// K3's (niti_epilogue.cuh), unchanged.
+//
+// Bound, at (256, 32, 32, 144) stride 1, 37.7 M outputs: a phase reads 37.7
+// MB (11.3 us at 3.35 TB/s); per output, phase 1 runs 3 IDP4A, the shift,
+// |.| and max (13.5 us at 64 integer instructions a clock on each of 132
+// SMs, 16.7 T/s at 1.98 GHz) and phase 2 3 IDP4A, the shift, psto_round's
+// ~25 and the byte pack (68 us). So phase 1 is bound by bytes and
+// instructions alike, and phase 2 by the CUDA cores' integer instructions,
+// not by bytes: the psto epilogue is most of it.
 #include "niti_epilogue.cuh"
 
 namespace {
 
-constexpr int CT = 32;  // channels per block, one per lane
-constexpr int TY = 8;   // warps per block
-constexpr int TR = 8;   // output rows per block
-constexpr int TW = 32;  // output columns per block
+constexpr int kThreads = 256;
+constexpr int kRows = 16;  // output rows a thread of the 3x3 instance walks
 
 struct DwArgs {
-  const int8_t* xp;  // (B, Hp, Wp, C), contiguous
-  const int8_t* w;   // (KH*KW, C), contiguous
-  int B, Hp, Wp, C, KH, KW, OH, OW, col_tiles;
+  const int8_t* x;  // (B, H, W, C), contiguous, unpadded and undilated
+  const int8_t* w;  // (KH*KW, C), contiguous
+  const int* pc;    // (C,) per-channel left shifts, or null
+  int B, H, W, C, KH, KW;
+  int pt, pl;       // top and left pads of the dilated input
+  int dh, dw;       // dilation
+  int OH, OW;
+  int rot;          // read w rotated by 180 degrees
+  int rows;         // output rows a thread walks (3x3 instance)
+  int row_blocks;   // ceil(OH / rows)
+  unsigned items;   // threads with work (< 2^31: the wrapper checks the output's size)
+  int* partials;    // phase 1: one max per block
+  unsigned* ticket; // phase 1: 0 between calls
 };
 
-// kMode: 0 = phase 1 (max), 1 = phase 2 forward, 2 = phase 2 gradient.
-// KH = KW = 0: any kernel size (a.KH x a.KW), untiled.
-template <int KH, int KW, int kMode>
-__global__ void __launch_bounds__(CT* TY)
-    dwconv_kernel(DwArgs a, const int* shift_ptr, int* out_max, int8_t* y) {
-  constexpr bool kTiled = KH > 0;
-  __shared__ int8_t tile[kTiled ? TR + KH - 1 : 1][kTiled ? TW + KW - 1 : 1][CT];
-  const int lane = threadIdx.x, ty = threadIdx.y;
-  const int c = blockIdx.x * CT + lane;
-  const bool cin = c < a.C;
-  const int oh0 = (blockIdx.y / a.col_tiles) * TR;
-  const int ow0 = (blockIdx.y % a.col_tiles) * TW;
-  const long long b = blockIdx.z;
-
-  int wr[kTiled ? KH * KW : 1];
-  if constexpr (kTiled) {
-#pragma unroll
-    for (int t = 0; t < KH * KW; ++t) wr[t] = cin ? a.w[t * a.C + c] : 0;
-
-    // The halo tile; rows and columns past xp's edge feed no output and stay
-    // unloaded.
-    const int rows = min(TR + KH - 1, a.Hp - oh0);
-    const int cols = min(TW + KW - 1, a.Wp - ow0);
-    for (int i = ty; i < rows * cols; i += TY) {
-      const int r = i / cols, q = i - r * cols;
-      tile[r][q][lane] =
-          cin ? a.xp[((b * a.Hp + oh0 + r) * a.Wp + ow0 + q) * a.C + c] : int8_t(0);
-    }
-    __syncthreads();
-  }
-
-  const int shift = kMode == 0 ? 0 : *shift_ptr;
-  int local = INT_MIN;
-  for (int r = 0; r < TR && oh0 + r < a.OH; ++r) {
-    for (int q = ty; q < TW && ow0 + q < a.OW; q += TY) {
-      if (!cin) continue;
-      int acc = 0;
-      if constexpr (kTiled) {
-#pragma unroll
-        for (int dy = 0; dy < KH; ++dy)
-#pragma unroll
-          for (int dx = 0; dx < KW; ++dx)
-            acc += static_cast<int>(tile[r + dy][q + dx][lane]) * wr[dy * KW + dx];
-      } else {
-        const int8_t* x0 = a.xp + ((b * a.Hp + oh0 + r) * a.Wp + ow0 + q) * a.C + c;
-        for (int dy = 0; dy < a.KH; ++dy)
-          for (int dx = 0; dx < a.KW; ++dx)
-            acc += static_cast<int>(x0[(dy * a.Wp + dx) * a.C]) *
-                   static_cast<int>(a.w[(dy * a.KW + dx) * a.C + c]);
-      }
-      if (kMode == 0)
-        local = max(local, mh::wrap_abs(acc));
-      else
-        y[((b * a.OH + oh0 + r) * a.OW + ow0 + q) * a.C + c] =
-            mh::requant(acc, shift, kMode == 2);
-    }
-  }
-  if (kMode == 0) mh::block_max_atomic(local, out_max);
+// q = floor(s / d), m = s - q * d in [0, d), for d > 0 and any s.
+__device__ __forceinline__ void floor_div(int s, int d, int& q, int& m) {
+  q = s >= 0 ? s / d : -((d - 1 - s) / d);
+  m = s - q * d;
 }
 
-template <int KH, int KW>
-void launch_k(const DwArgs& a, dim3 grid, int mode, const int* shift, int* out_max,
-              int8_t* y, cudaStream_t st) {
-  const dim3 block(CT, TY);
-  if (mode == 0)
-    dwconv_kernel<KH, KW, 0><<<grid, block, 0, st>>>(a, shift, out_max, y);
-  else if (mode == 1)
-    dwconv_kernel<KH, KW, 1><<<grid, block, 0, st>>>(a, shift, out_max, y);
+// One channel word: 4 bytes as loaded (V = 4), or one sign-extended byte.
+template <int V>
+__device__ __forceinline__ unsigned load_word(const int8_t* p) {
+  if constexpr (V == 4)
+    return __ldg(reinterpret_cast<const unsigned*>(p));
   else
-    dwconv_kernel<KH, KW, 2><<<grid, block, 0, st>>>(a, shift, out_max, y);
+    return static_cast<unsigned>(static_cast<int>(__ldg(p)));
+}
+
+// The weight word of tap t (w read rotated by 180 degrees if a.rot) for
+// channel word cw of 4 channels.
+__device__ __forceinline__ unsigned tap_word(const DwArgs& a, int t, int cw) {
+  if (a.rot) t = a.KH * a.KW - 1 - t;
+  return __ldg(reinterpret_cast<const unsigned*>(a.w + static_cast<long long>(t) * a.C) + cw);
+}
+
+// The weights of tap t for the thread's channels: V = 4 keeps channel c's
+// byte in place and zeroes the others, the operand of one IDP4A.
+template <int V>
+__device__ __forceinline__ void load_tap(const DwArgs& a, int t, int cw, int (&wm)[V]) {
+  if constexpr (V == 4) {
+    const unsigned w32 = tap_word(a, t, cw);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) wm[c] = static_cast<int>(w32 & (0xffu << (8 * c)));
+  } else {
+    wm[0] = __ldg(a.w + static_cast<long long>(a.rot ? a.KH * a.KW - 1 - t : t) * a.C + cw);
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void mac(int (&acc)[V], unsigned xw, const int (&wm)[V]) {
+  if constexpr (V == 4) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[c] = __dp4a(static_cast<int>(xw), wm[c], acc[c]);
+  } else {
+    acc[0] += static_cast<int>(xw) * wm[0];
+  }
+}
+
+// The shared tail of an output word: the per-channel shift, then phase 1's
+// max or phase 2's requant and one V-byte store.
+template <int V, int kMode>
+__device__ __forceinline__ void epilogue(const int (&acc)[V], const int (&sh)[V], int shift,
+                                         int& local, int8_t* y) {
+  unsigned packed = 0;
+#pragma unroll
+  for (int c = 0; c < V; ++c) {
+    const int v = static_cast<int>(static_cast<unsigned>(acc[c]) << sh[c]);
+    if constexpr (kMode == 0)
+      local = max(local, mh::wrap_abs(v));
+    else
+      packed |= static_cast<unsigned>(static_cast<uint8_t>(mh::requant(v, shift, kMode == 2)))
+                << (8 * c);
+  }
+  if constexpr (kMode != 0) {
+    if constexpr (V == 4)
+      *reinterpret_cast<unsigned*>(y) = packed;
+    else
+      *y = static_cast<int8_t>(packed);
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void load_shifts(const DwArgs& a, int cw, int (&sh)[V]) {
+#pragma unroll
+  for (int c = 0; c < V; ++c) sh[c] = a.pc ? __ldg(a.pc + cw * V + c) : 0;
+}
+
+// Walks the input rows of a thread's window: logical row s of the padded,
+// dilated input is x's row q when s = q * dh (m == 0) and 0 <= q < H.
+struct RowCursor {
+  int q, m;
+};
+
+template <int V, bool kDil>
+__device__ __forceinline__ bool next_row(const DwArgs& a, const int8_t* xb, RowCursor& cur,
+                                         const int (&coff)[3], const bool (&cv)[3],
+                                         unsigned (&dst)[3]) {
+  const bool valid = cur.q >= 0 && cur.q < a.H && (!kDil || cur.m == 0);
+  const int8_t* row = xb + static_cast<long long>(cur.q) * a.W * a.C;
+#pragma unroll
+  for (int dx = 0; dx < 3; ++dx) dst[dx] = valid && cv[dx] ? load_word<V>(row + coff[dx]) : 0u;
+  if (kDil) {
+    if (++cur.m == a.dh) {
+      cur.m = 0;
+      ++cur.q;
+    }
+  } else {
+    ++cur.q;
+  }
+  return valid;
+}
+
+// Phase 1's end in one launch: each block stores its max, and the block that
+// takes the last ticket reduces them into *out and sets the ticket back to 0
+// for the next call on its stream. (A separate kernel to set *out to INT32_MIN
+// first, or one to reduce, costs a launch a call, ~3 us each back to back.)
+__device__ __forceinline__ void block_max_last(int local, int* partials, unsigned* ticket,
+                                               int* out) {
+  __shared__ int warp_max[kThreads / 32];
+  __shared__ bool last;
+  local = __reduce_max_sync(0xffffffffu, local);
+  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = local;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int m = warp_max[0];
+    for (int w = 1; w < kThreads / 32; ++w) m = max(m, warp_max[w]);
+    partials[blockIdx.x] = m;
+    __threadfence();
+    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  int m = INT_MIN;
+  for (unsigned i = threadIdx.x; i < gridDim.x; i += kThreads) m = max(m, __ldcg(partials + i));
+  m = __reduce_max_sync(0xffffffffu, m);
+  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = m;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < kThreads / 32; ++w) m = max(m, warp_max[w]);
+    *out = m;
+    *ticket = 0u;
+  }
+}
+
+// The 3 words of one input row (columns ow..ow+2, 4 channels each) ->
+// for each channel c the word (col0.c, col1.c, col2.c, junk), the operand of
+// one IDP4A over the row's 3 horizontal taps: 6 PRMT.
+__device__ __forceinline__ void transpose_row(const unsigned (&cols)[3], unsigned (&t)[4]) {
+  const unsigned lo = __byte_perm(cols[0], cols[1], 0x5140);
+  const unsigned hi = __byte_perm(cols[0], cols[1], 0x7362);
+  t[0] = __byte_perm(lo, cols[2], 0x0410);
+  t[1] = __byte_perm(lo, cols[2], 0x0532);
+  t[2] = __byte_perm(hi, cols[2], 0x0610);
+  t[3] = __byte_perm(hi, cols[2], 0x0732);
+}
+
+// kMode: 0 = phase 1 (max), 1 = phase 2 forward, 2 = phase 2 gradient.
+// V = 4 keeps a row of the window as 4 words, one per channel, each holding
+// the row's 3 horizontal taps, and a row costs one IDP4A per channel; V = 1
+// keeps a row as its 3 sign-extended bytes, a tap one IMAD.
+template <int V, bool kDil, int kMode>
+__global__ void __launch_bounds__(kThreads)
+    dw3x3_kernel(DwArgs a, const int* shift_ptr, int* out_max, int8_t* y) {
+  constexpr bool kPacked = V == 4;
+  constexpr int kRowWords = kPacked ? 4 : 3;
+  const unsigned gid = blockIdx.x * kThreads + threadIdx.x;
+  int local = INT_MIN;
+  if (gid < a.items) {  // 32-bit index math: a 64-bit division is a long subroutine
+    const unsigned cw_n = a.C / V;
+    const int cw = static_cast<int>(gid % cw_n);
+    unsigned rest = gid / cw_n;
+    int j = static_cast<int>(rest % static_cast<unsigned>(a.OW));
+    rest /= static_cast<unsigned>(a.OW);
+    const int rb = static_cast<int>(rest % static_cast<unsigned>(a.row_blocks));
+    const int b = static_cast<int>(rest / static_cast<unsigned>(a.row_blocks));
+    int ow = j;
+    if (kDil && a.dw > 1) {  // columns by class ow mod dw, class 0 first: see the note above
+      int o0 = 0, n = (a.OW + a.dw - 1) / a.dw;
+      while (j >= n) {
+        j -= n;
+        ++o0;
+        n = (a.OW - o0 + a.dw - 1) / a.dw;
+      }
+      ow = o0 + a.dw * j;
+    }
+
+    int coff[3];
+    bool cv[3];
+#pragma unroll
+    for (int dx = 0; dx < 3; ++dx) {
+      int q = ow + dx - a.pl, m = 0;
+      if (kDil) floor_div(q, a.dw, q, m);
+      cv[dx] = q >= 0 && q < a.W && m == 0;
+      coff[dx] = cv[dx] ? q * a.C + cw * V : 0;
+    }
+    int wm[kPacked ? 1 : 9][V];  // V = 1: the 9 taps
+    unsigned wrow[3][4];          // V = 4: row dy's 3 taps of channel c, byte 3 zero
+    if constexpr (kPacked) {
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy) {
+        const unsigned taps[3] = {tap_word(a, dy * 3, cw), tap_word(a, dy * 3 + 1, cw),
+                                  tap_word(a, dy * 3 + 2, cw)};
+        transpose_row(taps, wrow[dy]);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) wrow[dy][c] &= 0x00ffffffu;
+      }
+    } else {
+#pragma unroll
+      for (int t = 0; t < 9; ++t) load_tap<V>(a, t, cw, wm[t]);
+    }
+    int sh[V];
+    load_shifts<V>(a, cw, sh);
+    const int shift = kMode == 0 ? 0 : __ldg(shift_ptr);
+
+    const int oh0 = rb * a.rows, oh1 = min(oh0 + a.rows, a.OH);
+    const int8_t* xb = a.x + static_cast<long long>(b) * a.H * a.W * a.C;
+    RowCursor cur;
+    cur.q = oh0 - a.pt;
+    cur.m = 0;
+    if (kDil) floor_div(oh0 - a.pt, a.dh, cur.q, cur.m);
+    auto fetch = [&](unsigned (&dst)[kRowWords]) {
+      unsigned cols[3];
+      const bool valid = next_row<V, kDil>(a, xb, cur, coff, cv, cols);
+      if constexpr (kPacked) {
+        transpose_row(cols, dst);
+      } else {
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx) dst[dx] = cols[dx];
+      }
+      return valid;
+    };
+    unsigned r0[kRowWords], r1[kRowWords], r2[kRowWords];
+    bool v0 = fetch(r0), v1 = fetch(r1), v2 = fetch(r2);
+    int8_t* yrow = y + ((static_cast<long long>(b) * a.OH + oh0) * a.OW + ow) * a.C + cw * V;
+    const long long ystep = static_cast<long long>(a.OW) * a.C;
+
+    // One output row from the window (top, mid, bot); then the next input
+    // row, loaded before the multiply-adds, takes top's registers. Called
+    // with the three rows rotated, so the window never moves.
+    int oh = oh0;
+    auto step = [&](unsigned (&top)[kRowWords], unsigned (&mid)[kRowWords],
+                    unsigned (&bot)[kRowWords], bool& vt, bool vm, bool vb) {
+      unsigned cols[3] = {0u, 0u, 0u};
+      bool nv = false;
+      if (oh + 1 < oh1) nv = next_row<V, kDil>(a, xb, cur, coff, cv, cols);
+      int acc[V];
+#pragma unroll
+      for (int c = 0; c < V; ++c) acc[c] = 0;
+      auto row_mac = [&](const unsigned (&r)[kRowWords], int dy) {
+        if constexpr (kPacked) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            acc[c] = __dp4a(static_cast<int>(r[c]), static_cast<int>(wrow[dy][c]), acc[c]);
+        } else {
+#pragma unroll
+          for (int dx = 0; dx < 3; ++dx) mac<V>(acc, r[dx], wm[dy * 3 + dx]);
+        }
+      };
+      // an inserted zero row (kDil) is skipped: uniform across the block
+      if (!kDil || vt) row_mac(top, 0);
+      if (!kDil || vm) row_mac(mid, 1);
+      if (!kDil || vb) row_mac(bot, 2);
+      epilogue<V, kMode>(acc, sh, shift, local, yrow);
+      yrow += ystep;
+      if constexpr (kPacked) {
+        transpose_row(cols, top);
+      } else {
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx) top[dx] = cols[dx];
+      }
+      vt = nv;
+      ++oh;
+    };
+    while (oh < oh1) {
+      step(r0, r1, r2, v0, v1, v2);
+      if (oh >= oh1) break;
+      step(r1, r2, r0, v1, v2, v0);
+      if (oh >= oh1) break;
+      step(r2, r0, r1, v2, v0, v1);
+    }
+  }
+  if (kMode == 0) block_max_last(local, a.partials, a.ticket, out_max);
+}
+
+// Any kernel size: one thread per output word, the taps read through the
+// cache with their bounds and dilation tested per tap.
+template <int V, int kMode>
+__global__ void __launch_bounds__(kThreads)
+    dw_any_kernel(DwArgs a, const int* shift_ptr, int* out_max, int8_t* y) {
+  const unsigned gid = blockIdx.x * kThreads + threadIdx.x;
+  int local = INT_MIN;
+  if (gid < a.items) {
+    const unsigned cw_n = a.C / V;
+    const int cw = static_cast<int>(gid % cw_n);
+    unsigned rest = gid / cw_n;
+    const int ow = static_cast<int>(rest % static_cast<unsigned>(a.OW));
+    rest /= static_cast<unsigned>(a.OW);
+    const int oh = static_cast<int>(rest % static_cast<unsigned>(a.OH));
+    const int b = static_cast<int>(rest / static_cast<unsigned>(a.OH));
+    const int8_t* xb = a.x + static_cast<long long>(b) * a.H * a.W * a.C + cw * V;
+    int acc[V];
+#pragma unroll
+    for (int c = 0; c < V; ++c) acc[c] = 0;
+    for (int ty = 0; ty < a.KH; ++ty) {
+      int q = oh + ty - a.pt, m;
+      floor_div(q, a.dh, q, m);
+      if (q < 0 || q >= a.H || m != 0) continue;
+      for (int tx = 0; tx < a.KW; ++tx) {
+        int p = ow + tx - a.pl, n;
+        floor_div(p, a.dw, p, n);
+        if (p < 0 || p >= a.W || n != 0) continue;
+        int wm[V];
+        load_tap<V>(a, ty * a.KW + tx, cw, wm);
+        mac<V>(acc, load_word<V>(xb + (static_cast<long long>(q) * a.W + p) * a.C), wm);
+      }
+    }
+    int sh[V];
+    load_shifts<V>(a, cw, sh);
+    const int shift = kMode == 0 ? 0 : __ldg(shift_ptr);
+    epilogue<V, kMode>(acc, sh, shift, local,
+                       y + ((static_cast<long long>(b) * a.OH + oh) * a.OW + ow) * a.C + cw * V);
+  }
+  if (kMode == 0) block_max_last(local, a.partials, a.ticket, out_max);
+}
+
+template <int V, int kMode>
+void launch_v(const DwArgs& a, bool tiled, bool dil, const int* shift, int* out_max, int8_t* y,
+              cudaStream_t st) {
+  const unsigned grid = (a.items + kThreads - 1) / kThreads;
+  if (!tiled)
+    dw_any_kernel<V, kMode><<<grid, kThreads, 0, st>>>(a, shift, out_max, y);
+  else if (dil)
+    dw3x3_kernel<V, true, kMode><<<grid, kThreads, 0, st>>>(a, shift, out_max, y);
+  else
+    dw3x3_kernel<V, false, kMode><<<grid, kThreads, 0, st>>>(a, shift, out_max, y);
+}
+
+template <int kMode>
+void launch_mode(const DwArgs& a, bool vec, bool tiled, bool dil, const int* shift, int* out_max,
+                 int8_t* y, cudaStream_t st) {
+  if (vec)
+    launch_v<4, kMode>(a, tiled, dil, shift, out_max, y, st);
+  else
+    launch_v<1, kMode>(a, tiled, dil, shift, out_max, y, st);
 }
 
 // Returns cudaGetLastError().
-int launch(const void* xp, const void* w, int B, int Hp, int Wp, int C, int KH,
-           int KW, int mode, const void* shift, void* out_max, void* y, void* stream) {
+int launch(const void* x, const void* w, const void* pc, int B, int H, int W, int C, int KH,
+           int KW, int pt, int pl, int dh, int dw, int OH, int OW, int rot, int mode,
+           const void* shift, void* out_max, void* partials, void* ticket, void* y,
+           void* stream) {
   DwArgs a;
-  a.xp = static_cast<const int8_t*>(xp);
+  a.partials = static_cast<int*>(partials);
+  a.ticket = static_cast<unsigned*>(ticket);
+  a.x = static_cast<const int8_t*>(x);
   a.w = static_cast<const int8_t*>(w);
+  a.pc = static_cast<const int*>(pc);
   a.B = B;
-  a.Hp = Hp;
-  a.Wp = Wp;
+  a.H = H;
+  a.W = W;
   a.C = C;
   a.KH = KH;
   a.KW = KW;
-  a.OH = Hp - KH + 1;
-  a.OW = Wp - KW + 1;
-  a.col_tiles = (a.OW + TW - 1) / TW;
-  const dim3 grid((C + CT - 1) / CT, ((a.OH + TR - 1) / TR) * a.col_tiles, B);
+  a.pt = pt;
+  a.pl = pl;
+  a.dh = dh;
+  a.dw = dw;
+  a.OH = OH;
+  a.OW = OW;
+  a.rot = rot;
+  const bool tiled = KH == 3 && KW == 3;
+  const bool vec = C % 4 == 0 &&
+                   ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
+                     reinterpret_cast<uintptr_t>(y)) & 3u) == 0;
+  const int words = vec ? C / 4 : C;
+  a.rows = tiled ? min(OH, kRows) : 1;
+  a.row_blocks = (OH + a.rows - 1) / a.rows;
+  a.items = static_cast<unsigned>(B) * a.row_blocks * OW * words;
+  const bool dil = dh > 1 || dw > 1;
   const int* sp = static_cast<const int*>(shift);
   int* mp = static_cast<int*>(out_max);
   int8_t* yp = static_cast<int8_t*>(y);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (KH == 3 && KW == 3)
-    launch_k<3, 3>(a, grid, mode, sp, mp, yp, st);
-  else
-    launch_k<0, 0>(a, grid, mode, sp, mp, yp, st);
+  if (mode == 0) {
+    launch_mode<0>(a, vec, tiled, dil, sp, mp, yp, st);
+  } else if (mode == 1) {
+    launch_mode<1>(a, vec, tiled, dil, sp, mp, yp, st);
+  } else {
+    launch_mode<2>(a, vec, tiled, dil, sp, mp, yp, st);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" int mh_fused_dwconv_max(const void* xp, const void* w, void* out_max, int B,
-                                   int Hp, int Wp, int C, int KH, int KW, void* stream) {
-  return launch(xp, w, B, Hp, Wp, C, KH, KW, 0, nullptr, out_max, nullptr, stream);
+// partials: at least one int per block (ceil(B*OH*OW*C / 256) will do);
+// ticket: one unsigned, 0 before the first call on `stream`, left at 0.
+extern "C" int mh_fused_dwconv_max(const void* x, const void* w, const void* pc, void* out_max,
+                                   void* partials, void* ticket, int B, int H, int W, int C,
+                                   int KH, int KW, int pt, int pl, int dh, int dw, int OH, int OW,
+                                   int rot, void* stream) {
+  return launch(x, w, pc, B, H, W, C, KH, KW, pt, pl, dh, dw, OH, OW, rot, 0, nullptr, out_max,
+                partials, ticket, nullptr, stream);
 }
 
-extern "C" int mh_fused_dwconv_requant(const void* xp, const void* w, const void* shift,
-                                       void* y, int B, int Hp, int Wp, int C, int KH,
-                                       int KW, int grad, void* stream) {
-  return launch(xp, w, B, Hp, Wp, C, KH, KW, grad ? 2 : 1, shift, nullptr, y, stream);
+extern "C" int mh_fused_dwconv_requant(const void* x, const void* w, const void* pc,
+                                       const void* shift, void* y, int B, int H, int W, int C,
+                                       int KH, int KW, int pt, int pl, int dh, int dw, int OH,
+                                       int OW, int rot, int grad, void* stream) {
+  return launch(x, w, pc, B, H, W, C, KH, KW, pt, pl, dh, dw, OH, OW, rot, grad ? 2 : 1, shift,
+                nullptr, nullptr, nullptr, y, stream);
 }

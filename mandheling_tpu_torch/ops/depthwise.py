@@ -8,12 +8,17 @@ bw-7, filter grad at bw - margin, the shared code of ops/numerics.py.
 - The accumulator is the "taps" form, the JAX package's default: KH*KW
   shifted multiply-adds (its "grouped" routing gives the same bytes and is
   not ported).
-- Under the "cuda" backend a stride-1 per-tensor forward, and every input
-  grad whose pads are not negative, run through the two-phase fused kernel
-  K4 (``kernels/fused_dwconv_int8.py``) when its `supports` takes the shape,
-  as under the JAX package's Pallas backends. The strided forward and the
-  per-channel forms run the taps as plain torch ops on the tensor's device,
-  as the JAX package computes them outside Pallas.
+- Under the "cuda" backend a stride-1 forward, and every input grad whose
+  pads are not negative, run through the two-phase fused kernel K4
+  (``kernels/fused_dwconv_int8.py``) when its `supports` takes the padded
+  (and, for a strided input grad, dilated) shape, as under the JAX
+  package's Pallas backends. K4 takes x unpadded with its pads, gy
+  undilated with the stride as its dilation, w with its 180-degree
+  rotation by index, and the per-channel forms' alignment shifts: so the
+  per-channel forms take it too, where their per-tensor twins do (the JAX
+  package computes them with the same bytes outside Pallas, by the taps and
+  a shift). The strided forward runs the taps as plain torch ops on the
+  tensor's device, as in the JAX package.
 - The filter grad is a sum over (b, oh, ow) of tap products; the int32 sum
   wraps as XLA's does. Under the "cuda" backend every stride-1 one that
   `supports_fgrad` takes runs through the filter-grad kernel K5
@@ -128,22 +133,29 @@ def dwconv2d_int8_acc(x: torch.Tensor, w: torch.Tensor,
     return _dw_acc_taps(x, w, tuple(stride), pad)
 
 
-def _fused_dw_requant(x: torch.Tensor, w: torch.Tensor, stride: Tuple[int, int],
-                      pad: Pads, grad: bool) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
-    """The depthwise conv through the two-phase fused kernel K4 -> (int8 y,
-    eff_shift), or None: stride 1 only (strided input grads come here
-    pre-dilated), and only for shapes `supports` takes."""
-    if get_fused_conv_mode() == "off" or tuple(stride) != (1, 1):
+def _fused_dw_requant(x: torch.Tensor, w: torch.Tensor, pad: Pads,
+                      dilation: Tuple[int, int] = (1, 1),
+                      pc_shift: Optional[torch.Tensor] = None, rot180: bool = False
+                      ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+    """The stride-1 depthwise conv of x, padded by `pad` after zero-dilation
+    by `dilation`, with w (rotated by 180 degrees if `rot180`), each channel's
+    accumulator shifted left by `pc_shift`, through the two-phase fused
+    kernel K4, forward requant -> (int8 y, eff_shift); or None where
+    `supports` refuses the padded, dilated shape, as the JAX package's rule
+    does."""
+    if get_fused_conv_mode() == "off":
         return None
     kh, kw, _, c = w.shape
-    xp = pad_hw(x, pad)
-    b, hp, wp, _ = xp.shape
-    oh, ow = hp - kh + 1, wp - kw + 1
-    if not _fdw.supports(b, hp, wp, oh, ow, c):
+    b, h, wd, _ = x.shape
+    (pt, pb), (pl, pr) = pad
+    hp = (h - 1) * dilation[0] + 1 + pt + pb
+    wp = (wd - 1) * dilation[1] + 1 + pl + pr
+    if not _fdw.supports(b, hp, wp, hp - kh + 1, wp - kw + 1, c):
         return None
-    m = _fdw.dwconv_max(xp, w)
+    k4 = dict(pads=pad, dilation=dilation, pc_shift=pc_shift, rot180=rot180)
+    m = _fdw.dwconv_max(x, w, **k4)
     eff_shift = numerics.forward_shift(numerics.range_estimate_from_max(m))
-    return _fdw.dwconv_requant(xp, w, eff_shift, grad=grad), eff_shift
+    return _fdw.dwconv_requant(x, w, eff_shift, False, **k4), eff_shift
 
 
 def dwconv2d_forward(
@@ -158,9 +170,9 @@ def dwconv2d_forward(
     """NITI int8 depthwise forward -> (int8 y, int32 exp_out)."""
     e_base, pc_shift = _per_channel_shifts(w_exp, w.shape[0] * w.shape[1])
     exp_in = x_exp.to(torch.int32) + e_base
-    if _fused_enabled() and pc_shift is None:
+    if _fused_enabled() and tuple(stride) == (1, 1):
         pad = resolve_padding(padding, w.shape[:2], stride, x.shape[1:3])
-        fused = _fused_dw_requant(x, w, tuple(stride), pad, grad=False)
+        fused = _fused_dw_requant(x, w, pad, pc_shift=pc_shift)
         if fused is not None:
             y, eff_shift = fused
             e = exp_in + eff_shift
@@ -190,13 +202,12 @@ def dwconv2d_input_grad(
     if w_exp is not None and w_exp.dim() > 0:
         _, pc_shift = _per_channel_shifts(w_exp, kh * kw)
     pad = _input_grad_pads(w.shape, x_spatial, gy.shape[1:3], tuple(stride), padding)
-    w_rot = torch.flip(w, dims=(0, 1))
-    gy_d = _dilate_hw(gy, *stride)
-    if _fused_enabled() and pc_shift is None and min(pad[0] + pad[1]) >= 0:
-        fused = _fused_dw_requant(gy_d, w_rot, (1, 1), pad, grad=False)
+    if _fused_enabled() and min(pad[0] + pad[1]) >= 0:
+        fused = _fused_dw_requant(gy, w, pad, dilation=tuple(stride), pc_shift=pc_shift,
+                                  rot180=True)
         if fused is not None:
             return fused[0]
-    acc = _dw_acc_taps(gy_d, w_rot, (1, 1), pad)
+    acc = _dw_acc_taps(_dilate_hw(gy, *stride), torch.flip(w, dims=(0, 1)), (1, 1), pad)
     if pc_shift is not None:
         acc = acc << pc_shift
     bw = numerics.range_estimate_from_max(numerics.abs_max(acc))

@@ -5,23 +5,32 @@ their plain PyTorch versions.
 
 K4 replaces the TPU kernels of ``mandheling_tpu/ops/kernels/fused_dwconv_int8.py``
 ``_max_kernel`` (``dwconv_max_pallas``) and ``_requant_kernel``
-(``dwconv_requant_pallas``). Both take the pre-padded input xp
-(B, Hp, Wp, C) and the (KH, KW, 1, C) weight of a VALID stride-1 depthwise
-conv:
+(``dwconv_requant_pallas``): a VALID stride-1 depthwise conv with the
+(KH, KW, 1, C) weight w over a padded input (B, Hp, Wp, C),
 
 - phase 1 (:func:`dwconv_max`): max|acc| as a 0-d int32;
 - phase 2 (:func:`dwconv_requant`): recompute the taps and apply the psto
   epilogue with the shift read from device memory, writing int8 only.
 
+Its operands are wider than the TPU kernels', each computing in the kernel
+what the port's callers computed in torch around it: x comes unpadded with
+its `pads` ((top, bottom), (left, right), none negative), and optionally
+zero-dilated by `dilation` (the input grad of a strided conv), with w
+rotated by 180 degrees (`rot180`, the input grad's filter), and with a
+per-channel left shift `pc_shift` (int32 (C,)) applied to each accumulator
+before the max and the epilogue (the per-channel depthwise exponents'
+alignment). With the defaults it is the TPU kernels' function on a
+pre-padded x.
+
 No channel contraction, so no tensor-core work: KH*KW multiply-adds of int8
-operands into int32 per output on the CUDA cores, channels across the lanes
-of a warp. The 3x3 instance (every depthwise layer of the MobileNets) stages
-a halo tile of xp in shared memory and keeps the weights in registers; one
+operands into int32 per output on the CUDA cores, four channels a thread in
+a 32-bit word (a byte-wise instance for C % 4 != 0). The 3x3 instance (every
+depthwise layer of the MobileNets) walks a run of output rows per thread
+with its window in registers, a row's 3 taps of a channel in one IDP4A; one
 untiled instance takes every other kernel size, as the JAX kernel does.
-Bound on an H100 at the MobileNetV2 shapes: bytes, in both phases. At the
-CUDA cores' int8 rate (IDP4A, 67 T multiply-adds/s: 132 SMs x 64 x 4 x
-1.98 GHz) the operations take at most 0.4 of the bytes' time (see the CUDA
-source).
+Bound on an H100 at the MobileNetV2 shapes: phase 1 by bytes and integer
+instructions alike, phase 2 by the psto epilogue's integer instructions on
+the CUDA cores (see the CUDA source).
 
 K5 (:func:`dwconv_fgrad_acc`) replaces the third TPU kernel here,
 ``_fgrad_kernel`` (``dwconv_fgrad_acc_pallas``): the int32 (KH, KW, 1, C)
@@ -37,11 +46,16 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional, Tuple
 
 import torch
 
 from .. import numerics
 from . import build
+from .conv_int8 import _dilate_hw, pad_hw
+
+Pads = Tuple[Tuple[int, int], Tuple[int, int]]
+_NO_PADS: Pads = ((0, 0), (0, 0))
 
 # Launches of the CUDA kernels (plain integers; counted where they launch).
 MAX_LAUNCHES = 0
@@ -105,92 +119,142 @@ def dwconv_acc_plain(xp: torch.Tensor, w: torch.Tensor, stride=(1, 1)) -> torch.
     return acc
 
 
-def dwconv_max_plain(xp: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    return numerics.abs_max(dwconv_acc_plain(xp, w))
+def dwconv_shifted_acc_plain(x: torch.Tensor, w: torch.Tensor, pads: Pads = _NO_PADS,
+                             dilation=(1, 1), pc_shift: Optional[torch.Tensor] = None,
+                             rot180: bool = False) -> torch.Tensor:
+    """The accumulator K4 sees: the taps of w (rotated by 180 degrees if
+    `rot180`) over x zero-dilated by `dilation` and padded by `pads`, each
+    channel left-shifted by `pc_shift` (int32 << wraps, as XLA's does)."""
+    if rot180:
+        w = torch.flip(w, dims=(0, 1))
+    acc = dwconv_acc_plain(pad_hw(_dilate_hw(x, *dilation), pads), w)
+    return acc if pc_shift is None else acc << pc_shift
 
 
-def dwconv_requant_plain(xp: torch.Tensor, w: torch.Tensor, shift: torch.Tensor,
-                         grad: bool = False) -> torch.Tensor:
-    return numerics.psto_epilogue(dwconv_acc_plain(xp, w), shift, grad)
+def dwconv_max_plain(x: torch.Tensor, w: torch.Tensor, *, pads: Pads = _NO_PADS,
+                     dilation=(1, 1), pc_shift: Optional[torch.Tensor] = None,
+                     rot180: bool = False) -> torch.Tensor:
+    return numerics.abs_max(dwconv_shifted_acc_plain(x, w, pads, dilation, pc_shift, rot180))
+
+
+def dwconv_requant_plain(x: torch.Tensor, w: torch.Tensor, shift: torch.Tensor,
+                         grad: bool = False, *, pads: Pads = _NO_PADS, dilation=(1, 1),
+                         pc_shift: Optional[torch.Tensor] = None,
+                         rot180: bool = False) -> torch.Tensor:
+    return numerics.psto_epilogue(
+        dwconv_shifted_acc_plain(x, w, pads, dilation, pc_shift, rot180), shift, grad)
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = build.library("fused_dwconv_int8")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.mh_fused_dwconv_max.argtypes = [p, p, p] + [i] * 6 + [p]
+    lib.mh_fused_dwconv_max.argtypes = [p] * 6 + [i] * 13 + [p]
     lib.mh_fused_dwconv_max.restype = ctypes.c_int
-    lib.mh_fused_dwconv_requant.argtypes = [p, p, p, p] + [i] * 7 + [p]
+    lib.mh_fused_dwconv_requant.argtypes = [p, p, p, p, p] + [i] * 14 + [p]
     lib.mh_fused_dwconv_requant.restype = ctypes.c_int
     return lib
 
 
-def _prepare(xp: torch.Tensor, w: torch.Tensor):
-    if xp.dim() != 4 or w.dim() != 4 or w.shape[2] != 1 or w.shape[3] != xp.shape[3]:
-        raise ValueError(f"need xp (B, Hp, Wp, C) and w (KH, KW, 1, C), got "
-                         f"{tuple(xp.shape)}, {tuple(w.shape)}")
-    if xp.dtype != torch.int8 or w.dtype != torch.int8:
-        raise TypeError(f"int8 operands only, got {xp.dtype}, {w.dtype}")
-    if not (xp.is_cuda and w.is_cuda) or xp.device != w.device:
-        raise ValueError(f"K4 needs xp and w on one CUDA device, got {xp.device}, {w.device}")
+def _prepare(x: torch.Tensor, w: torch.Tensor, pads: Pads, dilation, pc_shift, rot180: bool):
+    """Checks K4's operands -> (x, w, pc_shift or None, output shape, the
+    kernel's int arguments B, H, W, C, KH, KW, pt, pl, dh, dw, OH, OW, rot)."""
+    if x.dim() != 4 or w.dim() != 4 or w.shape[2] != 1 or w.shape[3] != x.shape[3]:
+        raise ValueError(f"need x (B, H, W, C) and w (KH, KW, 1, C), got "
+                         f"{tuple(x.shape)}, {tuple(w.shape)}")
+    if x.dtype != torch.int8 or w.dtype != torch.int8:
+        raise TypeError(f"int8 operands only, got {x.dtype}, {w.dtype}")
+    if not (x.is_cuda and w.is_cuda) or x.device != w.device:
+        raise ValueError(f"K4 needs x and w on one CUDA device, got {x.device}, {w.device}")
+    (pt, pb), (pl, pr) = pads
+    dh, dw = dilation
+    if min(pt, pb, pl, pr) < 0 or min(dh, dw) < 1:
+        raise ValueError(f"K4 takes pads >= 0 and dilations >= 1, got {pads}, {dilation}")
     kh, kw, _, c = w.shape
-    b, hp, wp, _ = xp.shape
-    oh, ow = hp - kh + 1, wp - kw + 1
-    if b > 65535 or xp.numel() >= 2**31:
-        raise ValueError(f"K4 takes batches up to 65535 and int32-indexable xp, got {tuple(xp.shape)}")
-    w2 = w.reshape(kh * kw, c).contiguous()
-    return xp.contiguous(), w2, (b, max(oh, 0), max(ow, 0), c), [b, hp, wp, c, kh, kw]
+    b, h, wd, _ = x.shape
+    oh = max((h - 1) * dh + 1 + pt + pb - kh + 1, 0) if h else 0
+    ow = max((wd - 1) * dw + 1 + pl + pr - kw + 1, 0) if wd else 0
+    if x.numel() >= 2**31 or b * oh * ow * c >= 2**31:
+        raise ValueError(f"K4 takes int32-indexable tensors, got x {tuple(x.shape)}")
+    if pc_shift is not None:
+        if pc_shift.shape != (c,) or pc_shift.dtype != torch.int32 or pc_shift.device != x.device:
+            raise ValueError(f"pc_shift must be int32 ({c},) on {x.device}, got "
+                             f"{pc_shift.dtype} {tuple(pc_shift.shape)} on {pc_shift.device}")
+        pc_shift = pc_shift.contiguous()
+    dims = [b, h, wd, c, kh, kw, pt, pl, dh, dw, oh, ow, int(rot180)]
+    return x.contiguous(), w.contiguous(), pc_shift, (b, oh, ow, c), dims
 
 
-def dwconv_max_cuda(xp: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Phase 1 on the card -> 0-d int32 max|acc| (INT32_MIN when empty)."""
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+@functools.lru_cache(maxsize=None)
+def _ticket(device: torch.device, stream: int) -> torch.Tensor:
+    """Phase 1's block counter for the CUDA stream `stream` of `device`:
+    zeroed once, while that stream is current; the kernel leaves it at 0."""
+    return torch.zeros((1,), dtype=torch.int32, device=device)
+
+
+def dwconv_max_cuda(x: torch.Tensor, w: torch.Tensor, *, pads: Pads = _NO_PADS,
+                    dilation=(1, 1), pc_shift: Optional[torch.Tensor] = None,
+                    rot180: bool = False) -> torch.Tensor:
+    """Phase 1 on the card -> 0-d int32 max|acc| (INT32_MIN when empty), in
+    one launch: each block leaves its max in a scratch word, and the last
+    block to finish reduces them (its ticket, one per stream, returns to 0)."""
     global MAX_LAUNCHES
-    xp, w2, (b, oh, ow, c), dims = _prepare(xp, w)
-    out = torch.full((), -(2**31), dtype=torch.int32, device=xp.device)
+    x, w, pc_shift, (b, oh, ow, c), dims = _prepare(x, w, pads, dilation, pc_shift, rot180)
     if b * oh * ow * c == 0:
-        return out
-    err = _lib().mh_fused_dwconv_max(xp.data_ptr(), w2.data_ptr(), out.data_ptr(), *dims,
-                                     torch.cuda.current_stream(xp.device).cuda_stream)
+        return torch.full((), -(2**31), dtype=torch.int32, device=x.device)
+    stream = torch.cuda.current_stream(x.device)
+    out = torch.empty((), dtype=torch.int32, device=x.device)
+    partials = torch.empty((-(-b * oh * ow * c // 256),), dtype=torch.int32, device=x.device)
+    err = _lib().mh_fused_dwconv_max(x.data_ptr(), w.data_ptr(), _ptr(pc_shift), out.data_ptr(),
+                                     partials.data_ptr(),
+                                     _ticket(x.device, stream.cuda_stream).data_ptr(), *dims,
+                                     stream.cuda_stream)
     if err:
         raise RuntimeError(f"fused_dwconv_max kernel launch failed: CUDA error {err}")
     MAX_LAUNCHES += 1
     return out
 
 
-def dwconv_requant_cuda(xp: torch.Tensor, w: torch.Tensor, shift: torch.Tensor,
-                        grad: bool = False) -> torch.Tensor:
+def dwconv_requant_cuda(x: torch.Tensor, w: torch.Tensor, shift: torch.Tensor,
+                        grad: bool = False, *, pads: Pads = _NO_PADS, dilation=(1, 1),
+                        pc_shift: Optional[torch.Tensor] = None,
+                        rot180: bool = False) -> torch.Tensor:
     """Phase 2 on the card -> int8 (B, OH, OW, C); `shift` is a 0-d int32 on
-    xp's device and is read there by the kernel."""
+    x's device and is read there by the kernel."""
     global REQUANT_LAUNCHES
-    xp, w2, shape, dims = _prepare(xp, w)
-    if shift.device != xp.device or shift.numel() != 1:
-        raise ValueError("shift must be a one-element tensor on xp's device")
+    x, w, pc_shift, shape, dims = _prepare(x, w, pads, dilation, pc_shift, rot180)
+    if shift.device != x.device or shift.numel() != 1:
+        raise ValueError("shift must be a one-element tensor on x's device")
     shift = shift.to(torch.int32).contiguous()
-    y = torch.empty(shape, dtype=torch.int8, device=xp.device)
+    y = torch.empty(shape, dtype=torch.int8, device=x.device)
     if y.numel() == 0:
         return y
-    err = _lib().mh_fused_dwconv_requant(xp.data_ptr(), w2.data_ptr(), shift.data_ptr(),
-                                         y.data_ptr(), *dims, int(grad),
-                                         torch.cuda.current_stream(xp.device).cuda_stream)
+    err = _lib().mh_fused_dwconv_requant(x.data_ptr(), w.data_ptr(), _ptr(pc_shift),
+                                         shift.data_ptr(), y.data_ptr(), *dims, int(grad),
+                                         torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"fused_dwconv_requant kernel launch failed: CUDA error {err}")
     REQUANT_LAUNCHES += 1
     return y
 
 
-def dwconv_max(xp: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def dwconv_max(x: torch.Tensor, w: torch.Tensor, **kw) -> torch.Tensor:
     """Phase 1: the kernel on a CUDA tensor, its plain version on a CPU one."""
-    if xp.is_cuda:
-        return dwconv_max_cuda(xp, w)
-    return dwconv_max_plain(xp, w)
+    if x.is_cuda:
+        return dwconv_max_cuda(x, w, **kw)
+    return dwconv_max_plain(x, w, **kw)
 
 
-def dwconv_requant(xp: torch.Tensor, w: torch.Tensor, shift: torch.Tensor,
-                   grad: bool = False) -> torch.Tensor:
+def dwconv_requant(x: torch.Tensor, w: torch.Tensor, shift: torch.Tensor,
+                   grad: bool = False, **kw) -> torch.Tensor:
     """Phase 2: the kernel on a CUDA tensor, its plain version on a CPU one."""
-    if xp.is_cuda:
-        return dwconv_requant_cuda(xp, w, shift, grad)
-    return dwconv_requant_plain(xp, w, shift, grad)
+    if x.is_cuda:
+        return dwconv_requant_cuda(x, w, shift, grad, **kw)
+    return dwconv_requant_plain(x, w, shift, grad, **kw)
 
 
 @functools.lru_cache(maxsize=None)

@@ -193,6 +193,55 @@ def test_fused_dwconv_kernels_match_plain(gen, xp_shape, k):
         assert torch.equal(got, fdw.dwconv_requant_plain(xp, w, shift, grad))
 
 
+@pytest.mark.parametrize("x_shape,k,pads,dil", [
+    ((2, 32, 32, 144), (3, 3), ((1, 1), (1, 1)), (1, 1)),    # C % 16 = 0, 32x32
+    ((3, 16, 16, 192), (3, 3), ((1, 1), (1, 1)), (1, 1)),    # 16x16
+    ((2, 8, 8, 576), (3, 3), ((1, 1), (1, 1)), (1, 1)),      # 8x8
+    ((5, 4, 4, 960), (3, 3), ((1, 1), (1, 1)), (1, 1)),      # 4x4
+    ((2, 13, 11, 20), (3, 3), ((1, 1), (1, 1)), (1, 1)),     # C % 4 = 0 only; 13 rows
+    ((2, 19, 9, 33), (3, 3), ((0, 1), (1, 0)), (1, 1)),      # ragged C; 18 rows
+    ((3, 9, 10, 7), (3, 3), ((1, 1), (1, 1)), (1, 1)),       # ragged C 7
+    ((2, 16, 16, 144), (3, 3), ((2, 1), (2, 1)), (2, 2)),    # stride-2 input grad to 32x32
+    ((2, 4, 4, 576), (3, 3), ((2, 1), (2, 1)), (2, 2)),      # stride-2 input grad to 8x8
+    ((2, 5, 7, 33), (3, 3), ((1, 2), (0, 1)), (2, 2)),       # ragged C, dilation 2
+    ((2, 9, 9, 7), (5, 5), ((2, 2), (2, 2)), (1, 1)),        # 5x5, untiled
+    ((2, 6, 5, 24), (5, 5), ((3, 2), (2, 3)), (2, 2)),       # 5x5, dilation 2
+    ((2, 12, 40, 40), (3, 1), ((1, 1), (0, 0)), (1, 1)),     # 3x1
+    ((1, 7, 9, 36), (3, 1), ((2, 0), (0, 0)), (1, 2)),       # 3x1, dilation along W
+])
+def test_fused_dwconv_widened_operands_match_plain(gen, x_shape, k, pads, dil):
+    """K4 with x unpadded and its pads, a dilation, w as given and rotated,
+    per-tensor and with per-channel shifts in [0, 12]: phase 1 and both
+    phase-2 variants byte-equal to the plain version."""
+    c = x_shape[3]
+    x, w = rand_int8(x_shape, gen), rand_int8(k + (1, c), gen)
+    pc = torch.randint(0, 13, (c,), generator=gen, dtype=torch.int32, device="cuda")
+    for pcs, rot in [(None, False), (None, True), (pc, False), (pc, True)]:
+        k4 = dict(pads=pads, dilation=dil, pc_shift=pcs, rot180=rot)
+        mx = fdw.dwconv_max_cuda(x, w, **k4)
+        assert torch.equal(mx, fdw.dwconv_max_plain(x, w, **k4)), (pcs is not None, rot)
+        for shift, grad in _shift_cases(mx):
+            got = fdw.dwconv_requant_cuda(x, w, shift, grad, **k4)
+            assert torch.equal(got, fdw.dwconv_requant_plain(x, w, shift, grad, **k4)), (
+                pcs is not None, rot, int(shift), grad)
+
+
+@pytest.mark.parametrize("c", [48, 7])
+def test_fused_dwconv_saturated_shifts(gen, c):
+    """All -128 operands with per-channel shifts 0..12: interior accumulators
+    147456 << 12, the largest the 3x3 cap allows, in both instances."""
+    x = torch.full((3, 13, 11, c), -128, dtype=torch.int8, device="cuda")
+    w = torch.full((3, 3, 1, c), -128, dtype=torch.int8, device="cuda")
+    pc = torch.arange(c, dtype=torch.int32, device="cuda") % 13
+    k4 = dict(pads=((1, 1), (1, 1)), pc_shift=pc)
+    mx = fdw.dwconv_max_cuda(x, w, **k4)
+    assert torch.equal(mx, fdw.dwconv_max_plain(x, w, **k4))
+    assert int(mx) == (147456 << int(pc.max()))
+    for shift, grad in _shift_cases(mx):
+        got = fdw.dwconv_requant_cuda(x, w, shift, grad, **k4)
+        assert torch.equal(got, fdw.dwconv_requant_plain(x, w, shift, grad, **k4))
+
+
 @pytest.mark.parametrize("xp_shape,k", [
     ((4, 18, 18, 24), (3, 3)), ((2, 34, 34, 144), (3, 3)), ((3, 10, 10, 576), (3, 3)),
     ((5, 6, 6, 960), (3, 3)), ((3, 11, 45, 33), (3, 3)), ((5, 12, 12, 7), (3, 3)),

@@ -1,9 +1,11 @@
 """The port's depthwise ops, average pools, eltwise ops and K4's plain
 version against the JAX package, bit for bit: K4's plain version
 (``kernels/fused_dwconv_int8.py``) against the Pallas kernels in interpret
-mode; the depthwise forward, input grad and filter grad, per-tensor and
-per-channel, under both port backends against the JAX package under XLA and
-under its Pallas interpreter. The CUDA kernel itself is held against the
+mode, also with its own operands (x unpadded with its pads, a dilation, w
+rotated) on the input the JAX caller pads and dilates; the depthwise
+forward, input grad and filter grad, per-tensor and per-channel (where K4
+takes the alignment shifts), under both port backends against the JAX
+package under XLA and under its Pallas interpreter. The CUDA kernel itself is held against the
 plain version on the card (tests/test_torch_cuda.py, chip_smoke.py)."""
 
 import jax
@@ -77,6 +79,118 @@ def test_fused_dwconv_plain_matches_pallas_any_kernel(xp_shape, kernel):
         np.testing.assert_array_equal(y_t.numpy(), np.asarray(y_j))
 
 
+def _dilate_pad_np(x, dilation, pads):
+    """What the JAX caller hands its Pallas kernels: x zero-dilated, then padded."""
+    dh, dw = dilation
+    b, h, w, c = x.shape
+    d = np.zeros((b, (h - 1) * dh + 1, (w - 1) * dw + 1, c), x.dtype)
+    d[:, ::dh, ::dw, :] = x
+    return np.pad(d, ((0, 0), pads[0], pads[1], (0, 0)))
+
+
+@pytest.mark.parametrize("x_shape,kernel,pads,dilation,rot180", [
+    ((3, 9, 11, 20), (3, 3), ((1, 1), (1, 1)), (1, 1), False),   # stride-1 SAME forward
+    ((2, 7, 10, 8), (3, 3), ((0, 1), (0, 1)), (1, 1), False),    # the asymmetric SAME pads
+    ((2, 8, 8, 12), (3, 3), ((2, 1), (2, 1)), (2, 2), True),     # stride-2 input grad, 16x16
+    ((2, 5, 5, 9), (3, 3), ((1, 1), (1, 1)), (2, 2), True),      # stride-2 input grad, odd 9x9
+    ((1, 5, 6, 7), (5, 5), ((2, 2), (3, 1)), (2, 2), True),      # 5x5, pads apart
+    ((2, 6, 7, 5), (3, 1), ((1, 1), (0, 0)), (1, 2), False),     # 3x1, dilation along W only
+])
+def test_fused_dwconv_plain_widened_matches_pallas(x_shape, kernel, pads, dilation, rot180):
+    """K4's plain version with x unpadded, its pads, a dilation and w rotated
+    by 180 degrees equals the Pallas kernels (interpret mode) on the input
+    the JAX caller pads and dilates and the weight it flips."""
+    rng = np.random.default_rng(sum(x_shape) + sum(kernel) + dilation[1])
+    x = rand_int8(rng, x_shape)
+    w = rand_int8(rng, kernel + (1, x_shape[3]))
+    xp_j = jnp.asarray(_dilate_pad_np(x, dilation, pads))
+    w_j = jnp.flip(jnp.asarray(w), axis=(0, 1)) if rot180 else jnp.asarray(w)
+    k4 = dict(pads=pads, dilation=dilation, rot180=rot180)
+    mx_j = jfdw.dwconv_max_pallas(xp_j, w_j, kernel, interpret=True)
+    assert int(tfdw.dwconv_max(t(x), t(w), **k4)) == int(mx_j)
+    bw = int(jnum.range_estimate_from_max(mx_j))
+    for shift, grad in [(int(jnum.forward_shift(jnp.int32(bw))), False), (0, False),
+                        (bw - 2, True)]:
+        y_j = jfdw.dwconv_requant_pallas(xp_j, w_j, jnp.int32(shift), kernel, grad=grad,
+                                         interpret=True)
+        y_t = tfdw.dwconv_requant(t(x), t(w), i32(shift), grad, **k4)
+        np.testing.assert_array_equal(y_t.numpy(), np.asarray(y_j))
+
+
+# (x spatial, C, stride, exponents): the spread of the exponents is exactly
+# pc_shift_cap(9) = 12 in every case.
+PC_CASES = [((16, 16), 24, (1, 1)), ((16, 16), 24, (2, 2)), ((9, 11), 12, (1, 1)),
+            ((9, 9), 8, (2, 2)), ((7, 10), 20, (2, 2))]
+
+
+@pytest.mark.parametrize("spatial,c,stride", PC_CASES)
+@pytest.mark.parametrize("saturated", [False, True])
+def test_per_channel_forms_take_k4_and_match_jax(spatial, c, stride, saturated):
+    """The per-channel depthwise forward and input grad under "cuda" (K4's
+    route, with the (C,) alignment shifts as its operand; its plain version
+    on these CPU tensors) equal the JAX package's per-channel forms, bytes
+    and exponent, at a spread of exactly 12; `saturated`: every operand
+    -128, so an interior accumulator is 147456 << 12."""
+    rng = np.random.default_rng(spatial[0] * 31 + c + stride[0] + 7 * saturated)
+    h, w_sp = spatial
+    oh, ow = -(-h // stride[0]), -(-w_sp // stride[1])
+    w_exp = rng.integers(-15, -2, c).astype(np.int32)
+    w_exp[0], w_exp[-1] = -15, -3
+    if saturated:
+        x = np.full((2, h, w_sp, c), -128, np.int8)
+        w = np.full((3, 3, 1, c), -128, np.int8)
+        gy = np.full((2, oh, ow, c), -128, np.int8)
+    else:
+        x, w = rand_int8(rng, (2, h, w_sp, c)), rand_int8(rng, (3, 3, 1, c))
+        gy = rand_int8(rng, (2, oh, ow, c))
+    y_j, e_j = jdw.dwconv2d_forward(jnp.asarray(x), jnp.int32(-4), jnp.asarray(w),
+                                    jnp.asarray(w_exp), stride, "SAME")
+    gx_j = jdw.dwconv2d_input_grad(jnp.asarray(gy), jnp.asarray(w), spatial, stride, "SAME",
+                                   w_exp=jnp.asarray(w_exp))
+    with t_use_backend("cuda"):
+        y_t, e_t = tdw.dwconv2d_forward(t(x), i32(-4), t(w), t(w_exp), stride, "SAME")
+        gx_t = tdw.dwconv2d_input_grad(t(gy), t(w), spatial, stride, "SAME", w_exp=t(w_exp))
+    np.testing.assert_array_equal(y_t.numpy(), np.asarray(y_j))
+    assert int(e_t) == int(e_j)
+    np.testing.assert_array_equal(gx_t.numpy(), np.asarray(gx_j))
+    if saturated:
+        pc = t(w_exp - w_exp.min())
+        acc = tfdw.dwconv_shifted_acc_plain(t(x), t(w), ((1, 1), (1, 1)), pc_shift=pc)
+        assert int(acc.abs().max()) == 147456 << 12
+
+
+@pytest.mark.parametrize("backend,mode,want", [("cuda", "matmul_only", 2), ("cuda", "all", 2),
+                                               ("torch", "matmul_only", 0), ("cuda", "off", 0)])
+def test_per_channel_forms_call_k4(monkeypatch, backend, mode, want):
+    """Under the "cuda" backend the per-channel forward (stride 1) and input
+    grads (stride 1 and 2) call K4's two entry points once each, with the
+    (C,) shift vector; under "torch" or fused mode "off" they call neither."""
+    from mandheling_tpu_torch.ops import conv as tconv
+
+    calls = []
+    for name in ("dwconv_max", "dwconv_requant"):
+        real = getattr(tfdw, name)
+
+        def counted(*a, _real=real, _name=name, **k):
+            calls.append((_name, tuple(k["pc_shift"].shape), k["dilation"], k["rot180"]))
+            return _real(*a, **k)
+        monkeypatch.setattr(tfdw, name, counted)
+    rng = np.random.default_rng(3)
+    x, w = rand_int8(rng, (2, 8, 8, 12)), rand_int8(rng, (3, 3, 1, 12))
+    w_exp = t(rng.integers(-12, -4, 12).astype(np.int32))
+    with t_use_backend(backend), tconv.use_fused_conv_mode(mode):
+        tdw.dwconv2d_forward(t(x), i32(-3), t(w), w_exp, (1, 1), "SAME")
+        for stride in ((1, 1), (2, 2)):
+            gy = rand_int8(rng, (2, 8 // stride[0], 8 // stride[1], 12))
+            tdw.dwconv2d_input_grad(t(gy), t(w), (8, 8), stride, "SAME", w_exp=w_exp)
+        tdw.dwconv2d_forward(t(x), i32(-3), t(w), w_exp, (2, 2), "SAME")  # strided: plain taps
+    assert len(calls) == 3 * want
+    if want:
+        assert calls == [(n, (12,), d, r) for d, r in (((1, 1), False), ((1, 1), True),
+                                                       ((2, 2), True))
+                         for n in ("dwconv_max", "dwconv_requant")]
+
+
 def test_fused_dwconv_supports_is_the_jax_rule():
     for b, hp, wp, c in [(256, 34, 34, 144), (256, 18, 18, 192), (256, 10, 10, 576),
                          (256, 6, 6, 960), (4, 66, 66, 144), (1, 130, 130, 32), (2, 3, 400, 8)]:
@@ -103,10 +217,10 @@ def _run_dw(pkg, x, gy, w, w_exp, stride, per_channel):
 @pytest.mark.parametrize("backend", ["cuda", "torch"])
 def test_depthwise_ops_match_jax(stride, per_channel, backend):
     """(4, 16, 16, 24): the stride-1 forward and every input grad take K4's
-    route under "cuda" (per-tensor), the stride-1 filter grad K5's (their
-    plain versions on these CPU tensors); the strided forward, the
-    per-channel forms and the strided filter grad run the plain taps, as in
-    the JAX package."""
+    route under "cuda", per-tensor and per-channel (with the alignment
+    shifts as K4's operand), the stride-1 filter grad K5's (their plain
+    versions on these CPU tensors); the strided forward and the strided
+    filter grad run the plain taps, as in the JAX package."""
     rng = np.random.default_rng(5 + stride[0] + 2 * per_channel)
     x = rand_int8(rng, (4, 16, 16, 24))
     w = rand_int8(rng, (3, 3, 1, 24))

@@ -238,28 +238,37 @@ def test_chip_smoke_launch_table_is_the_routes(monkeypatch):
 
 def test_chip_smoke_k4_path_cases_are_the_step_shapes():
     """chip_smoke.py times K4 at K4_PATH_CASES and weights them by the
-    launches it records in a batch-256 MobileNetV2 step. Rehearsed here on
-    the meta device with its recorder: the shapes a train step and an eval
-    step give K4 are the listed ones, the train step's counts sum to
-    EXPECTED_PER_STEP's, and the recorder restores the wrapped function."""
+    launches it records in a batch-256 MobileNetV2 step, per-tensor and
+    under the recipe (whose per-channel forms take K4 with their shifts).
+    Rehearsed here on the meta device with its recorder: the (x shape,
+    kernel, pads, dilation) a train step and an eval step give K4 are the
+    listed ones in both models, the counts sum to EXPECTED_PER_STEP's, every
+    recipe call carries a (C,) shift vector and no per-tensor one does, and
+    the recorder restores the wrapped function."""
     from mandheling_tpu_torch.ops.kernels import fused_dwconv_int8
 
     cs = _load_chip_smoke()
     real = fused_dwconv_int8.dwconv_max
-    model = mobilenet_v2_niti().to("meta")
+    path = {(xs, k, pads, dil) for _, xs, k, pads, dil in cs.K4_PATH_CASES}
     x = torch.zeros((256, 32, 32, 3), device="meta")
     oh = torch.zeros((256, MOBILENET_V2_NITI_LOGITS), dtype=torch.int32, device="meta")
-    spec = {"K4": (fused_dwconv_int8, "dwconv_max", cs.k4_key)}
-    with cs.recording(spec) as train:
-        make_train_step(model)(x, oh)
-    with cs.recording(spec) as evals:
-        make_eval_step(model)(x, torch.zeros(256, dtype=torch.int64, device="meta"))
-    assert fused_dwconv_int8.dwconv_max is real
-    path = {(xps, k) for _, xps, k in cs.K4_PATH_CASES}
-    assert set(train["K4"]) == path and set(evals["K4"]) <= path
-    per_train, per_eval = cs.EXPECTED_PER_STEP[("mnv2", 256, "matmul_only")]
-    assert sum(train["K4"].values()) == per_train["K4"]
-    assert sum(evals["K4"].values()) == per_eval["K4"]
+    for per_channel in (False, True):
+        model = mobilenet_v2_niti(dw_per_channel=per_channel).to("meta")
+        spec = {"K4": (fused_dwconv_int8, "dwconv_max", cs.k4_key),
+                "pc": (fused_dwconv_int8, "dwconv_requant",
+                       lambda x, w, s, g=False, pc_shift=None, **_: (
+                           None if pc_shift is None else tuple(pc_shift.shape) == x.shape[3:]))}
+        with cs.recording(spec) as train:
+            make_train_step(model)(x, oh)
+        with cs.recording(spec) as evals:
+            make_eval_step(model)(x, torch.zeros(256, dtype=torch.int64, device="meta"))
+        assert fused_dwconv_int8.dwconv_max is real
+        assert set(train["K4"]) == path and set(evals["K4"]) <= path
+        per_train, per_eval = cs.EXPECTED_PER_STEP[
+            ("mnv2pc" if per_channel else "mnv2", 256, "matmul_only")]
+        assert sum(train["K4"].values()) == per_train["K4"] == 31
+        assert sum(evals["K4"].values()) == per_eval["K4"] == 14
+        assert set(train["pc"]) | set(evals["pc"]) == ({True} if per_channel else {None})
 
 
 @pytest.mark.parametrize("per_channel", [False, True])

@@ -22,28 +22,28 @@
 //   int32 <<, the per-channel depthwise exponents' alignment.
 //
 // No channel contraction, so no tensor-core work: KH*KW multiply-adds of
-// int8 operands per output on the CUDA cores. NHWC keeps channels
-// contiguous, so a thread takes 4 channels in one 32-bit word (C % 4 == 0;
-// a byte-wise instance takes the rest) and neighbouring threads neighbouring
-// words of one output row: each load of a warp covers 128 contiguous bytes,
-// and so does each phase-2 store. For 3x3, the only kernel size of the
-// MobileNets, a thread walks a run of up to kRows output rows of one column
-// with its 3x3 window in registers: each output row loads one new input row
-// of 3 words (the next one in flight while the current one is multiplied),
-// and 6 PRMT turn them into one word per channel holding that row's 3
-// horizontal taps, so a row of the window costs one IDP4A per channel (3 an
-// output, not 9). The three window rows rotate through the registers, never
-// copied. Columns and pads are resolved once per thread and rows by a cursor,
-// with no division per element; the grid is flat over (image, row run,
-// column, channel word), so a block spans images at small maps and every
-// block has 256 threads of work. With a dilation the columns are ordered by
-// class (ow mod dw), so a warp's threads share which columns are inserted
-// zeros and skip those loads together, and a block which rows are (their
-// IDP4A skipped too). Phase 1
-// ends in one launch: per-block maxima and a last-block reduction. Every
-// other kernel size, as the JAX kernel takes any, goes to one untiled
-// instance that reads its taps through the cache. The epilogues are K2's and
-// K3's (niti_epilogue.cuh), unchanged.
+// int8 operands per output on the CUDA cores. Every depthwise layer of the
+// MobileNets is 3x3 with C % 4 == 0, and it has an instance of its own. NHWC
+// keeps channels contiguous, so there a thread takes 4 channels in one
+// 32-bit word and neighbouring threads neighbouring words of one output row:
+// each load of a warp covers 128 contiguous bytes, and so does each phase-2
+// store. A thread walks a run of up to kRows output rows of one column with
+// its 3x3 window in registers: each output row loads one new input row of 3
+// words (the next one in flight while the current one is multiplied), and 6
+// PRMT turn them into one word per channel holding that row's 3 horizontal
+// taps, so a row of the window costs one IDP4A per channel (3 an output, not
+// 9). The three window rows rotate through the registers, never copied.
+// Columns and pads are resolved once per thread and rows by a cursor, with
+// no division per element; the grid is flat over (image, row run, column,
+// channel word), so a block spans images at small maps and every block has
+// 256 threads of work. With a dilation the columns are ordered by class (ow
+// mod dw), so a warp's threads share which columns are inserted zeros and
+// skip those loads together, and a block which rows are (their IDP4A skipped
+// too). Phase 1 ends in one launch: per-block maxima and a last-block
+// reduction. Every other input (another kernel size, as the JAX kernel takes
+// any, C % 4 != 0 or an unaligned pointer) goes to one untiled instance, a
+// thread an output byte, that reads its taps through the cache. The
+// epilogues are K2's and K3's (niti_epilogue.cuh), unchanged.
 //
 // Bound, at (256, 32, 32, 144) stride 1, 37.7 M outputs: a phase reads 37.7
 // MB (11.3 us at 3.35 TB/s); per output, phase 1 runs 3 IDP4A, the shift,
@@ -81,15 +81,6 @@ __device__ __forceinline__ void floor_div(int s, int d, int& q, int& m) {
   m = s - q * d;
 }
 
-// One channel word: 4 bytes as loaded (V = 4), or one sign-extended byte.
-template <int V>
-__device__ __forceinline__ unsigned load_word(const int8_t* p) {
-  if constexpr (V == 4)
-    return __ldg(reinterpret_cast<const unsigned*>(p));
-  else
-    return static_cast<unsigned>(static_cast<int>(__ldg(p)));
-}
-
 // The weight word of tap t (w read rotated by 180 degrees if a.rot) for
 // channel word cw of 4 channels.
 __device__ __forceinline__ unsigned tap_word(const DwArgs& a, int t, int cw) {
@@ -97,31 +88,8 @@ __device__ __forceinline__ unsigned tap_word(const DwArgs& a, int t, int cw) {
   return __ldg(reinterpret_cast<const unsigned*>(a.w + static_cast<long long>(t) * a.C) + cw);
 }
 
-// The weights of tap t for the thread's channels: V = 4 keeps channel c's
-// byte in place and zeroes the others, the operand of one IDP4A.
-template <int V>
-__device__ __forceinline__ void load_tap(const DwArgs& a, int t, int cw, int (&wm)[V]) {
-  if constexpr (V == 4) {
-    const unsigned w32 = tap_word(a, t, cw);
-#pragma unroll
-    for (int c = 0; c < 4; ++c) wm[c] = static_cast<int>(w32 & (0xffu << (8 * c)));
-  } else {
-    wm[0] = __ldg(a.w + static_cast<long long>(a.rot ? a.KH * a.KW - 1 - t : t) * a.C + cw);
-  }
-}
-
-template <int V>
-__device__ __forceinline__ void mac(int (&acc)[V], unsigned xw, const int (&wm)[V]) {
-  if constexpr (V == 4) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[c] = __dp4a(static_cast<int>(xw), wm[c], acc[c]);
-  } else {
-    acc[0] += static_cast<int>(xw) * wm[0];
-  }
-}
-
-// The shared tail of an output word: the per-channel shift, then phase 1's
-// max or phase 2's requant and one V-byte store.
+// The shared tail of an output of V channels: the per-channel shift, then
+// phase 1's max or phase 2's requant and one V-byte store.
 template <int V, int kMode>
 __device__ __forceinline__ void epilogue(const int (&acc)[V], const int (&sh)[V], int shift,
                                          int& local, int8_t* y) {
@@ -155,14 +123,15 @@ struct RowCursor {
   int q, m;
 };
 
-template <int V, bool kDil>
+template <bool kDil>
 __device__ __forceinline__ bool next_row(const DwArgs& a, const int8_t* xb, RowCursor& cur,
                                          const int (&coff)[3], const bool (&cv)[3],
                                          unsigned (&dst)[3]) {
   const bool valid = cur.q >= 0 && cur.q < a.H && (!kDil || cur.m == 0);
   const int8_t* row = xb + static_cast<long long>(cur.q) * a.W * a.C;
 #pragma unroll
-  for (int dx = 0; dx < 3; ++dx) dst[dx] = valid && cv[dx] ? load_word<V>(row + coff[dx]) : 0u;
+  for (int dx = 0; dx < 3; ++dx)
+    dst[dx] = valid && cv[dx] ? __ldg(reinterpret_cast<const unsigned*>(row + coff[dx])) : 0u;
   if (kDil) {
     if (++cur.m == a.dh) {
       cur.m = 0;
@@ -219,18 +188,15 @@ __device__ __forceinline__ void transpose_row(const unsigned (&cols)[3], unsigne
 }
 
 // kMode: 0 = phase 1 (max), 1 = phase 2 forward, 2 = phase 2 gradient.
-// V = 4 keeps a row of the window as 4 words, one per channel, each holding
-// the row's 3 horizontal taps, and a row costs one IDP4A per channel; V = 1
-// keeps a row as its 3 sign-extended bytes, a tap one IMAD.
-template <int V, bool kDil, int kMode>
+// A row of the window is kept as 4 words, one per channel, each holding the
+// row's 3 horizontal taps.
+template <bool kDil, int kMode>
 __global__ void __launch_bounds__(kThreads)
     dw3x3_kernel(DwArgs a, const int* shift_ptr, int* out_max, int8_t* y) {
-  constexpr bool kPacked = V == 4;
-  constexpr int kRowWords = kPacked ? 4 : 3;
   const unsigned gid = blockIdx.x * kThreads + threadIdx.x;
   int local = INT_MIN;
   if (gid < a.items) {  // 32-bit index math: a 64-bit division is a long subroutine
-    const unsigned cw_n = a.C / V;
+    const unsigned cw_n = a.C / 4;
     const int cw = static_cast<int>(gid % cw_n);
     unsigned rest = gid / cw_n;
     int j = static_cast<int>(rest % static_cast<unsigned>(a.OW));
@@ -255,25 +221,19 @@ __global__ void __launch_bounds__(kThreads)
       int q = ow + dx - a.pl, m = 0;
       if (kDil) floor_div(q, a.dw, q, m);
       cv[dx] = q >= 0 && q < a.W && m == 0;
-      coff[dx] = cv[dx] ? q * a.C + cw * V : 0;
+      coff[dx] = cv[dx] ? q * a.C + cw * 4 : 0;
     }
-    int wm[kPacked ? 1 : 9][V];  // V = 1: the 9 taps
-    unsigned wrow[3][4];          // V = 4: row dy's 3 taps of channel c, byte 3 zero
-    if constexpr (kPacked) {
+    unsigned wrow[3][4];  // row dy's 3 taps of channel c, byte 3 zero
 #pragma unroll
-      for (int dy = 0; dy < 3; ++dy) {
-        const unsigned taps[3] = {tap_word(a, dy * 3, cw), tap_word(a, dy * 3 + 1, cw),
-                                  tap_word(a, dy * 3 + 2, cw)};
-        transpose_row(taps, wrow[dy]);
+    for (int dy = 0; dy < 3; ++dy) {
+      const unsigned taps[3] = {tap_word(a, dy * 3, cw), tap_word(a, dy * 3 + 1, cw),
+                                tap_word(a, dy * 3 + 2, cw)};
+      transpose_row(taps, wrow[dy]);
 #pragma unroll
-        for (int c = 0; c < 4; ++c) wrow[dy][c] &= 0x00ffffffu;
-      }
-    } else {
-#pragma unroll
-      for (int t = 0; t < 9; ++t) load_tap<V>(a, t, cw, wm[t]);
+      for (int c = 0; c < 4; ++c) wrow[dy][c] &= 0x00ffffffu;
     }
-    int sh[V];
-    load_shifts<V>(a, cw, sh);
+    int sh[4];
+    load_shifts<4>(a, cw, sh);
     const int shift = kMode == 0 ? 0 : __ldg(shift_ptr);
 
     const int oh0 = rb * a.rows, oh1 = min(oh0 + a.rows, a.OH);
@@ -282,56 +242,39 @@ __global__ void __launch_bounds__(kThreads)
     cur.q = oh0 - a.pt;
     cur.m = 0;
     if (kDil) floor_div(oh0 - a.pt, a.dh, cur.q, cur.m);
-    auto fetch = [&](unsigned (&dst)[kRowWords]) {
+    auto fetch = [&](unsigned (&dst)[4]) {
       unsigned cols[3];
-      const bool valid = next_row<V, kDil>(a, xb, cur, coff, cv, cols);
-      if constexpr (kPacked) {
-        transpose_row(cols, dst);
-      } else {
-#pragma unroll
-        for (int dx = 0; dx < 3; ++dx) dst[dx] = cols[dx];
-      }
+      const bool valid = next_row<kDil>(a, xb, cur, coff, cv, cols);
+      transpose_row(cols, dst);
       return valid;
     };
-    unsigned r0[kRowWords], r1[kRowWords], r2[kRowWords];
+    unsigned r0[4], r1[4], r2[4];
     bool v0 = fetch(r0), v1 = fetch(r1), v2 = fetch(r2);
-    int8_t* yrow = y + ((static_cast<long long>(b) * a.OH + oh0) * a.OW + ow) * a.C + cw * V;
+    int8_t* yrow = y + ((static_cast<long long>(b) * a.OH + oh0) * a.OW + ow) * a.C + cw * 4;
     const long long ystep = static_cast<long long>(a.OW) * a.C;
 
     // One output row from the window (top, mid, bot); then the next input
     // row, loaded before the multiply-adds, takes top's registers. Called
     // with the three rows rotated, so the window never moves.
     int oh = oh0;
-    auto step = [&](unsigned (&top)[kRowWords], unsigned (&mid)[kRowWords],
-                    unsigned (&bot)[kRowWords], bool& vt, bool vm, bool vb) {
+    auto step = [&](unsigned (&top)[4], unsigned (&mid)[4], unsigned (&bot)[4], bool& vt,
+                    bool vm, bool vb) {
       unsigned cols[3] = {0u, 0u, 0u};
       bool nv = false;
-      if (oh + 1 < oh1) nv = next_row<V, kDil>(a, xb, cur, coff, cv, cols);
-      int acc[V];
+      if (oh + 1 < oh1) nv = next_row<kDil>(a, xb, cur, coff, cv, cols);
+      int acc[4] = {0, 0, 0, 0};
+      auto row_mac = [&](const unsigned (&r)[4], int dy) {
 #pragma unroll
-      for (int c = 0; c < V; ++c) acc[c] = 0;
-      auto row_mac = [&](const unsigned (&r)[kRowWords], int dy) {
-        if constexpr (kPacked) {
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-            acc[c] = __dp4a(static_cast<int>(r[c]), static_cast<int>(wrow[dy][c]), acc[c]);
-        } else {
-#pragma unroll
-          for (int dx = 0; dx < 3; ++dx) mac<V>(acc, r[dx], wm[dy * 3 + dx]);
-        }
+        for (int c = 0; c < 4; ++c)
+          acc[c] = __dp4a(static_cast<int>(r[c]), static_cast<int>(wrow[dy][c]), acc[c]);
       };
       // an inserted zero row (kDil) is skipped: uniform across the block
       if (!kDil || vt) row_mac(top, 0);
       if (!kDil || vm) row_mac(mid, 1);
       if (!kDil || vb) row_mac(bot, 2);
-      epilogue<V, kMode>(acc, sh, shift, local, yrow);
+      epilogue<4, kMode>(acc, sh, shift, local, yrow);
       yrow += ystep;
-      if constexpr (kPacked) {
-        transpose_row(cols, top);
-      } else {
-#pragma unroll
-        for (int dx = 0; dx < 3; ++dx) top[dx] = cols[dx];
-      }
+      transpose_row(cols, top);
       vt = nv;
       ++oh;
     };
@@ -346,25 +289,23 @@ __global__ void __launch_bounds__(kThreads)
   if (kMode == 0) block_max_last(local, a.partials, a.ticket, out_max);
 }
 
-// Any kernel size: one thread per output word, the taps read through the
+// Every other input: one thread per output byte, the taps read through the
 // cache with their bounds and dilation tested per tap.
-template <int V, int kMode>
+template <int kMode>
 __global__ void __launch_bounds__(kThreads)
     dw_any_kernel(DwArgs a, const int* shift_ptr, int* out_max, int8_t* y) {
   const unsigned gid = blockIdx.x * kThreads + threadIdx.x;
   int local = INT_MIN;
   if (gid < a.items) {
-    const unsigned cw_n = a.C / V;
-    const int cw = static_cast<int>(gid % cw_n);
-    unsigned rest = gid / cw_n;
+    const int c = static_cast<int>(gid % static_cast<unsigned>(a.C));
+    unsigned rest = gid / static_cast<unsigned>(a.C);
     const int ow = static_cast<int>(rest % static_cast<unsigned>(a.OW));
     rest /= static_cast<unsigned>(a.OW);
     const int oh = static_cast<int>(rest % static_cast<unsigned>(a.OH));
     const int b = static_cast<int>(rest / static_cast<unsigned>(a.OH));
-    const int8_t* xb = a.x + static_cast<long long>(b) * a.H * a.W * a.C + cw * V;
-    int acc[V];
-#pragma unroll
-    for (int c = 0; c < V; ++c) acc[c] = 0;
+    const int8_t* xb = a.x + static_cast<long long>(b) * a.H * a.W * a.C + c;
+    const int taps = a.KH * a.KW;
+    int acc[1] = {0};
     for (int ty = 0; ty < a.KH; ++ty) {
       int q = oh + ty - a.pt, m;
       floor_div(q, a.dh, q, m);
@@ -373,39 +314,30 @@ __global__ void __launch_bounds__(kThreads)
         int p = ow + tx - a.pl, n;
         floor_div(p, a.dw, p, n);
         if (p < 0 || p >= a.W || n != 0) continue;
-        int wm[V];
-        load_tap<V>(a, ty * a.KW + tx, cw, wm);
-        mac<V>(acc, load_word<V>(xb + (static_cast<long long>(q) * a.W + p) * a.C), wm);
+        const int t = a.rot ? taps - 1 - (ty * a.KW + tx) : ty * a.KW + tx;
+        acc[0] += static_cast<int>(__ldg(xb + (static_cast<long long>(q) * a.W + p) * a.C)) *
+                  static_cast<int>(__ldg(a.w + static_cast<long long>(t) * a.C + c));
       }
     }
-    int sh[V];
-    load_shifts<V>(a, cw, sh);
+    int sh[1];
+    load_shifts<1>(a, c, sh);
     const int shift = kMode == 0 ? 0 : __ldg(shift_ptr);
-    epilogue<V, kMode>(acc, sh, shift, local,
-                       y + ((static_cast<long long>(b) * a.OH + oh) * a.OW + ow) * a.C + cw * V);
+    epilogue<1, kMode>(acc, sh, shift, local,
+                       y + ((static_cast<long long>(b) * a.OH + oh) * a.OW + ow) * a.C + c);
   }
   if (kMode == 0) block_max_last(local, a.partials, a.ticket, out_max);
 }
 
-template <int V, int kMode>
-void launch_v(const DwArgs& a, bool tiled, bool dil, const int* shift, int* out_max, int8_t* y,
-              cudaStream_t st) {
+template <int kMode>
+void launch_mode(const DwArgs& a, bool tiled, bool dil, const int* shift, int* out_max,
+                 int8_t* y, cudaStream_t st) {
   const unsigned grid = (a.items + kThreads - 1) / kThreads;
   if (!tiled)
-    dw_any_kernel<V, kMode><<<grid, kThreads, 0, st>>>(a, shift, out_max, y);
+    dw_any_kernel<kMode><<<grid, kThreads, 0, st>>>(a, shift, out_max, y);
   else if (dil)
-    dw3x3_kernel<V, true, kMode><<<grid, kThreads, 0, st>>>(a, shift, out_max, y);
+    dw3x3_kernel<true, kMode><<<grid, kThreads, 0, st>>>(a, shift, out_max, y);
   else
-    dw3x3_kernel<V, false, kMode><<<grid, kThreads, 0, st>>>(a, shift, out_max, y);
-}
-
-template <int kMode>
-void launch_mode(const DwArgs& a, bool vec, bool tiled, bool dil, const int* shift, int* out_max,
-                 int8_t* y, cudaStream_t st) {
-  if (vec)
-    launch_v<4, kMode>(a, tiled, dil, shift, out_max, y, st);
-  else
-    launch_v<1, kMode>(a, tiled, dil, shift, out_max, y, st);
+    dw3x3_kernel<false, kMode><<<grid, kThreads, 0, st>>>(a, shift, out_max, y);
 }
 
 // Returns cudaGetLastError().
@@ -432,11 +364,10 @@ int launch(const void* x, const void* w, const void* pc, int B, int H, int W, in
   a.OH = OH;
   a.OW = OW;
   a.rot = rot;
-  const bool tiled = KH == 3 && KW == 3;
-  const bool vec = C % 4 == 0 &&
-                   ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
-                     reinterpret_cast<uintptr_t>(y)) & 3u) == 0;
-  const int words = vec ? C / 4 : C;
+  const bool tiled = KH == 3 && KW == 3 && C % 4 == 0 &&
+                     ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
+                       reinterpret_cast<uintptr_t>(y)) & 3u) == 0;
+  const int words = tiled ? C / 4 : C;
   a.rows = tiled ? min(OH, kRows) : 1;
   a.row_blocks = (OH + a.rows - 1) / a.rows;
   a.items = static_cast<unsigned>(B) * a.row_blocks * OW * words;
@@ -446,11 +377,11 @@ int launch(const void* x, const void* w, const void* pc, int B, int H, int W, in
   int8_t* yp = static_cast<int8_t*>(y);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (mode == 0) {
-    launch_mode<0>(a, vec, tiled, dil, sp, mp, yp, st);
+    launch_mode<0>(a, tiled, dil, sp, mp, yp, st);
   } else if (mode == 1) {
-    launch_mode<1>(a, vec, tiled, dil, sp, mp, yp, st);
+    launch_mode<1>(a, tiled, dil, sp, mp, yp, st);
   } else {
-    launch_mode<2>(a, vec, tiled, dil, sp, mp, yp, st);
+    launch_mode<2>(a, tiled, dil, sp, mp, yp, st);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -207,9 +207,7 @@ def dwconv2d_input_grad(
                                   rot180=True)
         if fused is not None:
             return fused[0]
-    acc = _dw_acc_taps(_dilate_hw(gy, *stride), torch.flip(w, dims=(0, 1)), (1, 1), pad)
-    if pc_shift is not None:
-        acc = acc << pc_shift
+    acc = _fdw.dwconv_shifted_acc_plain(gy, w, pad, tuple(stride), pc_shift, rot180=True)
     bw = numerics.range_estimate_from_max(numerics.abs_max(acc))
     out, _ = numerics.requant_forward_from_bw(acc, torch.zeros_like(bw), bw)
     return out

@@ -23,11 +23,12 @@ alignment). With the defaults it is the TPU kernels' function on a
 pre-padded x.
 
 No channel contraction, so no tensor-core work: KH*KW multiply-adds of int8
-operands into int32 per output on the CUDA cores, four channels a thread in
-a 32-bit word (a byte-wise instance for C % 4 != 0). The 3x3 instance (every
-depthwise layer of the MobileNets) walks a run of output rows per thread
-with its window in registers, a row's 3 taps of a channel in one IDP4A; one
-untiled instance takes every other kernel size, as the JAX kernel does.
+operands into int32 per output on the CUDA cores. The 3x3 instance for
+C % 4 == 0 (every depthwise layer of the MobileNets) takes four channels a
+thread in a 32-bit word and walks a run of output rows per thread with its
+window in registers, a row's 3 taps of a channel in one IDP4A; one untiled,
+byte-wise instance takes every other input (any kernel size, as the JAX
+kernel does, and any C).
 Bound on an H100 at the MobileNetV2 shapes: phase 1 by bytes and integer
 instructions alike, phase 2 by the psto epilogue's integer instructions on
 the CUDA cores (see the CUDA source).

@@ -199,8 +199,8 @@ def test_fused_dwconv_kernels_match_plain(gen, xp_shape, k):
     ((2, 8, 8, 576), (3, 3), ((1, 1), (1, 1)), (1, 1)),      # 8x8
     ((5, 4, 4, 960), (3, 3), ((1, 1), (1, 1)), (1, 1)),      # 4x4
     ((2, 13, 11, 20), (3, 3), ((1, 1), (1, 1)), (1, 1)),     # C % 4 = 0 only; 13 rows
-    ((2, 19, 9, 33), (3, 3), ((0, 1), (1, 0)), (1, 1)),      # ragged C; 18 rows
-    ((3, 9, 10, 7), (3, 3), ((1, 1), (1, 1)), (1, 1)),       # ragged C 7
+    ((2, 19, 9, 33), (3, 3), ((0, 1), (1, 0)), (1, 1)),      # ragged C: untiled; 18 rows
+    ((3, 9, 10, 7), (3, 3), ((1, 1), (1, 1)), (1, 1)),       # ragged C 7: untiled
     ((2, 16, 16, 144), (3, 3), ((2, 1), (2, 1)), (2, 2)),    # stride-2 input grad to 32x32
     ((2, 4, 4, 576), (3, 3), ((2, 1), (2, 1)), (2, 2)),      # stride-2 input grad to 8x8
     ((2, 5, 7, 33), (3, 3), ((1, 2), (0, 1)), (2, 2)),       # ragged C, dilation 2

@@ -121,16 +121,11 @@ def recipe_margins(dense: int = 0, dw: int = 0):
         set_dw_fgrad_margin(saved[1])
 
 
-def _dw_acc_taps(x: torch.Tensor, w: torch.Tensor, stride: Tuple[int, int],
-                 pad: Pads) -> torch.Tensor:
-    return _fdw.dwconv_acc_plain(pad_hw(x, pad), w, stride)
-
-
 def dwconv2d_int8_acc(x: torch.Tensor, w: torch.Tensor,
                       stride: Sequence[int] = (1, 1), padding="SAME") -> torch.Tensor:
     """int8 NHWC x, (KH, KW, 1, C) w -> int32 depthwise accumulator."""
     pad = resolve_padding(padding, w.shape[:2], stride, x.shape[1:3])
-    return _dw_acc_taps(x, w, tuple(stride), pad)
+    return _fdw.dwconv_acc_plain(pad_hw(x, pad), w, tuple(stride))
 
 
 def _fused_dw_requant(x: torch.Tensor, w: torch.Tensor, pad: Pads,

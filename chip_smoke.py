@@ -23,10 +23,12 @@ raises on failure (the script then exits non-zero and prints no result):
    shapes and at ragged ones (K4 at each channel class, C % 16 = 0, C % 4 =
    0 only and ragged, each map class, a row count that is not a multiple of
    a thread's run of rows, dilation 2, shifts 0..12 on all -128 operands,
-   and kernel sizes other than 3x3); K5 (fused_dwconv_fgrad) at the 7 stride-1 depthwise
-   filter-grad shapes of that step, the JAX test shape, ragged C, 5x5 and
-   3x1 kernels and a case whose sums wrap past 2^31; kernel, plain, library
-   and bound times;
+   and kernel sizes other than 3x3); K5 (fused_dwconv_fgrad) at the 10
+   depthwise filter-grad shapes of that step (x unpadded with its pads; 7 at
+   stride 1, 3 at stride 2), the JAX test shape, ragged C, strides on ragged
+   C and odd maps, 5x5 and 3x1 kernels and cases whose sums wrap past 2^31 at
+   strides 1 and 2, each called twice (the second call equal to the first);
+   kernel, plain, library and bound times;
 4. LeNet's main path at batch 64: `train_niti` on the card with the kernels,
    launch counts reset just before and read just after; then the same steps
    from the same params with the plain versions on the card and on the CPU.
@@ -202,37 +204,50 @@ K4_CASES = K4_PATH_CASES + [
     ("C 40, 3x1", (2, 12, 40, 40), (3, 1), ((1, 1), (0, 0)), (1, 1)),
     K4_SATURATED,
 ]
-# K5: (what, pre-padded xp shape, kernel size); gy is xp's VALID stride-1
-# output. K5_PATH_CASES are the stride-1 depthwise filter grads of a
-# batch-256 MobileNetV2 train step (K4's stride-1 shapes, padded), recorded
-# and held to this list; then the JAX package's test shape, ragged C, kernel
-# sizes other than 3x3 (the untiled instance) and a case whose sums wrap
-# past 2^31 (all -128: 147456 products of 2^14 per channel).
+# K5: (what, x shape, kernel size, pads, stride); x is read unpadded with its
+# pads, and gy is the VALID strided output of the padded x. K5_PATH_CASES
+# are the depthwise filter grads of a batch-256 MobileNetV2 train step,
+# per-tensor and under the recipe alike (the 7 stride-1 shapes at SAME pads;
+# the 3 stride-2 layers at their SAME pads (0, 1)), recorded and held to
+# this list; then the JAX package's test shape, ragged C, kernel sizes other
+# than 3x3 (the untiled instance), strides on ragged C and on odd maps, and
+# cases whose sums wrap past 2^31 (all -128 and no pads: 147456 products of
+# 2^14 per channel), at stride 1 (untiled, C 33) and 2 (packed, C 36).
+S2_SAME = ((0, 1), (0, 1))
 K5_PATH_CASES = [
-    ("MNv2 b256 32ch 32x32", (256, 34, 34, 32), (3, 3)),
-    ("MNv2 b256 96ch 32x32", (256, 34, 34, 96), (3, 3)),
-    ("MNv2 b256 144ch 32x32", (256, 34, 34, 144), (3, 3)),
-    ("MNv2 b256 192ch 16x16", (256, 18, 18, 192), (3, 3)),
-    ("MNv2 b256 384ch 8x8", (256, 10, 10, 384), (3, 3)),
-    ("MNv2 b256 576ch 8x8", (256, 10, 10, 576), (3, 3)),
-    ("MNv2 b256 960ch 4x4", (256, 6, 6, 960), (3, 3)),
+    ("MNv2 b256 32ch 32x32", (256, 32, 32, 32), (3, 3), SAME3, (1, 1)),
+    ("MNv2 b256 96ch 32x32", (256, 32, 32, 96), (3, 3), SAME3, (1, 1)),
+    ("MNv2 b256 144ch 32x32", (256, 32, 32, 144), (3, 3), SAME3, (1, 1)),
+    ("MNv2 b256 192ch 16x16", (256, 16, 16, 192), (3, 3), SAME3, (1, 1)),
+    ("MNv2 b256 384ch 8x8", (256, 8, 8, 384), (3, 3), SAME3, (1, 1)),
+    ("MNv2 b256 576ch 8x8", (256, 8, 8, 576), (3, 3), SAME3, (1, 1)),
+    ("MNv2 b256 960ch 4x4", (256, 4, 4, 960), (3, 3), SAME3, (1, 1)),
+    ("MNv2 b256 144ch s2 32x32 to 16x16", (256, 32, 32, 144), (3, 3), S2_SAME, (2, 2)),
+    ("MNv2 b256 192ch s2 16x16 to 8x8", (256, 16, 16, 192), (3, 3), S2_SAME, (2, 2)),
+    ("MNv2 b256 576ch s2 8x8 to 4x4", (256, 8, 8, 576), (3, 3), S2_SAME, (2, 2)),
 ]
-K5_WRAP_CASE = ("wraps: all -128, 147456 products", (9, 130, 130, 33), (3, 3))
+K5_WRAP_CASES = [
+    ("wraps: all -128, 147456 products", (9, 130, 130, 33), (3, 3), ((0, 0), (0, 0)), (1, 1)),
+    ("wraps at stride 2: all -128, 147456 products", (9, 257, 257, 36), (3, 3),
+     ((0, 0), (0, 0)), (2, 2)),
+]
 K5_CASES = K5_PATH_CASES + [
-    ("JAX test (4,16,16,24)", (4, 18, 18, 24), (3, 3)),
-    ("ragged C 33, 43 columns", (3, 11, 45, 33), (3, 3)),
-    ("ragged C 7", (5, 12, 12, 7), (3, 3)),
-    ("C 24, 5x5", (2, 13, 13, 24), (5, 5)),
-    ("C 40, 3x1", (2, 12, 40, 40), (3, 1)),
-    K5_WRAP_CASE,
-]
+    ("JAX test (4,16,16,24)", (4, 16, 16, 24), (3, 3), SAME3, (1, 1)),
+    ("ragged C 33, 43 columns", (3, 9, 43, 33), (3, 3), SAME3, (1, 1)),
+    ("ragged C 7", (5, 10, 10, 7), (3, 3), SAME3, (1, 1)),
+    ("C 20, s2 pads (0, 1), 15x13", (3, 15, 13, 20), (3, 3), S2_SAME, (2, 2)),
+    ("ragged C 33, s2 pads (1, 1), 17x19", (2, 17, 19, 33), (3, 3), SAME3, (2, 2)),
+    ("C 24, 5x5", (2, 9, 9, 24), (5, 5), ((2, 2), (2, 2)), (1, 1)),
+    ("C 40, 3x1", (2, 10, 40, 40), (3, 1), ((1, 1), (0, 0)), (1, 1)),
+] + K5_WRAP_CASES
+K5_PATH_KEYS = {(xs, k, pads, stride) for _, xs, k, pads, stride in K5_PATH_CASES}
 
 # Kernel launches of one train step and of one eval step on each main path,
 # per kernel family (K2, K3 and K4 count each of their two phases): the
 # routes the `supports` rules give (the JAX package's, unchanged), the same
 # as the JAX package's Pallas backend takes for K1-K4. K5 takes every
-# stride-1 depthwise filter grad (14 of 17 per MobileNetV2 train step), a
-# route the JAX package has but does not take. "mnv2pc" is the r5 recipe
+# depthwise filter grad (17 per MobileNetV2 train step, 3 of them at stride
+# 2), where the JAX package computes them outside Pallas with the same bytes. "mnv2pc" is the r5 recipe
 # (per-channel depthwise exponents, margins 0/0; `MobilenetV2Train`, batch
 # 16 on synthetic data), whose per-channel depthwise forms take K4 where
 # their per-tensor twins do (with their alignment shifts as K4's operand).
@@ -240,17 +255,17 @@ EXPECTED_PER_STEP = {
     ("lenet", 64, "matmul_only"): ({"K1": 11}, {"K1": 4}),
     ("lenet", 2048, "matmul_only"): ({"K1": 10, "K2": 1}, {"K1": 4}),
     ("lenet", 64, "all"): ({"K1": 8, "K3": 3}, {"K1": 2, "K3": 2}),
-    ("mnv2", 256, "matmul_only"): ({"K1": 65, "K2": 42, "K4": 31, "K5": 14},
+    ("mnv2", 256, "matmul_only"): ({"K1": 65, "K2": 42, "K4": 31, "K5": 17},
                                    {"K1": 15, "K2": 21, "K4": 14}),
-    ("mnv2", 32, "matmul_only"): ({"K1": 81, "K2": 26, "K4": 31, "K5": 14},
+    ("mnv2", 32, "matmul_only"): ({"K1": 81, "K2": 26, "K4": 31, "K5": 17},
                                   {"K1": 23, "K2": 13, "K4": 14}),
-    ("mnv2", 256, "all"): ({"K1": 64, "K2": 42, "K3": 1, "K4": 31, "K5": 14},
+    ("mnv2", 256, "all"): ({"K1": 64, "K2": 42, "K3": 1, "K4": 31, "K5": 17},
                            {"K1": 14, "K2": 21, "K3": 1, "K4": 14}),
-    ("mnv2pc", 256, "matmul_only"): ({"K1": 65, "K2": 42, "K4": 31, "K5": 14},
+    ("mnv2pc", 256, "matmul_only"): ({"K1": 65, "K2": 42, "K4": 31, "K5": 17},
                                      {"K1": 15, "K2": 21, "K4": 14}),
-    ("mnv2pc", 32, "matmul_only"): ({"K1": 81, "K2": 26, "K4": 31, "K5": 14},
+    ("mnv2pc", 32, "matmul_only"): ({"K1": 81, "K2": 26, "K4": 31, "K5": 17},
                                     {"K1": 23, "K2": 13, "K4": 14}),
-    ("mnv2pc", 16, "matmul_only"): ({"K1": 95, "K2": 12, "K4": 31, "K5": 14},
+    ("mnv2pc", 16, "matmul_only"): ({"K1": 95, "K2": 12, "K4": 31, "K5": 17},
                                     {"K1": 30, "K2": 6, "K4": 14}),
 }
 FAMILIES = {"K1": ("matmul_int8",), "K2": ("fused_matmul_max", "fused_matmul_requant"),
@@ -313,9 +328,14 @@ def k4_key(x, w, pads=((0, 0), (0, 0)), dilation=(1, 1), **_):
     return (tuple(x.shape), (w.shape[0], w.shape[1]), tuple(map(tuple, pads)), tuple(dilation))
 
 
-def k5_key(xp, gy, kernel):
-    """(xp shape, kernel size) of a K5 call."""
-    return (tuple(xp.shape), tuple(kernel))
+def k5_key(x, gy, kernel, stride=(1, 1), pads=((0, 0), (0, 0)), **_):
+    """(x shape, kernel size, pads, stride) of a K5 call."""
+    return (tuple(x.shape), tuple(kernel), tuple(map(tuple, pads)), tuple(stride))
+
+
+def k5_row_key(row):
+    """The k5_key of a check_k5 row."""
+    return (row["x"], row["kernel"], row["pads"], row["stride"])
 
 
 RECORD_K1 = {"K1": (matmul_int8, "matmul_acc_cuda", k1_key)}
@@ -621,42 +641,59 @@ def check_k4(rates, mac_rate, int_rate, gen):
     return rows, worst
 
 
+def k5_valid_macs(x, gy, kernel, pads, stride) -> int:
+    """Multiply-adds of a K5 call that this run's data needs: the taps of
+    each gy element that land on x and not on a pad, over every channel."""
+    ones = lambda t: torch.ones((1,) + tuple(t.shape[1:3]) + (1,), dtype=torch.int8,  # noqa: E731
+                                device=t.device)
+    hits = fused_dwconv_int8.dwconv_fgrad_acc_plain(ones(x), ones(gy), kernel, stride, pads=pads)
+    return int(hits.sum()) * x.shape[0] * x.shape[3]
+
+
 def check_k5(rates, mac_rate, gen):
-    """K5 against its plain version, byte for byte, and its times, at every
-    case. Bound: bytes (xp + gy + the int32 output) against int8
-    multiply-adds at the CUDA cores' rate."""
+    """K5 against its plain version, byte for byte, at every case, with a
+    second call on the same operands equal to the first (the scratch and
+    tickets reset themselves); and its times. Bound: bytes (x unpadded, gy
+    and the int32 output, once each) against the int8 multiply-adds that land
+    on x, at the CUDA cores' IDP4A rate."""
     rows, worst = [], 0
-    for what, xps, (kh, kw) in K5_CASES:
-        b, hp, wp, c = xps
-        gys = (b, hp - kh + 1, wp - kw + 1, c)
-        wrap = (what, xps, (kh, kw)) == K5_WRAP_CASE
+    for case in K5_CASES:
+        what, xs, (kh, kw), pads, stride = case
+        b, _, _, c = xs
+        oh, ow = fused_dwconv_int8.fgrad_out_spatial(xs, (kh, kw), pads, stride)
+        gys = (b, oh, ow, c)
+        wrap = case in K5_WRAP_CASES
         if wrap:
-            xp = torch.full(xps, -128, dtype=torch.int8, device="cuda")
+            x = torch.full(xs, -128, dtype=torch.int8, device="cuda")
             gy = torch.full(gys, -128, dtype=torch.int8, device="cuda")
         else:
-            xp, gy = rand_int8(xps, gen), rand_int8(gys, gen)
-        got = fused_dwconv_int8.dwconv_fgrad_acc_cuda(xp, gy, (kh, kw))
-        err = max_abs_err(got, fused_dwconv_int8.dwconv_fgrad_acc_plain(xp, gy, (kh, kw)))
+            x, gy = rand_int8(xs, gen), rand_int8(gys, gen)
+        got = fused_dwconv_int8.dwconv_fgrad_acc_cuda(x, gy, (kh, kw), stride, pads=pads)
+        again = fused_dwconv_int8.dwconv_fgrad_acc_cuda(x, gy, (kh, kw), stride, pads=pads)
+        err = max(max_abs_err(got, fused_dwconv_int8.dwconv_fgrad_acc_plain(
+            x, gy, (kh, kw), stride, pads=pads)), max_abs_err(again, got))
         if err:
-            raise AssertionError(f"K5 {what} differs from plain by {err}")
-        products = b * gys[1] * gys[2]
+            raise AssertionError(f"K5 {what} differs from plain (or from its first call) by {err}")
+        products = b * oh * ow
         if wrap:
             wrapped = (products * 2**14 + 2**31) % 2**32 - 2**31
             if products * 2**14 < 2**31 or not bool((got == wrapped).all()):
                 raise AssertionError(f"K5 {what}: {got.flatten()[:3].tolist()} is not the "
                                      f"int32 wrap {wrapped} of {products} x 2^14")
         worst = max(worst, err)
-        macs = float(kh * kw * products * c)
-        nbytes = xp.numel() + gy.numel() + 4.0 * kh * kw * c
+        macs = float(k5_valid_macs(x, gy, (kh, kw), pads, stride))
+        nbytes = x.numel() + gy.numel() + 4.0 * kh * kw * c
         b_ms, b_by = bound(macs, nbytes, (mac_rate, rates[1]))
-        row = dict(what=what, xp=xps, kernel=(kh, kw), max_abs_err=err,
-                   ms=time_ms(lambda: fused_dwconv_int8.dwconv_fgrad_acc_cuda(xp, gy, (kh, kw))),
+        row = dict(what=what, x=xs, kernel=(kh, kw), pads=pads, stride=stride, max_abs_err=err,
+                   ms=time_ms(lambda: fused_dwconv_int8.dwconv_fgrad_acc_cuda(
+                       x, gy, (kh, kw), stride, pads=pads)),
                    plain_ms=time_ms(lambda: fused_dwconv_int8.dwconv_fgrad_acc_plain(
-                       xp, gy, (kh, kw)), launches=10, rounds=3),
+                       x, gy, (kh, kw), stride, pads=pads), launches=10, rounds=3),
                    bound_ms=b_ms, bound_by=b_by, macs=macs, bytes=nbytes)
         rows.append(row)
-        print(f"  K5 {what:32s} xp {xps} {kh}x{kw}: byte-equal | {row['ms']:.4f} ms (plain "
-              f"{row['plain_ms']:.4f}, bound {b_ms * 1e3:.2f} us {b_by})", flush=True)
+        print(f"  K5 {what:44s} x {xs} {kh}x{kw} pads {pads} stride {stride}: byte-equal | "
+              f"{row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, bound {b_ms * 1e3:.2f} us "
+              f"{b_by})", flush=True)
     return rows, worst
 
 
@@ -1064,7 +1101,7 @@ def main() -> int:
     k4_keys = {(xs, k, pads, dil) for _, xs, k, pads, dil in K4_PATH_CASES}
     k4_per_step = path_step_weights("K4", seen_mn, n_train, n_eval, seen_steps, k4_keys)
     k5_per_step = path_step_weights("K5", seen_mn, n_train, n_eval, seen_steps,
-                                    {(xps, k) for _, xps, k in K5_PATH_CASES})
+                                    K5_PATH_KEYS)
     k1_per_step = path_step_weights("K1", seen_mn, n_train, n_eval, seen_steps)
     k2_per_step = path_step_weights("K2", seen_mn, n_train, n_eval, seen_steps, K2_PATH_CASES)
     _, runs["mnv2_b32"], _ = main_path(
@@ -1117,7 +1154,7 @@ def main() -> int:
         k4_pc_per_step = path_step_weights("K4", seen_pc, n_train, n_eval, seen_pc_steps,
                                            k4_keys)
         path_step_weights("K5", seen_pc, n_train, n_eval, seen_pc_steps,
-                          {(xps, k) for _, xps, k in K5_PATH_CASES})
+                          K5_PATH_KEYS)
         _, runs["mnv2pc_b32"], _ = main_path(
             "mnv2pc b32", ("mnv2pc", 32, "matmul_only"), synthetic_cifar(32, seed=3),
             synthetic_cifar(32, seed=4), 1, recipe_start, [("cpu", "cuda")], model_fn=recipe_fn)
@@ -1264,10 +1301,18 @@ def main() -> int:
                   "launches_per_train_step"]) for r in k4_rows if r["launches_per_train_step"]},
               "library_note": "no PyTorch call computes an int8 depthwise conv on CUDA"}
          for ph in ("max", "requant")})
-    k5_step = {key: sum(k5_per_step.get((r["xp"], r["kernel"]), 0) * r[key] for r in k5_rows)
-               for key in ("ms", "plain_ms", "macs", "bytes")}
-    k5_step["bound_ms"], k5_step["bound_by"] = bound(k5_step["macs"], k5_step["bytes"],
-                                                     (mac_rate, rates[1]))
+    k5_parts = {}
+    for part, strides in (("all", {(1, 1), (2, 2)}), ("stride1", {(1, 1)}), ("stride2", {(2, 2)})):
+        sub = [r for r in k5_rows if r["stride"] in strides]
+        k5_parts[part] = {key: sum(k5_per_step.get(k5_row_key(r), 0) * r[key] for r in sub)
+                          for key in ("ms", "plain_ms", "macs", "bytes")}
+        k5_parts[part]["launches"] = sum(k5_per_step.get(k5_row_key(r), 0) for r in sub)
+        k5_parts[part]["bound_ms"], k5_parts[part]["bound_by"] = bound(
+            k5_parts[part]["macs"], k5_parts[part]["bytes"], (mac_rate, rates[1]))
+        print(f"  K5 over one MobileNetV2 b256 train step, {part} ({k5_parts[part]['launches']} "
+              f"launches): {k5_parts[part]['ms']:.4f} ms, plain {k5_parts[part]['plain_ms']:.4f}, "
+              f"bound {k5_parts[part]['bound_ms']:.4f} ({k5_parts[part]['bound_by']})", flush=True)
+    k5_step = k5_parts["all"]
     kernels_line["kernels"].append({
         "name": "fused_dwconv_fgrad", "route": "cuda",
         "source": "mandheling_tpu_torch/csrc/fused_dwconv_fgrad_int8.cu",
@@ -1279,8 +1324,9 @@ def main() -> int:
         "library_note": "no PyTorch call computes an int32 depthwise filter grad on CUDA",
         "shapes": f"the {sum(k5_per_step.values())} launches of one MobileNetV2 batch-256 "
                   "train step, as recorded; times are their sum",
+        "by_stride": {p: k5_parts[p] for p in ("stride1", "stride2")},
         "by_shape": {r["what"]: dict(r, launches_per_train_step=k5_per_step.get(
-            (r["xp"], r["kernel"]), 0)) for r in k5_rows}})
+            k5_row_key(r), 0)) for r in k5_rows}})
     for variant, source in (("int8", "fused_matmul_int8.cu"), ("bf16", "matmul_max_bf16.cu")):
         rows = [r for r in probe_rows if r["variant"] == variant]
         top = rows[-1]  # K = 256

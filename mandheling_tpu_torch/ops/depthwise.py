@@ -20,12 +20,13 @@ bw-7, filter grad at bw - margin, the shared code of ops/numerics.py.
   a shift). The strided forward runs the taps as plain torch ops on the
   tensor's device, as in the JAX package.
 - The filter grad is a sum over (b, oh, ow) of tap products; the int32 sum
-  wraps as XLA's does. Under the "cuda" backend every stride-1 one that
-  `supports_fgrad` takes runs through the filter-grad kernel K5
-  (``kernels/fused_dwconv_int8.dwconv_fgrad_acc``), in every fused mode, as
-  the int8 GEMM K1 follows the backend; the strided ones, and every one
-  under the "torch" backend, run the taps as plain torch ops (the JAX
-  package computes them all as a batch-grouped conv, outside Pallas).
+  wraps as XLA's does. Under the "cuda" backend every one that K5's
+  `fgrad_takes` takes, strided ones included, runs through the filter-grad
+  kernel K5 (``kernels/fused_dwconv_int8.dwconv_fgrad_acc``) with x
+  unpadded, its pads and the stride, in every fused mode, as the int8 GEMM
+  K1 follows the backend; every one under the "torch" backend runs the taps
+  as plain torch ops (the JAX package computes them all as a batch-grouped
+  conv, outside Pallas, with the same bytes).
 - A per-channel exponent vector (``nn/init.niti_xavier_int8_dw_per_channel``)
   is aligned to the smallest channel exponent by shifts capped by
   :func:`pc_shift_cap`.
@@ -214,15 +215,16 @@ def dwconv2d_filter_grad_acc(
 ) -> torch.Tensor:
     """int32 (KH, KW, 1, C) accumulator:
     dw[dy,dx,0,c] = sum_{b,oh,ow} xp[b, oh*s+dy, ow*s+dx, c] * gy[b,oh,ow,c].
-    Stride 1 under the "cuda" backend goes to K5 where `supports_fgrad`
-    takes the shape; the rest runs K5's plain taps, which keep the low 32
-    bits of int64 sums, as XLA's int32 accumulation wraps (b256 at 32x32 can
-    pass 2^31)."""
+    Under the "cuda" backend K5 takes it, x unpadded with its pads and the
+    stride, wherever `fgrad_takes` does; the rest, and everything under
+    "torch", runs K5's plain taps, which keep the low 32 bits of int64
+    sums, as XLA's int32 accumulation wraps (b256 at 32x32 can pass 2^31)."""
     kh, kw = kernel_spatial
-    xp = pad_hw(x, resolve_padding(padding, (kh, kw), stride, x.shape[1:3]))
-    if get_backend() == "cuda" and _fdw.supports_fgrad(xp.shape, gy.shape, (kh, kw), stride):
-        return _fdw.dwconv_fgrad_acc(xp, gy, (kh, kw))
-    return _fdw.dwconv_fgrad_acc_plain(xp, gy, (kh, kw), tuple(stride))
+    pads = resolve_padding(padding, (kh, kw), stride, x.shape[1:3])
+    stride = tuple(stride)
+    if get_backend() == "cuda" and _fdw.fgrad_takes(x.shape, gy.shape, (kh, kw), pads, stride):
+        return _fdw.dwconv_fgrad_acc(x, gy, (kh, kw), stride, pads=pads)
+    return _fdw.dwconv_fgrad_acc_plain(x, gy, (kh, kw), stride, pads=pads)
 
 
 def dwconv2d_filter_grad(

@@ -35,18 +35,26 @@ the CUDA cores (see the CUDA source).
 
 K5 (:func:`dwconv_fgrad_acc`) replaces the third TPU kernel here,
 ``_fgrad_kernel`` (``dwconv_fgrad_acc_pallas``): the int32 (KH, KW, 1, C)
-filter-grad accumulator of a stride-1 depthwise conv, from xp and the
-output diff gy (B, OH, OW, C) in one pass, wrapping modulo 2^32 as the TPU
-kernel's int32 sums do. No path of the JAX package routes that kernel; the
-port routes K5 for every stride-1 depthwise filter grad that
-:func:`supports_fgrad` takes, under the "cuda" backend
-(``ops/depthwise.py``). Bound: bytes (see the CUDA source).
+filter-grad accumulator of a depthwise conv from its input and output diff
+gy (B, OH, OW, C) in one launch, wrapping modulo 2^32 as the TPU kernel's
+int32 sums do. Like K4 it takes x unpadded with its `pads`, and also a
+stride, where the TPU kernel takes a pre-padded input at stride 1 only
+(:func:`supports_fgrad`, its rule, unchanged); :func:`fgrad_takes` says
+what K5 takes. No path of the JAX package routes that kernel (it computes
+every depthwise filter grad as a batch-grouped conv, the same bytes); the
+port routes every depthwise filter grad that K5 takes through it under the
+"cuda" backend, strided ones included (``ops/depthwise.py``). The 3x3
+instance for C % 4 == 0 at strides 1 and 2 takes four channels and four
+output columns a thread, one IDP4A per tap, channel and four columns, each
+x row read once; one untiled byte-wise instance takes every other input.
+Bound: bytes (see the CUDA source).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -90,13 +98,36 @@ def supports_fgrad(xp_shape, gy_shape, kernel, stride=(1, 1)) -> bool:
     return (hp * wp + 3 * oh * ow * 4) * _round_up(c, 128) <= _VMEM_BUDGET
 
 
+def fgrad_out_spatial(x_shape, kernel, pads: Pads = _NO_PADS, stride=(1, 1)) -> Tuple[int, int]:
+    """The VALID strided output (OH, OW) of x padded by `pads` under `kernel`."""
+    return tuple((n + lo + hi - k) // s + 1 if n + lo + hi >= k else 0
+                 for n, (lo, hi), k, s in zip(x_shape[1:3], pads, kernel, stride))
+
+
+def fgrad_takes(x_shape, gy_shape, kernel, pads: Pads = _NO_PADS, stride=(1, 1)) -> bool:
+    """What K5 takes: x (B, H, W, C) and gy (B, OH, OW, C) with pads >= 0,
+    any stride >= 1, gy within the VALID strided output of the padded x (the
+    filter grad's own gy is that output), and int32-indexable tensors."""
+    if len(x_shape) != 4 or len(gy_shape) != 4 or x_shape[0] != gy_shape[0] \
+            or x_shape[3] != gy_shape[3]:
+        return False
+    if min(min(pads[0]), min(pads[1])) < 0 or min(stride) < 1 or min(kernel) < 1:
+        return False
+    oh, ow = fgrad_out_spatial(x_shape, kernel, pads, stride)
+    if gy_shape[1] > oh or gy_shape[2] > ow:
+        return False
+    return math.prod(x_shape) < 2**31 and math.prod(gy_shape) < 2**31
+
+
 def dwconv_fgrad_acc_plain(xp: torch.Tensor, gy: torch.Tensor, kernel,
-                           stride=(1, 1)) -> torch.Tensor:
+                           stride=(1, 1), *, pads: Pads = _NO_PADS) -> torch.Tensor:
     """int32 (KH, KW, 1, C): sum over (b, oh, ow) of xp[b, oh*s+dy, ow*s+dx, c]
-    * gy[b, oh, ow, c]. torch sums the int32 products in int64; the low 32
+    * gy[b, oh, ow, c], with xp the input padded by `pads` (by default
+    none: xp as given). torch sums the int32 products in int64; the low 32
     bits are kept, as the TPU kernel's int32 sums (and XLA's) wrap."""
     kh, kw = kernel
     sh, sw = stride
+    xp = pad_hw(xp, pads)
     _, oh, ow, c = gy.shape
     g = gy.to(torch.int32)
     taps = [(xp[:, dy:dy + (oh - 1) * sh + 1:sh, dx:dx + (ow - 1) * sw + 1:sw, :]
@@ -262,44 +293,61 @@ def dwconv_requant(x: torch.Tensor, w: torch.Tensor, shift: torch.Tensor,
 def _fgrad_lib() -> ctypes.CDLL:
     lib = build.library("fused_dwconv_fgrad_int8")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.mh_dwconv_fgrad_acc.argtypes = [p, p, p] + [i] * 6 + [p]
+    lib.mh_dwconv_fgrad_acc.argtypes = [p] * 5 + [i] * 12 + [p]
     lib.mh_dwconv_fgrad_acc.restype = ctypes.c_int
     return lib
 
 
-def dwconv_fgrad_acc_cuda(xp: torch.Tensor, gy: torch.Tensor, kernel) -> torch.Tensor:
-    """K5 on the card -> int32 (KH, KW, 1, C)."""
+@functools.lru_cache(maxsize=None)
+def _fgrad_state(device: torch.device, stream: int, taps_c: int, columns: int) -> torch.Tensor:
+    """K5's scratch accumulator (taps_c words) and column tickets for the
+    CUDA stream `stream` of `device`: zeroed once, while that stream is
+    current; every call leaves them at 0."""
+    return torch.zeros((taps_c + columns,), dtype=torch.int32, device=device)
+
+
+def dwconv_fgrad_acc_cuda(x: torch.Tensor, gy: torch.Tensor, kernel, stride=(1, 1), *,
+                          pads: Pads = _NO_PADS) -> torch.Tensor:
+    """K5 on the card -> int32 (KH, KW, 1, C), from x unpadded with its
+    `pads` and the `stride`, in one launch: blocks add into a scratch
+    accumulator and the last block of each 32-channel column moves its sums
+    out (the scratch and tickets, one set per stream and size, return to 0)."""
     global FGRAD_LAUNCHES
     kh, kw = kernel
-    if xp.dim() != 4 or gy.dim() != 4 or xp.shape[0] != gy.shape[0] or xp.shape[3] != gy.shape[3]:
-        raise ValueError(f"need xp (B, Hp, Wp, C) and gy (B, OH, OW, C), got "
-                         f"{tuple(xp.shape)}, {tuple(gy.shape)}")
-    if xp.dtype != torch.int8 or gy.dtype != torch.int8:
-        raise TypeError(f"int8 operands only, got {xp.dtype}, {gy.dtype}")
-    if not (xp.is_cuda and gy.is_cuda) or xp.device != gy.device:
-        raise ValueError(f"K5 needs xp and gy on one CUDA device, got {xp.device}, {gy.device}")
-    b, hp, wp, c = xp.shape
-    oh, ow = hp - kh + 1, wp - kw + 1
-    if (gy.shape[1], gy.shape[2]) != (oh, ow):
-        raise ValueError(f"gy {tuple(gy.shape)} is not the VALID stride-1 output of xp "
-                         f"{tuple(xp.shape)} under a {kh}x{kw} kernel")
-    if b * oh > 32 * 65535:
-        raise ValueError(f"K5 takes up to {32 * 65535} (b, oh) rows, got {b * oh}")
-    out = torch.zeros((kh, kw, 1, c), dtype=torch.int32, device=xp.device)
-    if b * oh * ow * c == 0:
-        return out
-    xp, gy = xp.contiguous(), gy.contiguous()
-    err = _fgrad_lib().mh_dwconv_fgrad_acc(xp.data_ptr(), gy.data_ptr(), out.data_ptr(),
-                                           b, hp, wp, c, kh, kw,
-                                           torch.cuda.current_stream(xp.device).cuda_stream)
+    if x.dim() != 4 or gy.dim() != 4:
+        raise ValueError(f"need x (B, H, W, C) and gy (B, OH, OW, C), got "
+                         f"{tuple(x.shape)}, {tuple(gy.shape)}")
+    if x.dtype != torch.int8 or gy.dtype != torch.int8:
+        raise TypeError(f"int8 operands only, got {x.dtype}, {gy.dtype}")
+    if not (x.is_cuda and gy.is_cuda) or x.device != gy.device:
+        raise ValueError(f"K5 needs x and gy on one CUDA device, got {x.device}, {gy.device}")
+    if not fgrad_takes(tuple(x.shape), tuple(gy.shape), (kh, kw), pads, stride):
+        raise ValueError(f"K5 takes gy within the VALID output of x padded by pads >= 0 at "
+                         f"stride >= 1, int32-indexable: got x {tuple(x.shape)}, gy "
+                         f"{tuple(gy.shape)}, {kh}x{kw}, pads {pads}, stride {stride}")
+    b, h, w, c = x.shape
+    oh, ow = gy.shape[1], gy.shape[2]
+    if b * oh * ow * c == 0 or x.numel() == 0:
+        return torch.zeros((kh, kw, 1, c), dtype=torch.int32, device=x.device)
+    x, gy = x.contiguous(), gy.contiguous()
+    out = torch.empty((kh, kw, 1, c), dtype=torch.int32, device=x.device)
+    stream = torch.cuda.current_stream(x.device)
+    columns = -(-c // 32)
+    state = _fgrad_state(x.device, stream.cuda_stream, kh * kw * c, columns)
+    (pt, _), (pl, _) = pads
+    err = _fgrad_lib().mh_dwconv_fgrad_acc(
+        x.data_ptr(), gy.data_ptr(), out.data_ptr(), state.data_ptr(),
+        state[kh * kw * c:].data_ptr(), b, h, w, c, kh, kw, pt, pl, stride[0], stride[1], oh, ow,
+        stream.cuda_stream)
     if err:
         raise RuntimeError(f"fused_dwconv_fgrad kernel launch failed: CUDA error {err}")
     FGRAD_LAUNCHES += 1
     return out
 
 
-def dwconv_fgrad_acc(xp: torch.Tensor, gy: torch.Tensor, kernel) -> torch.Tensor:
+def dwconv_fgrad_acc(x: torch.Tensor, gy: torch.Tensor, kernel, stride=(1, 1), *,
+                     pads: Pads = _NO_PADS) -> torch.Tensor:
     """K5: the kernel on a CUDA tensor, its plain version on a CPU one."""
-    if xp.is_cuda:
-        return dwconv_fgrad_acc_cuda(xp, gy, kernel)
-    return dwconv_fgrad_acc_plain(xp, gy, kernel)
+    if x.is_cuda:
+        return dwconv_fgrad_acc_cuda(x, gy, kernel, stride, pads=pads)
+    return dwconv_fgrad_acc_plain(x, gy, kernel, stride, pads=pads)

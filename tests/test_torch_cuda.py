@@ -268,6 +268,86 @@ def test_dwconv_fgrad_kernel_wraps(gen):
     assert bool((got == want).all())
 
 
+@pytest.mark.parametrize("x_shape,k,pads,stride", [
+    ((2, 32, 32, 144), (3, 3), ((1, 1), (1, 1)), (1, 1)),    # packed, SAME, 32x32
+    ((3, 8, 8, 576), (3, 3), ((1, 1), (1, 1)), (1, 1)),      # packed, 8x8
+    ((2, 32, 32, 144), (3, 3), ((0, 1), (0, 1)), (2, 2)),    # packed, stride 2, pads (0, 1)
+    ((3, 16, 16, 192), (3, 3), ((0, 1), (0, 1)), (2, 2)),    # packed, stride 2, 16x16
+    ((5, 8, 8, 576), (3, 3), ((0, 1), (0, 1)), (2, 2)),      # packed, stride 2 to 4x4
+    ((3, 15, 13, 20), (3, 3), ((0, 1), (0, 1)), (2, 2)),     # packed, odd maps, C 20
+    ((2, 9, 14, 36), (3, 3), ((1, 1), (2, 0)), (1, 2)),      # packed, strides apart
+    ((2, 14, 9, 36), (3, 3), ((2, 1), (0, 1)), (2, 1)),      # packed, strides apart
+    ((2, 19, 21, 40), (3, 3), ((0, 0), (0, 0)), (1, 1)),     # packed, no pads, ragged OW groups
+    ((2, 17, 19, 33), (3, 3), ((1, 1), (1, 1)), (2, 2)),     # ragged C: byte-wise
+    ((2, 9, 14, 7), (3, 3), ((1, 1), (2, 0)), (1, 2)),       # ragged C 7: byte-wise
+    ((1, 10, 10, 12), (3, 3), ((0, 0), (0, 0)), (3, 3)),     # stride 3: byte-wise
+    ((2, 11, 11, 24), (5, 5), ((1, 2), (1, 2)), (2, 2)),     # 5x5 at stride 2: byte-wise
+    ((2, 12, 10, 40), (3, 1), ((1, 1), (0, 0)), (2, 1)),     # 3x1: byte-wise
+])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_dwconv_fgrad_kernel_pads_and_strides(gen, x_shape, k, pads, stride, aligned):
+    """K5 with x unpadded, its pads and a stride, byte for byte; unaligned:
+    x and gy sliced one byte into their storage (the byte-wise instance);
+    a second call on the same stream gives the same bytes (the scratch
+    accumulator and the tickets reset themselves)."""
+    b, _, _, c = x_shape
+    oh, ow = fdw.fgrad_out_spatial(x_shape, k, pads, stride)
+
+    def operand(shape):
+        if aligned:
+            return rand_int8(shape, gen)
+        n = shape[0] * shape[1] * shape[2] * shape[3]
+        return rand_int8((n + 1,), gen)[1:].view(shape)
+
+    x, gy = operand(x_shape), operand((b, oh, ow, c))
+    assert (x.data_ptr() % 4 == 0) == aligned
+    got = fdw.dwconv_fgrad_acc_cuda(x, gy, k, stride, pads=pads)
+    again = fdw.dwconv_fgrad_acc_cuda(x, gy, k, stride, pads=pads)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fdw.dwconv_fgrad_acc_plain(x, gy, k, stride, pads=pads))
+    assert torch.equal(again, got)
+
+
+@pytest.mark.parametrize("c", [36, 33])
+def test_dwconv_fgrad_kernel_wraps_at_stride_2(gen, c):
+    """Sums past 2^31 wrap as int32 at stride 2, in the packed (C 36) and
+    the byte-wise (C 33) instance: all -128 over 147456 products a channel."""
+    x = torch.full((9, 257, 257, c), -128, dtype=torch.int8, device="cuda")
+    gy = torch.full((9, 128, 128, c), -128, dtype=torch.int8, device="cuda")
+    want = (9 * 128 * 128 * 2**14 + 2**31) % 2**32 - 2**31
+    got = fdw.dwconv_fgrad_acc_cuda(x, gy, (3, 3), (2, 2))
+    assert torch.equal(got, fdw.dwconv_fgrad_acc_plain(x, gy, (3, 3), (2, 2)))
+    assert bool((got == want).all())
+
+
+def test_dwconv_fgrad_kernel_back_to_back(gen):
+    """Calls of other sizes between two calls on the same operands, all on
+    one stream without a synchronisation: every call's scratch and tickets
+    are back at 0 for the next, so the repeated call gives the same bytes."""
+    shapes = [((2, 32, 32, 144), ((1, 1), (1, 1)), (1, 1)),
+              ((2, 32, 32, 144), ((0, 1), (0, 1)), (2, 2)),
+              ((3, 9, 43, 33), ((1, 1), (1, 1)), (1, 1))]
+    cases = []
+    for xs, pads, stride in shapes:
+        oh, ow = fdw.fgrad_out_spatial(xs, (3, 3), pads, stride)
+        cases.append((rand_int8(xs, gen), rand_int8((xs[0], oh, ow, xs[3]), gen), pads, stride))
+    outs = [fdw.dwconv_fgrad_acc_cuda(x, gy, (3, 3), s, pads=p) for x, gy, p, s in cases * 3]
+    torch.cuda.synchronize()
+    for i, (x, gy, p, s) in enumerate(cases):
+        want = fdw.dwconv_fgrad_acc_plain(x, gy, (3, 3), s, pads=p)
+        for j in range(3):
+            assert torch.equal(outs[i + j * len(cases)], want), (i, j)
+
+
+def test_dwconv_fgrad_kernel_no_grid_limit(gen):
+    """More (b, oh) rows than the 32 x 65535 the first K5 took: 70000 x 32."""
+    x = rand_int8((70000, 32, 1, 4), gen)
+    gy = rand_int8((70000, 32, 1, 4), gen)
+    pads = ((1, 1), (1, 1))
+    got = fdw.dwconv_fgrad_acc_cuda(x, gy, (3, 3), pads=pads)
+    assert torch.equal(got, fdw.dwconv_fgrad_acc_plain(x, gy, (3, 3), pads=pads))
+
+
 @pytest.mark.parametrize("m,k,n", [(49152, 28, 512), (1000, 256, 512), (65, 37, 70),
                                    (3, 5, 2), (128, 2600, 64)])
 def test_matmul_max_bf16_kernel_matches_plain(gen, m, k, n):

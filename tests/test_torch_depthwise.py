@@ -218,9 +218,9 @@ def _run_dw(pkg, x, gy, w, w_exp, stride, per_channel):
 def test_depthwise_ops_match_jax(stride, per_channel, backend):
     """(4, 16, 16, 24): the stride-1 forward and every input grad take K4's
     route under "cuda", per-tensor and per-channel (with the alignment
-    shifts as K4's operand), the stride-1 filter grad K5's (their plain
-    versions on these CPU tensors); the strided forward and the strided
-    filter grad run the plain taps, as in the JAX package."""
+    shifts as K4's operand), the filter grad K5's at both strides, x
+    unpadded with its pads (their plain versions on these CPU tensors); the
+    strided forward runs the plain taps, as in the JAX package."""
     rng = np.random.default_rng(5 + stride[0] + 2 * per_channel)
     x = rand_int8(rng, (4, 16, 16, 24))
     w = rand_int8(rng, (3, 3, 1, 24))

@@ -3,13 +3,16 @@ transform, against the JAX package, byte for byte:
 
 - K5's plain version (``kernels/fused_dwconv_int8.dwconv_fgrad_acc_plain``,
   which the dispatcher takes on a CPU tensor) against the Pallas kernel
-  ``dwconv_fgrad_acc_pallas`` in interpret mode, at 3x3, 5x5, 3x1 and 1x3,
-  ragged C, and sums that wrap past 2^31; `supports_fgrad` against the
-  cases where the JAX kernel returns None;
+  ``dwconv_fgrad_acc_pallas`` in interpret mode on a pre-padded input, at
+  3x3, 5x5, 3x1 and 1x3, ragged C, and sums that wrap past 2^31; with x
+  unpadded, its pads and strides 1, 2 and 3 against the JAX package's
+  batch-grouped conv, the wrap at stride 2 included; `supports_fgrad`
+  against the cases where the JAX kernel returns None, and `fgrad_takes`
+  (what K5 takes);
 - the routed ``dwconv2d_filter_grad`` against the JAX one (a batch-grouped
   conv) at stride 1 and 2, per-tensor and per-channel, margins 0 and 2,
   under both port backends, with K5's dispatcher called exactly where the
-  route says;
+  route says (every stride under "cuda");
 - ``nn.transform.dw_to_per_channel`` against the JAX transform.
 
 The CUDA kernel itself is held against the plain version on the card
@@ -136,7 +139,77 @@ def test_routed_filter_grad_matches_jax(monkeypatch, stride, per_channel, margin
         jdw.set_dw_fgrad_margin(2)
         tdw.set_dw_fgrad_margin(2)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    assert len(calls) == (1 if stride == (1, 1) and backend == "cuda" else 0)
+    # K5 takes x unpadded at every stride under "cuda"
+    assert calls == ([(4, 16, 16, 24)] if backend == "cuda" else [])
+
+
+def _grouped_conv_acc(x, gy, kernel, pads, stride):
+    """The JAX package's depthwise filter-grad accumulator: one batch-grouped
+    conv with rhs_dilation = stride (mandheling_tpu/ops/depthwise.py), its
+    leading kh x kw taps."""
+    kh, kw = kernel
+    acc = jax.lax.conv_general_dilated(
+        jnp.asarray(x), jnp.asarray(gy), (1, 1), pads, rhs_dilation=stride,
+        dimension_numbers=("CHWN", "IHWO", "NHWC"), batch_group_count=x.shape[3],
+        preferred_element_type=jnp.int32)
+    return np.asarray(acc[:, :kh, :kw, :].transpose(1, 2, 0, 3))
+
+
+@pytest.mark.parametrize("x_shape,kernel,pads,stride", [
+    ((4, 16, 16, 24), (3, 3), ((1, 1), (1, 1)), (1, 1)),     # SAME, stride 1
+    ((4, 16, 16, 24), (3, 3), ((0, 1), (0, 1)), (2, 2)),     # SAME, stride 2
+    ((3, 15, 13, 20), (3, 3), ((0, 1), (0, 1)), (2, 2)),     # odd maps: gy shorter than x/2
+    ((2, 17, 19, 33), (3, 3), ((1, 1), (1, 1)), (2, 2)),     # ragged C, SAME on odd maps
+    ((2, 9, 14, 7), (3, 3), ((1, 1), (2, 0)), (1, 2)),       # ragged C 7, strides apart
+    ((2, 11, 11, 24), (5, 5), ((1, 2), (1, 2)), (2, 2)),     # 5x5 at stride 2
+    ((2, 12, 10, 40), (3, 1), ((1, 1), (0, 0)), (2, 1)),     # 3x1
+    ((1, 10, 10, 12), (3, 3), ((0, 0), (0, 0)), (3, 3)),     # stride 3, no pads
+])
+def test_fgrad_plain_with_pads_and_stride_matches_jax(x_shape, kernel, pads, stride):
+    """K5's plain version with x unpadded, its pads and a stride (which the
+    dispatcher takes on a CPU tensor) against the JAX package's batch-grouped
+    conv, byte for byte."""
+    rng = np.random.default_rng(sum(x_shape) + 3 * stride[0] + stride[1])
+    oh, ow = tfdw.fgrad_out_spatial(x_shape, kernel, pads, stride)
+    x = rand_int8(rng, x_shape)
+    gy = rand_int8(rng, (x_shape[0], oh, ow, x_shape[3]))
+    assert tfdw.fgrad_takes(x.shape, gy.shape, kernel, pads, stride)
+    got = tfdw.dwconv_fgrad_acc(t(x), t(gy), kernel, stride, pads=pads)
+    assert got.dtype == torch.int32 and tuple(got.shape) == kernel + (1, x_shape[3])
+    np.testing.assert_array_equal(got.numpy(), _grouped_conv_acc(x, gy, kernel, pads, stride))
+
+
+def test_fgrad_plain_wraps_at_stride_2_like_jax():
+    """9 x 128 x 128 products of (-128)^2 = 2^14 per channel at stride 2
+    pass 2^31: the int32 sums wrap, in both."""
+    x = np.full((9, 257, 257, 2), -128, np.int8)
+    gy = np.full((9, 128, 128, 2), -128, np.int8)
+    pads = ((0, 0), (0, 0))
+    true_sum = 9 * 128 * 128 * 2**14
+    assert true_sum > 2**31
+    got = tfdw.dwconv_fgrad_acc(t(x), t(gy), (3, 3), (2, 2), pads=pads)
+    np.testing.assert_array_equal(got.numpy(), _grouped_conv_acc(x, gy, (3, 3), pads, (2, 2)))
+    assert (got.numpy() == (true_sum + 2**31) % 2**32 - 2**31).all()
+
+
+@pytest.mark.parametrize("x_shape,gy_shape,kernel,pads,stride,takes", [
+    ((256, 32, 32, 144), (256, 32, 32, 144), (3, 3), ((1, 1), (1, 1)), (1, 1), True),
+    ((256, 32, 32, 144), (256, 16, 16, 144), (3, 3), ((0, 1), (0, 1)), (2, 2), True),
+    ((256, 34, 34, 144), (256, 32, 32, 144), (3, 3), ((0, 0), (0, 0)), (1, 1), True),
+    ((1, 64, 64, 600), (1, 64, 64, 600), (3, 3), ((1, 1), (1, 1)), (1, 1), True),
+    ((2, 10, 10, 12), (2, 3, 3, 12), (3, 3), ((0, 0), (0, 0)), (3, 3), True),
+    ((2, 10, 10, 12), (2, 2, 3, 12), (3, 3), ((0, 0), (0, 0)), (3, 3), True),   # gy within
+    ((2, 10, 10, 12), (2, 4, 3, 12), (3, 3), ((0, 0), (0, 0)), (3, 3), False),  # gy too tall
+    ((2, 8, 8, 12), (2, 8, 8, 12), (3, 3), ((1, 1), (-1, 1)), (1, 1), False),   # negative pad
+    ((2, 8, 8, 12), (3, 8, 8, 12), (3, 3), ((1, 1), (1, 1)), (1, 1), False),    # batch differs
+    ((2, 8, 8, 12), (2, 8, 8, 13), (3, 3), ((1, 1), (1, 1)), (1, 1), False),    # C differs
+    ((4096, 512, 512, 4), (4096, 512, 512, 4), (3, 3), ((1, 1), (1, 1)), (1, 1), False),
+])
+def test_fgrad_takes(x_shape, gy_shape, kernel, pads, stride, takes):
+    """What K5 takes: gy within the VALID strided output of x padded by pads
+    >= 0, any stride, int32-indexable tensors (the last case has 2^32
+    elements); the JAX kernel's rule `supports_fgrad` stays stride 1 only."""
+    assert tfdw.fgrad_takes(x_shape, gy_shape, kernel, pads, stride) == takes
 
 
 def test_ceil_log2_is_the_jax_one():

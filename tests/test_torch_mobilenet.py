@@ -276,8 +276,9 @@ def test_chip_smoke_k5_path_cases_are_the_step_shapes(per_channel):
     """chip_smoke.py times K5 at K5_PATH_CASES and weights them by the
     launches it records in a batch-256 MobileNetV2 step, per-tensor and
     under the recipe. Rehearsed here on the meta device with its recorder:
-    a train step's K5 shapes are the listed ones (14 launches), an eval
-    step makes none."""
+    a train step's K5 calls (x shape, kernel, pads, stride) are the listed
+    ones (17 launches: 14 at stride 1, 3 at stride 2 with pads (0, 1)), an
+    eval step makes none."""
     from mandheling_tpu_torch.ops.kernels import fused_dwconv_int8
 
     cs = _load_chip_smoke()
@@ -289,7 +290,8 @@ def test_chip_smoke_k5_path_cases_are_the_step_shapes(per_channel):
         make_train_step(model)(x, oh)
     with cs.recording(spec) as evals:
         make_eval_step(model)(x, torch.zeros(256, dtype=torch.int64, device="meta"))
-    assert set(train["K5"]) == {(xps, k) for _, xps, k in cs.K5_PATH_CASES}
+    assert set(train["K5"]) == cs.K5_PATH_KEYS
     assert not evals["K5"]
     key = ("mnv2pc" if per_channel else "mnv2", 256, "matmul_only")
-    assert sum(train["K5"].values()) == cs.EXPECTED_PER_STEP[key][0]["K5"] == 14
+    assert sum(train["K5"].values()) == cs.EXPECTED_PER_STEP[key][0]["K5"] == 17
+    assert sum(n for (_, _, _, stride), n in train["K5"].items() if stride == (2, 2)) == 3

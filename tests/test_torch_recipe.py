@@ -118,4 +118,5 @@ def test_recipe_steps_byte_identical_to_jax(run_jax, monkeypatch, backend):
         np.testing.assert_array_equal(a, b)
     assert any(not np.array_equal(a, b) for a, b in zip(got, flat_weights(start)))
     np.testing.assert_allclose(losses, losses_j, rtol=1e-6, atol=0)
-    assert len(calls) == (STEPS * 14 if backend == "cuda" else 0)
+    # K5 takes all 17 depthwise filter grads of a step, the 3 strided ones too
+    assert len(calls) == (STEPS * 17 if backend == "cuda" else 0)

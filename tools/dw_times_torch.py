@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""Device times of the depthwise forwards and input grads of a full-width
-MobileNetV2 train step at batch 256 in `mandheling_tpu_torch`, through the
-public ops `ops.depthwise.dwconv2d_forward` / `dwconv2d_input_grad`: the
-fused depthwise kernel K4 where they take it, with whatever torch ops the
-tree runs around it (pads, dilations, flips, shifts, the plain taps where a
-form does not take K4). Per-tensor and as the r5 recipe (per-channel
-depthwise exponents). As controls: the stride-1 filter-grad accumulators
-(`dwconv2d_filter_grad_acc`, the kernel K5) and, as a yardstick only, one
-cuDNN float32 depthwise conv per K4 shape (`conv2d` with groups = C, or
-`conv_transpose2d` for the strided input grads; TF32 off), which computes
-the accumulator only; the port never calls it.
+"""Device times of the depthwise forwards, input grads and filter grads of
+a full-width MobileNetV2 train step at batch 256 in `mandheling_tpu_torch`,
+through the public ops `ops.depthwise.dwconv2d_forward` /
+`dwconv2d_input_grad` / `dwconv2d_filter_grad_acc`: the fused depthwise
+kernel K4 and the filter-grad kernel K5 where they take them, with whatever
+torch ops the tree runs around them (pads, dilations, flips, shifts, the
+plain taps where a form does not take a kernel). All 17 filter grads are
+timed, stride 1 and 2, summed apart. Per-tensor and as the r5 recipe
+(per-channel depthwise exponents). As a yardstick only, one cuDNN float32
+depthwise call per shape (`conv2d` with groups = C, `conv_transpose2d` for
+the strided input grads, `torch.nn.grad.conv2d_weight` for the filter
+grads; TF32 off), which computes the accumulator only, inexactly past 2^24;
+the port never calls it.
 
     python3 tools/dw_times_torch.py [--root DIR] [--label L] [--out FILE]
 
@@ -108,7 +110,19 @@ def w_exp_like(shape, gen):
 
 def cudnn_ms(kind, key, gen):
     """One float32 depthwise conv of cuDNN on the call's shapes (TF32 off),
-    channels-last: the yardstick."""
+    channels-last: the yardstick. For a filter grad, cuDNN's depthwise weight
+    grad (`torch.nn.grad.conv2d_weight`, groups = C) at symmetric pads of
+    kernel // 2, which give the same gy shape as the SAME pads (at stride 2
+    the top and left pad differ by one, the work does not); float32 sums are
+    not exact past 2^24, so it is not the same function."""
+    if kind == "fgrad":
+        (b, h, w, c), (_, oh, ow, _), (kh, kw), stride = key[:4]
+        x = torch.randn((b, c, h, w), generator=gen, device="cuda").to(
+            memory_format=torch.channels_last)
+        gy = torch.randn((b, c, oh, ow), generator=gen, device="cuda").to(
+            memory_format=torch.channels_last)
+        return time_ms(lambda: torch.nn.grad.conv2d_weight(
+            x, (c, 1, kh, kw), gy, stride=stride, padding=(kh // 2, kw // 2), groups=c))
     if kind == "fwd":
         (b, h, w, c), (kh, kw, _, _) = key[0], key[1]
         stride = key[3]
@@ -178,11 +192,12 @@ def main() -> int:
             rows[-1]["cudnn_ms"] = yard[yk]
         for key, count in sorted(seen["fgrad"].items(), key=str):
             xs, gs, kernel, stride, padding = key
-            if stride != (1, 1):
-                continue
             xx, gy = rand8(xs, gen), rand8(gs, gen)
             rows.append(dict(op="fgrad", key=list(map(str, key)), launches=count, ms=time_ms(
                 lambda: dw.dwconv2d_filter_grad_acc(xx, gy, kernel, stride, padding))))
+            yk = ("fgrad", key[:4])
+            yard.setdefault(yk, cudnn_ms("fgrad", key, gen))
+            rows[-1]["cudnn_ms"] = yard[yk]
         k4 = [r for r in rows if r["op"] == "igrad" or (r["op"] == "fwd" and "cudnn_ms" in r)]
         res["models"][name] = {
             "rows": rows,
@@ -193,9 +208,14 @@ def main() -> int:
             "strided_fwd_ms": sum(r["launches"] * r["ms"] for r in rows
                                   if r["op"] == "fwd" and "cudnn_ms" not in r),
             "cudnn_fp32_ms": sum(r["launches"] * r["cudnn_ms"] for r in k4),
-            "k5_control_launches": sum(r["launches"] for r in rows if r["op"] == "fgrad"),
-            "k5_control_ms": sum(r["launches"] * r["ms"] for r in rows if r["op"] == "fgrad"),
         }
+        for part, strides in (("fgrad", ("(1, 1)", "(2, 2)")), ("fgrad_s1", ("(1, 1)",)),
+                              ("fgrad_s2", ("(2, 2)",))):
+            sub = [r for r in rows if r["op"] == "fgrad" and r["key"][3] in strides]
+            res["models"][name].update({
+                f"{part}_launches": sum(r["launches"] for r in sub),
+                f"{part}_ms": sum(r["launches"] * r["ms"] for r in sub),
+                f"{part}_cudnn_fp32_ms": sum(r["launches"] * r["cudnn_ms"] for r in sub)})
         del model
     torch.cuda.synchronize()
     sums = {f"{m}_{k}": v for m, d in res["models"].items() for k, v in d.items() if k != "rows"}

@@ -15,7 +15,9 @@ raises on failure (the script then exits non-zero and prints no result):
    step gives it (K1_SHAPES), K2 (fused_matmul_max / _requant)
    at the fc2 input grad of batch 2048 and at a shape of the JAX package's
    tiled branch (K > 512), K3 (fused_conv_max / _requant) at the MobileNetV2
-   stem and LeNet's convs, K4 (fused_dwconv_max / _requant) at the 10
+   stem, LeNet's convs and the seven ResNet18 b256 3x3 shapes its `supports`
+   admits (beside each, the cuDNN fp32 conv and the non-fused route of
+   fused mode "matmul_only", whose bytes phase 2 must equal), K4 (fused_dwconv_max / _requant) at the 10
    depthwise shapes of a batch-256 MobileNetV2 step (x unpadded with its
    pads; the strided input grads' gy undilated with the stride as the
    dilation), each per-tensor and with the recipe's per-channel shifts,
@@ -156,7 +158,8 @@ K1_PER_TRAIN_STEP, K1_PER_EVAL_STEP = 11, 4
 # main paths' shapes (the MobileNetV2 stem under fused mode "all"; LeNet's
 # conv1, conv2 and conv2 input grad, on the zero-dilated gy with the
 # rotated weights, under "all"); then the shapes of the JAX package's
-# test_fused_conv_strided_and_1x1_parity and a ragged one.
+# test_fused_conv_strided_and_1x1_parity, a ragged one, and the shapes
+# ResNet18's 3x3 convs will give it under "all".
 K3_CASES = [
     ("MNv2 stem fwd b256", (256, 32, 32, 3), (3, 3, 3, 32), (1, 1), ((1, 1), (1, 1))),
     ("LeNet conv1 fwd b64", (64, 28, 28, 1), (5, 5, 1, 20), (1, 1), ((0, 0), (0, 0))),
@@ -166,6 +169,16 @@ K3_CASES = [
     ("JAX test 5x5 s2", (2, 9, 9, 3), (5, 5, 3, 8), (2, 2), ((1, 2), (1, 2))),
     ("JAX test 33x33 s2", (2, 33, 33, 8), (3, 3, 8, 16), (2, 2), ((1, 1), (1, 1))),
     ("ragged 3x2 s(1,2)", (1, 7, 5, 70), (3, 2, 70, 65), (1, 2), ((2, 0), (0, 3))),
+] + [  # ResNet18's CIFAR 3x3 convs at b256 that `supports` admits (its 512 -> 512 it refuses)
+    (f"ResNet18 {what} b256", xs, ws, st, pads) for what, xs, ws, st, pads in [
+        ("stem 3->64", (256, 32, 32, 3), (3, 3, 3, 64), (1, 1), ((1, 1), (1, 1))),
+        ("layer1 64->64", (256, 32, 32, 64), (3, 3, 64, 64), (1, 1), ((1, 1), (1, 1))),
+        ("layer2 s2 64->128", (256, 32, 32, 64), (3, 3, 64, 128), (2, 2), ((0, 1), (0, 1))),
+        ("layer2 128->128", (256, 16, 16, 128), (3, 3, 128, 128), (1, 1), ((1, 1), (1, 1))),
+        ("layer3 s2 128->256", (256, 16, 16, 128), (3, 3, 128, 256), (2, 2), ((0, 1), (0, 1))),
+        ("layer3 256->256", (256, 8, 8, 256), (3, 3, 256, 256), (1, 1), ((1, 1), (1, 1))),
+        ("layer4 s2 256->512", (256, 8, 8, 256), (3, 3, 256, 512), (2, 2), ((0, 1), (0, 1))),
+    ]
 ]
 # K4: (what, x shape, kernel size, pads, dilation). K4_PATH_CASES are the
 # depthwise calls of a batch-256 MobileNetV2 step, per-tensor and under the
@@ -503,9 +516,17 @@ def k2_timings(what, a, b, shift, err_max, err_requant, rates):
 
 
 def check_k3(rates, gen):
-    """K3 against its plain version, and its times, at every case. Returns
-    one row per case and the largest difference."""
+    """K3 against its plain version, and its times, at every case. Beside
+    each: the cuDNN fp32 conv of the same operands (channels-last, TF32 off,
+    on x padded beforehand; a yardstick, inexact past 2^24 and without the
+    max or the requant), and the route fused mode "all" replaces there:
+    `conv2d_forward` under "matmul_only" (im2col, K1 and the plain requant
+    chain), whose bytes must equal phase 2's forward requant. Returns one
+    row per case and the largest difference."""
     rows, worst = [], 0
+    zero = torch.zeros((), dtype=torch.int32, device="cuda")
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
     for what, xs, ws, stride, pad in K3_CASES:
         x, w = rand_int8(xs, gen), rand_int8(ws, gen)
         mx = fused_conv_int8.conv_max_cuda(x, w, pad, stride)
@@ -524,6 +545,7 @@ def check_k3(rates, gen):
         ops, in_bytes = 2.0 * m * n * k, x.numel() + w.numel()
         row = dict(what=what, x=xs, w=ws, stride=stride, pads=pad, m=m, n=n, k=k,
                    max_abs_err=max(errs))
+        plain_launches = 10 if m * k < 2**26 else 2
         for phase, fn, plain, nbytes in [
             ("max", lambda: fused_conv_int8.conv_max_cuda(x, w, pad, stride),
              lambda: fused_conv_int8.conv_max_plain(x, w, pad, stride), in_bytes + 4.0),
@@ -532,15 +554,32 @@ def check_k3(rates, gen):
              in_bytes + 4.0 + m * n),
         ]:
             b_ms, b_by = bound(ops, nbytes, rates)
-            row[phase] = dict(ms=time_ms(fn), plain_ms=time_ms(plain, launches=10, rounds=3),
+            row[phase] = dict(ms=time_ms(fn), plain_ms=time_ms(plain, launches=plain_launches,
+                                                                rounds=3),
                               bound_ms=b_ms, bound_by=b_by)
+        with use_fused_conv_mode("matmul_only"):
+            y_nf, _ = conv_ops.conv2d_forward(x, zero, w, zero, stride, pad)
+            if not torch.equal(y_nf, fused_conv_int8.conv_requant_cuda(x, w, shift, pad, stride)):
+                raise AssertionError(f"K3 {what}: phase 2 differs from the non-fused route")
+            row["nonfused_ms"] = time_ms(
+                lambda: conv_ops.conv2d_forward(x, zero, w, zero, stride, pad), launches=10,
+                rounds=3)
+        (pt, pb), (pl, pr) = pad
+        xf = torch.nn.functional.pad(x.permute(0, 3, 1, 2).float(), (pl, pr, pt, pb)).contiguous(
+            memory_format=torch.channels_last)
+        wf = w.permute(3, 2, 0, 1).float().contiguous(memory_format=torch.channels_last)
+        row["cudnn_fp32_ms"] = time_ms(lambda: torch.nn.functional.conv2d(xf, wf, stride=stride),
+                                       launches=20, rounds=3)
+        del xf, wf
         rows.append(row)
-        print(f"  K3 {what:22s} x {xs} w {ws} stride {stride} pads {pad}: byte-equal "
+        print(f"  K3 {what:32s} x {xs} w {ws} stride {stride} pads {pad}: byte-equal "
               f"(fwd, shift 0, grad, grad shift<0) | max {row['max']['ms']:.4f} ms "
               f"(plain {row['max']['plain_ms']:.4f}, bound {row['max']['bound_ms'] * 1e3:.2f} us "
               f"{row['max']['bound_by']}) | requant {row['requant']['ms']:.4f} ms (plain "
               f"{row['requant']['plain_ms']:.4f}, bound {row['requant']['bound_ms'] * 1e3:.2f} us "
-              f"{row['requant']['bound_by']})", flush=True)
+              f"{row['requant']['bound_by']}) | non-fused route {row['nonfused_ms']:.4f} ms, "
+              f"cuDNN fp32 {row['cudnn_fp32_ms']:.4f} ms", flush=True)
+    torch.backends.cudnn.allow_tf32 = tf32
     return rows, worst
 
 
@@ -1266,8 +1305,13 @@ def main() -> int:
          "requant": "mandheling_tpu/ops/kernels/fused_conv_int8.py:287"},
         stem, launches, by_run,
         {ph: {"shapes": f"{stem['what']}: x {stem['x']} w {stem['w']}",
-              "other_shapes": {r["what"]: r[ph] for r in k3_rows[1:]},
-              "library_note": "no PyTorch call computes an int8 conv on CUDA"}
+              "nonfused_ms": stem["nonfused_ms"], "cudnn_fp32_ms": stem["cudnn_fp32_ms"],
+              "other_shapes": {r["what"]: dict(r[ph], nonfused_ms=r["nonfused_ms"],
+                                               cudnn_fp32_ms=r["cudnn_fp32_ms"])
+                               for r in k3_rows[1:]},
+              "library_note": "no PyTorch call computes an int8 conv on CUDA; cudnn_fp32_ms "
+                              "(a float conv, inexact past 2^24) and nonfused_ms (the "
+                              "route fused mode 'all' replaces) are yardsticks"}
          for ph in ("max", "requant")})
     k4_step = {"max_abs_err": k4_err}
     k4_recipe = {}

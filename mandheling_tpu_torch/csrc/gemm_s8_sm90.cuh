@@ -1,5 +1,9 @@
-// Hopper mainloops of the int8 GEMM kernels K1 and K2: s8 x s8 -> s32 with
-// int32 sums that wrap (no .satfinite), as XLA's do.
+// Hopper mainloops of the int8 GEMM kernels K1 (matmul_int8.cu), K2
+// (fused_matmul_int8.cu) and K3 (fused_conv_int8.cu, whose A tile is
+// gathered from an NHWC input through the loader hook of the K-major
+// mainloops), and the primitives K6 (matmul_max_bf16.cu) builds its bf16
+// mainloop from: s8 x s8 -> s32 with int32 sums that wrap (no .satfinite),
+// as XLA's do.
 //
 // Two routes, chosen by the wrapper from the operands' strides
 // (ops/kernels/matmul_int8.py `plan`):
@@ -203,24 +207,25 @@ __device__ __forceinline__ uint8_t* aligned_smem() {
 // Sums A[m0:m0+BM, k] * B[k, n0:n0+BN] over k in [k_begin, k_end) into acc:
 // acc[j][i] of thread (warp w of its warpgroup wg, lane = 4g + t) is row
 // m0 + 64 wg + 16 w + g + 8 ((i >> 1) & 1), column n0 + 32 j + 8 (i >> 2)
-// + 2 t + (i & 1).
-template <int WG, int BN>
+// + 2 t + (i & 1). load_a(tile, m0, k0) stages A's rows [m0, m0 + BM) x K
+// bytes [k0, k0 + kspan(k0, k_end)) as load_kmajor does (the hook of K3's
+// gather); the overload below reads A from p.
+template <int WG, int BN, typename LoadA>
 __device__ __forceinline__ void mainloop_kmajor(uint8_t* ring, const Gemm& p, int m0, int n0,
                                                 int k_begin, int k_end,
-                                                int (&acc)[BN / 32][16]) {
+                                                int (&acc)[BN / 32][16], LoadA load_a) {
   using T = KMajor<WG, BN>;
 #pragma unroll
   for (int j = 0; j < T::NJ; ++j)
 #pragma unroll
     for (int i = 0; i < 16; ++i) acc[j][i] = 0;
   const int kt_n = k_end > k_begin ? (k_end - k_begin + 127) / 128 : 0;
-  const int8_t* a = p.a + m0 * p.sam;
   const int8_t* b = p.b + n0 * p.sbn;
-  const int arows = p.M - m0, brows = p.N - n0;
+  const int brows = p.N - n0;
   auto load = [&](int kt) {
     uint8_t* st = ring + (kt % STAGES) * T::STAGE_BYTES;
     const int k0 = k_begin + kt * 128;
-    load_kmajor<T::BM, T::NT>(st, a, p.sam, arows, k0, k_end, p.aw);
+    load_a(st, m0, k0);
     load_kmajor<BN, T::NT>(st + T::A_BYTES, b, p.sbn, brows, k0, k_end, p.bw);
   };
   // A K range of at most STAGES stages is loaded whole, with no ring turns
@@ -262,23 +267,36 @@ __device__ __forceinline__ void mainloop_kmajor(uint8_t* ring, const Gemm& p, in
   __syncthreads();  // the ring is free for the epilogue
 }
 
-// K2's mainloop, for a whole K of at most 4 stages (K <= 512). B's BN
-// columns from n0 (the whole K) stay resident; the block (one warpgroup)
-// walks the 64-row M tiles m0 = 64 (blockIdx.y + i gridDim.y), and their A
-// stages, (tile i, stage kt) in turn, stream through a ring of SLOTS, so
-// that the next copies are in flight while one stage is multiplied and a
-// tile's epilogue runs. epi(acc, m0) runs on each tile's sums (acc as in
+template <int WG, int BN>
+__device__ __forceinline__ void mainloop_kmajor(uint8_t* ring, const Gemm& p, int m0, int n0,
+                                                int k_begin, int k_end,
+                                                int (&acc)[BN / 32][16]) {
+  mainloop_kmajor<WG, BN>(ring, p, m0, n0, k_begin, k_end, acc,
+                          [&](uint8_t* st, int m, int k0) {
+                            load_kmajor<64 * WG, 128 * WG>(st, p.a + m * p.sam, p.sam, p.M - m,
+                                                           k0, k_end, p.aw);
+                          });
+}
+
+// K2's mainloop (a whole K of at most 4 stages, K <= 512) and K3's (any K
+// whose B fits beside the ring). B's BN columns from n0 (the whole K) stay
+// resident; the block (one warpgroup) walks the 64-row M tiles m0 = 64
+// (blockIdx.y + i gridDim.y), and their A stages, (tile i, stage kt) in
+// turn, stream through a ring of SLOTS, so that the next copies are in
+// flight while one stage is multiplied and a tile's epilogue runs. epi(acc, m0) runs on each tile's sums (acc as in
 // mainloop_kmajor with WG = 1); every thread calls it. The shared memory is
-// B, then the ring, then `extra` bytes for the epilogue.
+// B, then the ring, then `extra` bytes for the epilogue. load_a(tile, m0,
+// k0) stages 64 rows of A as in mainloop_kmajor; the overload below reads A
+// from p.
 constexpr int SLOTS = 4;
 
 __host__ __device__ constexpr int stream_smem(int K, int BN, int extra) {
   return ((K + 127) / 128 * BN + SLOTS * 64) * 128 + extra + 1024;
 }
 
-template <int BN, typename Epi>
+template <int BN, typename Epi, typename LoadA>
 __device__ __forceinline__ void stream_kmajor(uint8_t* smem, const Gemm& p, int n0,
-                                              int (&acc)[BN / 32][16], Epi epi) {
+                                              int (&acc)[BN / 32][16], Epi epi, LoadA load_a) {
   constexpr int BM = 64, NT = 128, SLOT_BYTES = BM * 128;
   const int kt_n = (p.K + 127) / 128;
   uint8_t* bt = smem;
@@ -296,11 +314,9 @@ __device__ __forceinline__ void stream_kmajor(uint8_t* smem, const Gemm& p, int 
     for (int i = 0; i < mine; ++i) epi(acc, (blockIdx.y + i * gridDim.y) * BM);
     return;
   }
-  auto load_a = [&](int f) {
+  auto load_step = [&](int f) {
     const int i = f / kt_n, kt = f - i * kt_n;
-    const int m0 = (blockIdx.y + i * gridDim.y) * BM;
-    load_kmajor<BM, NT>(ring + (f % SLOTS) * SLOT_BYTES, p.a + m0 * p.sam, p.sam, p.M - m0,
-                        kt * 128, p.K, p.aw);
+    load_a(ring + (f % SLOTS) * SLOT_BYTES, (blockIdx.y + i * gridDim.y) * BM, kt * 128);
   };
   for (int kt = 0; kt < kt_n; ++kt)
     load_kmajor<BN, NT>(bt + kt * BN * 128, p.b + n0 * p.sbn, p.sbn, p.N - n0, kt * 128, p.K,
@@ -308,7 +324,7 @@ __device__ __forceinline__ void stream_kmajor(uint8_t* smem, const Gemm& p, int 
   cp_async_commit();
 #pragma unroll
   for (int f = 0; f < SLOTS - 1; ++f) {
-    if (f < steps) load_a(f);
+    if (f < steps) load_step(f);
     cp_async_commit();
   }
   const uint32_t sb = smem_u32(bt);
@@ -317,7 +333,7 @@ __device__ __forceinline__ void stream_kmajor(uint8_t* smem, const Gemm& p, int 
     cp_async_wait<SLOTS - 2>();  // B and stage f have landed
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncthreads();
-    if (f + SLOTS - 1 < steps) load_a(f + SLOTS - 1);
+    if (f + SLOTS - 1 < steps) load_step(f + SLOTS - 1);
     cp_async_commit();
     if (kt == 0) {
 #pragma unroll
@@ -341,10 +357,18 @@ __device__ __forceinline__ void stream_kmajor(uint8_t* smem, const Gemm& p, int 
   }
 }
 
+template <int BN, typename Epi>
+__device__ __forceinline__ void stream_kmajor(uint8_t* smem, const Gemm& p, int n0,
+                                              int (&acc)[BN / 32][16], Epi epi) {
+  stream_kmajor<BN>(smem, p, n0, acc, epi, [&](uint8_t* st, int m0, int k0) {
+    load_kmajor<64, 128>(st, p.a + m0 * p.sam, p.sam, p.M - m0, k0, p.K, p.aw);
+  });
+}
+
 // Calls f(row, col, value) for each of this thread's sums, in the block's
 // coordinates (row < BM, col < BN), whether in range or not.
-template <int BN, typename F>
-__device__ __forceinline__ void for_each_kmajor(const int (&acc)[BN / 32][16], F f) {
+template <int BN, typename T, typename F>
+__device__ __forceinline__ void for_each_kmajor(const T (&acc)[BN / 32][16], F f) {
   const int wg = threadIdx.x >> 7, w = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll

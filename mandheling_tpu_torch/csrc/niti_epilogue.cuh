@@ -3,7 +3,8 @@
 //
 // - phase 1: each thread keeps max|acc| over its outputs; `block_max_atomic`
 //   reduces per warp, then per block, then one atomicMax per block into an
-//   int the caller sets to INT32_MIN.
+//   int the caller sets to INT32_MIN; `block_max_ticket` ends the reduction
+//   in the kernel's own launch instead, with no value set by the caller.
 // - phase 2: `requant` is the bit-exact NITI pseudo-stochastic shift of one
 //   int32 accumulator to int8, with the shift read from device memory by the
 //   kernel, so the host never waits between the phases.
@@ -51,20 +52,45 @@ __device__ __forceinline__ int8_t requant(int v, int shift, bool grad) {
   return static_cast<int8_t>(static_cast<unsigned>(q) & 0xffu);
 }
 
-// Phase 1 of a block: max over every thread's `local`, then one atomicMax
-// into *out. Every thread of the block must call it; the block size is a
-// multiple of 32 and at most 1024.
-__device__ __forceinline__ void block_max_atomic(int local, int* out) {
+// The per-warp, then per-block max of `local`, returned to every thread
+// (every thread of the block must call it; the block size is a multiple of
+// 32, at most 1024).
+__device__ __forceinline__ int block_max(int local) {
   __shared__ int warp_max[32];
   const int tid = threadIdx.x + blockDim.x * (threadIdx.y + blockDim.y * threadIdx.z);
   const int nwarps = (blockDim.x * blockDim.y * blockDim.z) >> 5;
   local = __reduce_max_sync(0xffffffffu, local);
   if ((tid & 31) == 0) warp_max[tid >> 5] = local;
   __syncthreads();
-  if (tid == 0) {
-    int m = warp_max[0];
-    for (int w = 1; w < nwarps; ++w) m = max(m, warp_max[w]);
-    atomicMax(out, m);
+  int m = warp_max[0];
+  for (int w = 1; w < nwarps; ++w) m = max(m, warp_max[w]);
+  return m;
+}
+
+// Phase 1 of a block: max over every thread's `local`, then one atomicMax
+// into *out (same conditions as block_max).
+__device__ __forceinline__ void block_max_atomic(int local, int* out) {
+  const int m = block_max(local);
+  if (threadIdx.x + threadIdx.y + threadIdx.z == 0) atomicMax(out, m);
+}
+
+// Phase 1's end in one launch: each block atomicMax-es its max into state[0]
+// and takes a ticket from state[1]; the block that takes the last ticket
+// moves state[0] to *out and puts the state back to {INT32_MIN, 0}.
+// Invariant: `state` holds {INT32_MIN, 0} before and after every call, so
+// the calls on one stream (and a CUDA graph that replays them) need nothing
+// set between them.
+__device__ __forceinline__ void block_max_ticket(int local, int* state, int* out) {
+  const int m = block_max(local);
+  if (threadIdx.x + threadIdx.y + threadIdx.z == 0) {
+    atomicMax(state, m);
+    __threadfence();
+    const unsigned blocks = gridDim.x * gridDim.y * gridDim.z;
+    if (atomicAdd(reinterpret_cast<unsigned*>(state + 1), 1u) == blocks - 1) {
+      __threadfence();
+      *out = atomicExch(state, INT_MIN);
+      atomicExch(reinterpret_cast<unsigned*>(state + 1), 0u);
+    }
   }
 }
 

@@ -35,7 +35,7 @@ SOURCES = {
     "fused_dwconv_fgrad_int8": "fused_dwconv_fgrad_int8.cu",
     "matmul_max_bf16": "matmul_max_bf16.cu",
 }
-_HEADERS = ("gemm_s8.cuh", "gemm_s8_sm90.cuh", "niti_epilogue.cuh")
+_HEADERS = ("gemm_s8_sm90.cuh", "niti_epilogue.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -4,27 +4,33 @@
 Replaces the TPU kernels of ``mandheling_tpu/ops/kernels/fused_conv_int8.py``:
 ``_max_kernel`` (``conv_max_pallas``) and ``_requant_kernel``
 (``conv_requant_pallas``). It keeps their contract, not their banding: an
-implicit-GEMM int8 conv on K1's mma.sync mainloop that gathers its A tile
-from the NHWC input by index (stride and padding applied there, pads masked
-to 0), with K2's two epilogues.
+implicit-GEMM int8 conv on K1's and K2's ``wgmma`` mainloops
+(``csrc/gemm_s8_sm90.cuh``) whose A tile each block gathers from the NHWC
+input by ``cp.async`` (16 channels of one tap a copy where C % 16 == 0 and
+x is 16-byte aligned; a funnel-shift byte path otherwise), with the stride
+and the pads applied there, and K2's two epilogues. The wrapper copies the
+HWIO weight K-major once per call (one copy into a buffer kept per stream
+and shape), each kernel row's KW*C bytes padded with zeros to a multiple of
+16 (:func:`kmajor_weight`), since 8-bit ``wgmma`` takes no transposed
+operand.
 
-- phase 1 (:func:`conv_max`): max|conv(x, w)| as a 0-d int32; the int32
-  accumulator never reaches device memory.
+- phase 1 (:func:`conv_max`): max|conv(x, w)| as a 0-d int32 in one launch
+  (a two-int state per stream, back at its initial value after each call);
+  the int32 accumulator never reaches device memory.
 - glue (the caller, ``ops/conv.py``): ``range_estimate_from_max`` and
   ``forward_shift`` on the device.
 - phase 2 (:func:`conv_requant`): recompute the conv and apply the psto
   epilogue, reading the shift from device memory, writing int8 only.
 
-Bound on an H100: phase 2 by bytes at every shape it serves; phase 1, which
-writes 4 bytes, near the ridge at the MobileNetV2 stem and by the tensor
-cores' operations at LeNet's conv2 input grad (see the CUDA source).
+Bound on an H100: the bytes at the stems and LeNet's convs; the tensor
+cores' operations at ResNet18's 3x3 convs (see the CUDA source).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -63,9 +69,9 @@ def supports(w_shape, padded_width: int, stride, band_budget: int = _BAND_BUDGET
 def _lib() -> ctypes.CDLL:
     lib = build.library("fused_conv_int8")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.mh_fused_conv_max.argtypes = [p, p, p] + [i] * 13 + [p]
+    lib.mh_fused_conv_max.argtypes = [p, p, p, p] + [i] * 14 + [p]
     lib.mh_fused_conv_max.restype = ctypes.c_int
-    lib.mh_fused_conv_requant.argtypes = [p, p, p, p] + [i] * 14 + [p]
+    lib.mh_fused_conv_requant.argtypes = [p, p, p, p] + [i] * 15 + [p]
     lib.mh_fused_conv_requant.restype = ctypes.c_int
     return lib
 
@@ -101,6 +107,43 @@ def conv_requant_plain(x, w, shift: torch.Tensor, pad: Pads, stride=(1, 1),
     return numerics.psto_epilogue(conv_acc_plain(x, w, pad, stride), shift, grad)
 
 
+def run_bytes(w_shape) -> int:
+    """R: the bytes of K one kernel row takes in the kernel's layout, its
+    KW*C taps rounded up to 16."""
+    return _round_up(w_shape[1] * w_shape[2], 16)
+
+
+def kmajor_weight(w: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The HWIO weight as K3's B, K-major: (OC, KH * R) with row n holding,
+    for each kernel row dy, w[dy, :, :, n] flattened and zeros up to R.
+    Written into `out` ((OC, KH, R) int8, its run tails already zero) where
+    given: one copy."""
+    kh, kw, c, oc = w.shape
+    run, r = kw * c, run_bytes(w.shape)
+    if out is None:
+        out = torch.zeros((oc, kh, r), dtype=w.dtype, device=w.device)
+    out[:, :, :run].copy_(w.reshape(kh, run, oc).permute(2, 0, 1))
+    return out.reshape(oc, kh * r)
+
+
+@functools.lru_cache(maxsize=None)
+def _kmajor_buffer(device: torch.device, stream: int, w_shape) -> torch.Tensor:
+    """A zeroed (OC, KH, R) int8 buffer for `kmajor_weight`, one per CUDA
+    stream and weight shape: each call rewrites the same bytes before its
+    launch on that stream, so the run tails stay zero and one copy a call
+    is all the weight costs (a fresh allocation is 16-byte aligned)."""
+    kh, _, _, oc = w_shape
+    return torch.zeros((oc, kh, run_bytes(w_shape)), dtype=torch.int8, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _state(device: torch.device, stream: int) -> torch.Tensor:
+    """Phase 1's two ints {INT32_MIN, 0} (the running max, the block ticket)
+    for the CUDA stream `stream` of `device`: set once, while that stream is
+    current; every call leaves them so."""
+    return torch.tensor([-(2**31), 0], dtype=torch.int32, device=device)
+
+
 def _geometry(x: torch.Tensor, w: torch.Tensor, pad: Pads, stride):
     _check(x, w)
     if not (x.is_cuda and w.is_cuda) or x.device != w.device:
@@ -112,19 +155,23 @@ def _geometry(x: torch.Tensor, w: torch.Tensor, pad: Pads, stride):
     oh, ow = _out_spatial(x, w, pad, stride)
     if b * max(oh, 0) * max(ow, 0) >= 2**31 or x.numel() >= 2**31:
         raise ValueError("K3 indexes rows with int32")
-    geom = [b, h, wd, c, oh, ow, oc, kh, kw, stride[0], stride[1], pad[0][0], pad[1][0]]
-    return x.contiguous(), w.contiguous(), (b, max(oh, 0), max(ow, 0), oc), geom
+    geom = [b, h, wd, c, oh, ow, oc, kh, kw, stride[0], stride[1], pad[0][0], pad[1][0],
+            run_bytes(w.shape)]
+    return x.contiguous(), w, (b, max(oh, 0), max(ow, 0), oc), geom
 
 
 def conv_max_cuda(x: torch.Tensor, w: torch.Tensor, pad: Pads, stride=(1, 1)) -> torch.Tensor:
-    """Phase 1 on the card -> 0-d int32 max|conv| (INT32_MIN when empty)."""
+    """Phase 1 on the card -> 0-d int32 max|conv| (INT32_MIN when empty),
+    in one launch."""
     global MAX_LAUNCHES
     x, w, (b, oh, ow, oc), geom = _geometry(x, w, pad, stride)
-    out = torch.full((), -(2**31), dtype=torch.int32, device=x.device)
     if b * oh * ow * oc == 0:
-        return out
-    err = _lib().mh_fused_conv_max(x.data_ptr(), w.data_ptr(), out.data_ptr(), *geom,
-                                   torch.cuda.current_stream(x.device).cuda_stream)
+        return torch.full((), -(2**31), dtype=torch.int32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    wk = kmajor_weight(w, _kmajor_buffer(x.device, stream, tuple(w.shape)))
+    out = torch.empty((), dtype=torch.int32, device=x.device)
+    err = _lib().mh_fused_conv_max(x.data_ptr(), wk.data_ptr(), _state(x.device, stream).data_ptr(),
+                                   out.data_ptr(), *geom, stream)
     if err:
         raise RuntimeError(f"fused_conv_max kernel launch failed: CUDA error {err}")
     MAX_LAUNCHES += 1
@@ -143,9 +190,10 @@ def conv_requant_cuda(x: torch.Tensor, w: torch.Tensor, shift: torch.Tensor, pad
     y = torch.empty((b, oh, ow, oc), dtype=torch.int8, device=x.device)
     if y.numel() == 0:
         return y
-    err = _lib().mh_fused_conv_requant(x.data_ptr(), w.data_ptr(), shift.data_ptr(),
-                                       y.data_ptr(), *geom, int(grad),
-                                       torch.cuda.current_stream(x.device).cuda_stream)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    wk = kmajor_weight(w, _kmajor_buffer(x.device, stream, tuple(w.shape)))
+    err = _lib().mh_fused_conv_requant(x.data_ptr(), wk.data_ptr(), shift.data_ptr(),
+                                       y.data_ptr(), *geom, int(grad), stream)
     if err:
         raise RuntimeError(f"fused_conv_requant kernel launch failed: CUDA error {err}")
     REQUANT_LAUNCHES += 1

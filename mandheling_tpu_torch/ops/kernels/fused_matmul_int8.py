@@ -24,7 +24,10 @@ K6 (:func:`matmul_max_bf16`, ``csrc/matmul_max_bf16.cu``) is phase 1 with
 the int8 operands multiplied as bf16 on the tensor cores and summed in
 float32, then converted to int32: the bf16 variant of the TPU micro-probe
 ``tools/probes/dot_probe.py`` (``tools/probes/dot_probe_torch.py`` runs
-both). No training path calls it.
+both). No training path calls it. It stages the int8 tiles by ``cp.async``
+as they lie (A k-contiguous, B n-contiguous: other strides are copied so
+first), converts them into swizzled bf16 tiles in shared memory, and runs
+``wgmma`` on them, bound by the tensor cores' bf16 rate.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ import torch
 
 from .. import numerics
 from . import build
-from .matmul_int8 import _check, matmul_acc_plain, plan, prepare
+from .matmul_int8 import _check, copy_width, matmul_acc_plain, plan, prepare
 
 # Launches of the CUDA kernels (plain integers; counted where they launch).
 MAX_LAUNCHES = 0
@@ -160,7 +163,7 @@ def matmul_requant(a: torch.Tensor, b: torch.Tensor, shift: torch.Tensor,
 def _bf16_lib() -> ctypes.CDLL:
     lib = build.library("matmul_max_bf16")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.mh_matmul_max_bf16.argtypes = [p, p, p, i, i, i, ll, ll, ll, ll, p]
+    lib.mh_matmul_max_bf16.argtypes = [p, p, p, i, i, i, ll, ll, i, i, p]
     lib.mh_matmul_max_bf16.restype = ctypes.c_int
     return lib
 
@@ -183,9 +186,14 @@ def matmul_max_bf16_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     out = torch.full((), _INT32_MIN, dtype=torch.int32, device=a.device)
     if m == 0 or n == 0:
         return out
+    if a.stride(1) != 1 and k > 1:  # the kernel reads A's rows k-contiguous
+        a = a.contiguous()
+    if b.stride(1) != 1 and n > 1:  # and B's rows n-contiguous
+        b = b.contiguous()
     err = _bf16_lib().mh_matmul_max_bf16(
-        a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
-        a.stride(0), a.stride(1), b.stride(0), b.stride(1),
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, a.stride(0), b.stride(0),
+        copy_width(a.data_ptr(), a.stride(0) if m > 1 else 0),
+        copy_width(b.data_ptr(), b.stride(0) if k > 1 else 0),
         torch.cuda.current_stream(a.device).cuda_stream,
     )
     if err:

@@ -178,6 +178,79 @@ def test_fused_conv_kernels_match_plain(gen, x_shape, w_shape, stride, pad):
         assert torch.equal(got, fconv.conv_requant_plain(x, w, shift, pad, stride, grad))
 
 
+# K3 at each gather class (C % 16 == 0 on cp.async; C in {1, 3, 20, 52, 70}
+# on the byte path), each N class (20, 32, 52, 64, 128, 256, 512: BN 32 to
+# 256, N = 512 in two tiles), K of one stage and of more than four (the
+# ring route past 4 stages), both routes (B resident, or the 128-row ring),
+# strides 1 and 2 apart and asymmetric pads.
+K3_CLASS_CASES = [
+    ((2, 8, 8, 64), (3, 3, 64, 64), (1, 1), ((1, 1), (1, 1))),      # C % 16, K 576, stream
+    ((2, 8, 8, 64), (3, 3, 64, 128), (2, 2), ((0, 1), (0, 1))),     # N 128 s2, ring
+    ((2, 4, 4, 256), (3, 3, 256, 256), (1, 1), ((1, 1), (1, 1))),   # K 2304: 18 stages
+    ((2, 4, 4, 256), (3, 3, 256, 512), (2, 2), ((0, 1), (0, 1))),   # N 512: two tiles
+    ((3, 7, 9, 32), (3, 3, 32, 32), (1, 2), ((2, 0), (1, 2))),      # N 32, strides apart
+    ((2, 9, 7, 48), (3, 3, 48, 20), (2, 1), ((0, 2), (1, 1))),      # N 20
+    ((2, 5, 6, 64), (3, 3, 64, 52), (1, 1), ((2, 1), (0, 2))),      # N 52, pads past a row
+    ((2, 7, 7, 96), (5, 5, 96, 64), (1, 1), ((2, 2), (2, 2))),      # 5x5, K 2400, ring
+    ((2, 10, 10, 3), (3, 3, 3, 256), (1, 1), ((1, 1), (1, 1))),     # C 3, N 256
+    ((1, 12, 12, 20), (3, 3, 20, 512), (1, 1), ((1, 1), (1, 1))),   # C 20, N 512
+    ((2, 11, 13, 1), (5, 5, 1, 64), (2, 1), ((2, 1), (0, 3))),      # C 1
+    ((1, 9, 9, 52), (5, 5, 52, 128), (1, 1), ((4, 4), (4, 4))),     # C 52, K 1360
+    ((2, 6, 5, 70), (3, 3, 70, 64), (2, 2), ((1, 0), (0, 1))),      # C 70: runs not of 16
+]
+
+
+@pytest.mark.parametrize("x_shape,w_shape,stride,pad", K3_CLASS_CASES)
+@pytest.mark.parametrize("offset", [0, 1])
+def test_fused_conv_gather_classes(gen, x_shape, w_shape, stride, pad, offset):
+    """K3 byte-equal to its plain version in both phases and every shift
+    case; offset 1: x one byte off 16-byte alignment (a slice), which sends
+    C % 16 == 0 to the byte path too."""
+    n = x_shape[0] * x_shape[1] * x_shape[2] * x_shape[3]
+    x = rand_int8((n + offset,), gen)[offset:].view(x_shape)
+    w = rand_int8(w_shape, gen)
+    assert (x.data_ptr() % 16 == 0) == (offset == 0)
+    mx = fconv.conv_max_cuda(x, w, pad, stride)
+    assert torch.equal(mx, fconv.conv_max_plain(x, w, pad, stride))
+    for shift, grad in _shift_cases(mx):
+        got = fconv.conv_requant_cuda(x, w, shift, pad, stride, grad)
+        assert torch.equal(got, fconv.conv_requant_plain(x, w, shift, pad, stride, grad)), (
+            int(shift), grad)
+
+
+@pytest.mark.parametrize("x_shape,w_shape", [((2, 4, 4, 256), (3, 3, 256, 256)),
+                                             ((2, 9, 9, 3), (3, 3, 3, 32))])
+def test_fused_conv_saturated(gen, x_shape, w_shape):
+    """All -128 operands: the exact max (interior sums of K products of
+    2^14) in both gather classes, and both phase-2 variants."""
+    x = torch.full(x_shape, -128, dtype=torch.int8, device="cuda")
+    w = torch.full(w_shape, -128, dtype=torch.int8, device="cuda")
+    pad = ((1, 1), (1, 1))
+    mx = fconv.conv_max_cuda(x, w, pad)
+    assert int(mx) == w_shape[0] * w_shape[1] * w_shape[2] * 2**14
+    assert torch.equal(mx, fconv.conv_max_plain(x, w, pad))
+    for shift, grad in _shift_cases(mx):
+        got = fconv.conv_requant_cuda(x, w, shift, pad, (1, 1), grad)
+        assert torch.equal(got, fconv.conv_requant_plain(x, w, shift, pad, (1, 1), grad))
+
+
+def test_fused_conv_max_back_to_back(gen):
+    """Phase 1 at three shapes (both routes and gather classes), three
+    rounds on one stream without a synchronisation: its state is back at
+    {INT32_MIN, 0} after every call, so each call gives the plain max, and
+    so does the last state read."""
+    cases = [(rand_int8(xs, gen), rand_int8(ws, gen), pad, st)
+             for xs, ws, st, pad in (K3_CLASS_CASES[0], K3_CLASS_CASES[2], K3_CLASS_CASES[8])]
+    outs = [fconv.conv_max_cuda(x, w, p, s) for x, w, p, s in cases * 3]
+    torch.cuda.synchronize()
+    for i, (x, w, p, s) in enumerate(cases):
+        want = fconv.conv_max_plain(x, w, p, s)
+        for j in range(3):
+            assert torch.equal(outs[i + j * len(cases)], want), (i, j)
+    stream = torch.cuda.current_stream().cuda_stream
+    assert fconv._state(x.device, stream).tolist() == [-(2**31), 0]
+
+
 @pytest.mark.parametrize("xp_shape,k", [
     ((4, 18, 18, 24), (3, 3)), ((2, 34, 34, 144), (3, 3)), ((2, 10, 10, 576), (3, 3)),
     ((3, 6, 6, 960), (3, 3)), ((2, 11, 45, 33), (3, 3)), ((1, 9, 9, 7), (5, 5)),
@@ -349,7 +422,8 @@ def test_dwconv_fgrad_kernel_no_grid_limit(gen):
 
 
 @pytest.mark.parametrize("m,k,n", [(49152, 28, 512), (1000, 256, 512), (65, 37, 70),
-                                   (3, 5, 2), (128, 2600, 64)])
+                                   (3, 5, 2), (128, 2600, 64), (49152, 128, 512),
+                                   (49152, 256, 512), (300, 100, 70), (129, 0, 33)])
 def test_matmul_max_bf16_kernel_matches_plain(gen, m, k, n):
     """K6 at operands in [-80, 80), where every float32 sum is exact."""
     a, b = rand_int8((m, k), gen, -80, 80), rand_int8((k, n), gen, -80, 80)

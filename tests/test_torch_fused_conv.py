@@ -29,8 +29,10 @@ def rand_int8(rng, shape):
 
 
 # (x shape, w shape, stride, pads): the shapes of the JAX package's
-# test_fused_conv_strided_and_1x1_parity, and those of the main paths at
-# batch 2 (the MobileNetV2 stem; LeNet's conv1, conv2 and conv2 input grad).
+# test_fused_conv_strided_and_1x1_parity, those of the main paths at batch
+# 2 (the MobileNetV2 stem; LeNet's conv1, conv2 and conv2 input grad), and
+# ResNet18's 3x3 widths at batch 2 (K = 2304 turns the kernel's ring past 4
+# stages; N = 512 takes two tiles).
 KERNEL_CASES = [
     ((2, 9, 9, 3), (3, 3, 3, 8), (2, 2), ((0, 1), (0, 1))),
     ((2, 9, 9, 3), (5, 5, 3, 8), (2, 2), ((1, 2), (1, 2))),
@@ -39,6 +41,10 @@ KERNEL_CASES = [
     ((2, 28, 28, 1), (5, 5, 1, 20), (1, 1), ((0, 0), (0, 0))),
     ((2, 12, 12, 20), (5, 5, 20, 52), (1, 1), ((0, 0), (0, 0))),
     ((2, 8, 8, 52), (5, 5, 52, 20), (1, 1), ((4, 4), (4, 4))),
+    ((2, 8, 8, 64), (3, 3, 64, 64), (1, 1), ((1, 1), (1, 1))),
+    ((2, 8, 8, 64), (3, 3, 64, 128), (2, 2), ((0, 1), (0, 1))),
+    ((2, 4, 4, 256), (3, 3, 256, 256), (1, 1), ((1, 1), (1, 1))),
+    ((2, 4, 4, 256), (3, 3, 256, 512), (2, 2), ((0, 1), (0, 1))),
 ]
 
 
@@ -69,6 +75,53 @@ def test_fused_conv_supports_is_the_jax_rule():
         for wp in (6, 16, 34, 58, 226):
             for stride in ((1, 1), (2, 2)):
                 assert tfc.supports(w_shape, wp, stride) == jfc.supports(w_shape, wp, stride)
+
+
+# ResNet18's CIFAR 3x3 convs at b256 (w shape, padded input width, stride):
+# the seven `supports` admits, then the 512 -> 512 ones it refuses.
+RESNET18_CONVS = [
+    ((3, 3, 3, 64), 34, (1, 1)), ((3, 3, 64, 64), 34, (1, 1)), ((3, 3, 64, 128), 33, (2, 2)),
+    ((3, 3, 128, 128), 18, (1, 1)), ((3, 3, 128, 256), 17, (2, 2)),
+    ((3, 3, 256, 256), 10, (1, 1)), ((3, 3, 256, 512), 9, (2, 2)),
+]
+RESNET18_REFUSED = [((3, 3, 512, 512), 6, (1, 1))]
+
+
+@pytest.mark.parametrize("w_shape,wp,stride", RESNET18_CONVS + RESNET18_REFUSED)
+def test_fused_conv_supports_resnet18_shapes(w_shape, wp, stride):
+    """The port's `supports` agrees with the JAX rule at ResNet18's 3x3
+    convs: it admits the seven that fused mode "all" will send to K3 and
+    refuses the 512 -> 512 ones."""
+    want = (w_shape, wp, stride) in RESNET18_CONVS
+    assert tfc.supports(w_shape, wp, stride) == jfc.supports(w_shape, wp, stride) == want
+
+
+def test_kmajor_weight_is_the_gemm_b():
+    """K3's B: the HWIO weight K-major with each kernel row's KW*C bytes
+    padded to a multiple of 16; the padded GEMM of the conv's patches (each
+    row's taps padded alike) gives the plain version's accumulator."""
+    rng = np.random.default_rng(7)
+    for x_shape, w_shape, stride, pad in [((2, 9, 9, 3), (3, 3, 3, 8), (2, 2), ((0, 1), (0, 1))),
+                                          ((1, 7, 5, 70), (3, 2, 70, 65), (1, 2), ((2, 0), (0, 3))),
+                                          ((2, 6, 6, 32), (3, 3, 32, 5), (1, 1), ((1, 1), (1, 1)))]:
+        x, w = t(rand_int8(rng, x_shape)), t(rand_int8(rng, w_shape))
+        kh, kw, c, oc = w_shape
+        r = tfc.run_bytes(w_shape)
+        assert r % 16 == 0 and kw * c <= r < kw * c + 16
+        wk = tfc.kmajor_weight(w)
+        assert tuple(wk.shape) == (oc, kh * r) and wk.is_contiguous()
+        rows = wk.reshape(oc, kh, r)
+        assert torch.equal(rows[:, :, :kw * c], w.reshape(kh, kw * c, oc).permute(2, 0, 1))
+        assert not rows[:, :, kw * c:].any()
+        xp = torch.nn.functional.pad(x, (0, 0, pad[1][0], pad[1][1], pad[0][0], pad[0][1]))
+        oh, ow = tfc._out_spatial(x, w, pad, stride)
+        taps = torch.stack([xp[:, dy:dy + (oh - 1) * stride[0] + 1:stride[0],
+                               dx:dx + (ow - 1) * stride[1] + 1:stride[1], :]
+                            for dy in range(kh) for dx in range(kw)], dim=3)
+        a = torch.nn.functional.pad(taps.reshape(-1, kh, kw * c), (0, r - kw * c))
+        acc = a.reshape(-1, kh * r).to(torch.int64) @ wk.to(torch.int64).t()
+        want = tfc.conv_acc_plain(x, w, pad, stride).reshape(-1, oc).to(torch.int64)
+        assert torch.equal(acc, want)
 
 
 def test_plain_max_of_empty_is_int32_min():

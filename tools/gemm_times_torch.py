@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
-"""Device times of the int8 GEMM kernels K1 and K2 of `mandheling_tpu_torch`
-at every shape and operand layout the LeNet and MobileNetV2 training steps
-give them, through the public wrappers `matmul_acc_cuda`, `matmul_max_cuda`
-and `matmul_requant_cuda`; and, as controls, K3 (`conv_max_cuda` /
-`conv_requant_cuda` at the MobileNetV2 stem) and K6 (`matmul_max_bf16_cuda`
-at the dot probe's K = 256).
+"""Device times of the GEMM kernels of `mandheling_tpu_torch`: K1 and K2 at
+every shape and operand layout the LeNet and MobileNetV2 training steps give
+them, through the public wrappers `matmul_acc_cuda`, `matmul_max_cuda` and
+`matmul_requant_cuda`; K3's two phases (`conv_max_cuda`, `conv_requant_cuda`)
+at the MobileNetV2 stem, LeNet's three fused-mode-"all" convs and ResNet18's
+seven b256 3x3 shapes (K3_CASES), each beside the cuDNN fp32 conv of the same
+operands (TF32 off) and the non-fused route fused mode "all" replaces
+(`conv2d_forward` under "matmul_only"); and K6 (`matmul_max_bf16_cuda`) at
+the dot probe's (49152, K) x (K, 512), K in {28, 128, 256}.
 
     python3 tools/gemm_times_torch.py [--root DIR] [--label L] [--out FILE]
 
@@ -42,6 +45,23 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 COLD_BYTES = 64 * 2**20
+# (what, x shape, w shape, stride, pads), as chip_smoke.py's K3_CASES
+K3_CASES = [
+    ("MNv2 stem b256", (256, 32, 32, 3), (3, 3, 3, 32), (1, 1), ((1, 1), (1, 1))),
+    ("LeNet conv1 b64", (64, 28, 28, 1), (5, 5, 1, 20), (1, 1), ((0, 0), (0, 0))),
+    ("LeNet conv2 b64", (64, 12, 12, 20), (5, 5, 20, 52), (1, 1), ((0, 0), (0, 0))),
+    ("LeNet conv2 igrad b64", (64, 8, 8, 52), (5, 5, 52, 20), (1, 1), ((4, 4), (4, 4))),
+    ("ResNet18 stem 3->64", (256, 32, 32, 3), (3, 3, 3, 64), (1, 1), ((1, 1), (1, 1))),
+    ("ResNet18 layer1 64->64", (256, 32, 32, 64), (3, 3, 64, 64), (1, 1), ((1, 1), (1, 1))),
+    ("ResNet18 layer2 s2 64->128", (256, 32, 32, 64), (3, 3, 64, 128), (2, 2), ((0, 1), (0, 1))),
+    ("ResNet18 layer2 128->128", (256, 16, 16, 128), (3, 3, 128, 128), (1, 1), ((1, 1), (1, 1))),
+    ("ResNet18 layer3 s2 128->256", (256, 16, 16, 128), (3, 3, 128, 256), (2, 2),
+     ((0, 1), (0, 1))),
+    ("ResNet18 layer3 256->256", (256, 8, 8, 256), (3, 3, 256, 256), (1, 1), ((1, 1), (1, 1))),
+    ("ResNet18 layer4 s2 256->512", (256, 8, 8, 256), (3, 3, 256, 512), (2, 2), ((0, 1), (0, 1))),
+]
+K6_KS = (28, 128, 256)
+BUDGET_MS = 200.0  # device time a timed loop may take: a slow kernel gets fewer launches
 
 
 def layout_key(a, b):
@@ -106,6 +126,66 @@ def time_ms(fn, sets, launches=20, rounds=5):
         torch.cuda.synchronize()
         per_call.append(start.elapsed_time(end) / n)
     return statistics.median(per_call)
+
+
+def time_budgeted(fn, sets=((),), rounds=5):
+    """time_ms with as many launches (at most 20, at least 2) as fit
+    BUDGET_MS, from one timed call."""
+    fn(*sets[0])
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn(*sets[0])
+    end.record()
+    torch.cuda.synchronize()
+    launches = int(max(2, min(20, BUDGET_MS / max(start.elapsed_time(end), 1e-3))))
+    return time_ms(fn, list(sets), launches=launches, rounds=rounds)
+
+
+def time_k3(pkg, gen):
+    """Both phases of K3 at each of K3_CASES, the cuDNN fp32 conv and the
+    non-fused route, with the bound's operations and bytes."""
+    fc, num, conv = pkg["fused_conv_int8"], pkg["numerics"], pkg["conv"]
+    zero = torch.zeros((), dtype=torch.int32, device="cuda")
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    rows = []
+    for what, xs, ws, stride, pads in K3_CASES:
+        x = torch.randint(-128, 128, xs, generator=gen, dtype=torch.int8, device="cuda")
+        w = torch.randint(-128, 128, ws, generator=gen, dtype=torch.int8, device="cuda")
+        shift = num.forward_shift(num.range_estimate_from_max(fc.conv_max_cuda(x, w, pads, stride)))
+        oh, ow = fc._out_spatial(x, w, pads, stride)
+        m, k, n = xs[0] * oh * ow, ws[0] * ws[1] * ws[2], ws[3]
+        with conv.use_fused_conv_mode("matmul_only"):
+            nonfused = time_budgeted(lambda: conv.conv2d_forward(x, zero, w, zero, stride, pads),
+                                     rounds=3)
+        (pt, pb), (pl, pr) = pads
+        xf = torch.nn.functional.pad(x.permute(0, 3, 1, 2).float(), (pl, pr, pt, pb)).contiguous(
+            memory_format=torch.channels_last)
+        wf = w.permute(3, 2, 0, 1).float().contiguous(memory_format=torch.channels_last)
+        rows.append(dict(
+            what=what, x=xs, w=ws, stride=stride, pads=pads, m=m, k=k, n=n,
+            ops=2.0 * m * k * n, max_bytes=x.numel() + w.numel() + 4.0,
+            requant_bytes=x.numel() + w.numel() + 4.0 + m * n,
+            max_ms=time_budgeted(lambda: fc.conv_max_cuda(x, w, pads, stride)),
+            requant_ms=time_budgeted(lambda: fc.conv_requant_cuda(x, w, shift, pads, stride)),
+            nonfused_ms=nonfused,
+            cudnn_fp32_ms=time_budgeted(
+                lambda: torch.nn.functional.conv2d(xf, wf, stride=stride), rounds=3)))
+        del xf, wf
+    torch.backends.cudnn.allow_tf32 = tf32
+    return rows
+
+
+def time_k6(pkg, gen):
+    fmm = pkg["fused_matmul_int8"]
+    rows = []
+    for k in K6_KS:
+        a = torch.randint(-80, 80, (49152, k), generator=gen, dtype=torch.int8, device="cuda")
+        b = torch.randint(-80, 80, (k, 512), generator=gen, dtype=torch.int8, device="cuda")
+        rows.append(dict(k=k, ops=2.0 * 49152 * k * 512, bytes=49152 * k + k * 512 + 4.0,
+                         ms=time_budgeted(fmm.matmul_max_bf16_cuda, [(a, b)])))
+    return rows
 
 
 def operands(key, gen, copies=1):
@@ -175,11 +255,12 @@ def main() -> int:
     sys.path.insert(0, str(Path(args.root).resolve()))
     from mandheling_tpu_torch.models import (MOBILENET_V2_NITI_LOGITS, lenet_niti,
                                              mobilenet_v2_niti)
-    from mandheling_tpu_torch.ops import numerics
+    from mandheling_tpu_torch.ops import conv, numerics
     from mandheling_tpu_torch.ops.kernels import (build, fused_conv_int8, fused_matmul_int8,
                                                   matmul_int8)
     from mandheling_tpu_torch.train import make_eval_step, make_train_step
     pkg = dict(matmul_int8=matmul_int8, fused_matmul_int8=fused_matmul_int8, numerics=numerics,
+               fused_conv_int8=fused_conv_int8, conv=conv,
                make_train_step=make_train_step, make_eval_step=make_eval_step,
                logits=MOBILENET_V2_NITI_LOGITS)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -198,19 +279,8 @@ def main() -> int:
     res["mnv2_b256_k1"] = time_k1(pkg, mnv2["train"]["K1"], gen, library=True)
     res["mnv2_b256_k2"] = time_k2(pkg, mnv2["train"]["K2"], gen)
 
-    x = torch.randint(-128, 128, (256, 32, 32, 3), generator=gen, dtype=torch.int8, device="cuda")
-    w = torch.randint(-128, 128, (3, 3, 3, 32), generator=gen, dtype=torch.int8, device="cuda")
-    pads, stride = ((1, 1), (1, 1)), (1, 1)
-    shift = numerics.forward_shift(numerics.range_estimate_from_max(
-        fused_conv_int8.conv_max_cuda(x, w, pads, stride)))
-    a6 = torch.randint(-80, 80, (49152, 256), generator=gen, dtype=torch.int8, device="cuda")
-    b6 = torch.randint(-80, 80, (256, 512), generator=gen, dtype=torch.int8, device="cuda")
-    res["controls"] = {
-        "K3 max, MNv2 stem b256": time_ms(lambda: fused_conv_int8.conv_max_cuda(x, w, pads, stride), [()]),
-        "K3 requant, MNv2 stem b256": time_ms(
-            lambda: fused_conv_int8.conv_requant_cuda(x, w, shift, pads, stride), [()]),
-        "K6, (49152,256)x(256,512)": time_ms(fused_matmul_int8.matmul_max_bf16_cuda, [(a6, b6)]),
-    }
+    res["k3"] = time_k3(pkg, gen)
+    res["k6"] = time_k6(pkg, gen)
 
     k1, k2 = res["mnv2_b256_k1"], res["mnv2_b256_k2"]
     row_major = lambda r: r["key"][3] == "k"  # noqa: E731
@@ -234,7 +304,11 @@ def main() -> int:
         "mnv2_k2_requant_ms": total(k2, "requant_ms"),
         "mnv2_k2_requant_cold_ms": total(k2, "requant_cold_ms"),
     }
-    print(f"[{args.label}] " + json.dumps({**res["sums"], **res["controls"]}), flush=True)
+    k3 = {r["what"]: [round(r[f], 5) for f in ("max_ms", "requant_ms", "nonfused_ms",
+                                               "cudnn_fp32_ms")] for r in res["k3"]}
+    k6 = {r["k"]: round(r["ms"], 5) for r in res["k6"]}
+    print(f"[{args.label}] " + json.dumps({**res["sums"], "K3 max, requant, non-fused, cuDNN "
+                                           "fp32 ms": k3, "K6 ms by K": k6}), flush=True)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(res, indent=1))

@@ -60,7 +60,22 @@ raises on failure (the script then exits non-zero and prints no result):
 10. the dot probe `tools/probes/dot_probe_torch.py`: K2's phase 1 (int8)
    and K6 (fused_matmul_max_bf16) at (49152, K) x (K, 512), K in {28, 128,
    256}, exactly equal to plain, and their times;
-11. one JSON line listing every kernel, then the result line.
+11. the NITI ResNet-18 through `train_niti(model=resnet18_niti())` on
+   synthetic CIFAR: batch 256 under "matmul_only", kernels against plain on
+   the card (K1's and K2's shapes recorded, K2's held to
+   K2_RESNET18_CASES); batch 8 against the CPU; batch 256 under "all",
+   against plain on the card, its K3 shapes held to K3_CASES; samples/s of
+   batch 256 in both modes in turns; K1 (beside torch._int_mm), K2 and K3
+   over one train step, weighted by the recording. ResNet-v2-50 (1000
+   classes) at (16, 224, 224, 3): two train steps and one eval step through
+   make_train_step / make_eval_step, kernels against plain on the card, and
+   K2 at each shape it takes. The float twins ResNet18FP32 and
+   MobileNetV2FP32: at batch 8 the card against the CPU (forwards and
+   running stats in float32, trainer steps in float64), and samples/s of
+   `train_fp32_bn` at batch 256 (TF32 off). Then tools/test_train_torch.py
+   on resnet18_niti, batch 64, 50 steps, as a process of its own: its
+   record must parse, its PASS or FAIL is reported;
+12. one JSON line listing every kernel, then the result line.
 
 Every main-path run asserts its launch counts, per kernel, against the
 routes one train step and one eval step take (EXPECTED_PER_STEP). The
@@ -70,6 +85,9 @@ are recorded, and K2's there with their operand layouts; K4's and K5's must
 be the shapes phase 3 checked, K2's those of K2_PATH_CASES, and the
 per-step counts weight the timings of K1, K2, K4 and K5 into the sums of
 one train step (K4's per-channel timings into the recipe's).
+
+Under "all", ResNet-18's K1 launches are a subset of its "matmul_only"
+shapes and are weighted from the same timings.
 
 The last line of standard output is {"ok": true, "device": {...}}.
 """
@@ -94,8 +112,9 @@ import numpy as np
 import torch
 
 from mandheling_tpu_torch.data import load_or_synthesize_cifar, synthetic_cifar, synthetic_mnist
-from mandheling_tpu_torch.models import (NITI_LOGIT_CHANNELS, NUM_CLASSES, lenet_niti,
-                                         mobilenet_v2_niti)
+from mandheling_tpu_torch.models import (NITI_LOGIT_CHANNELS, NUM_CLASSES, MobileNetV2FP32,
+                                         ResNet18FP32, lenet_niti, mobilenet_v2_niti,
+                                         resnet18_niti, resnet50v2_niti)
 from mandheling_tpu_torch.ops import conv as conv_ops
 from mandheling_tpu_torch.ops import depthwise as dw_ops
 from mandheling_tpu_torch.ops import numerics
@@ -105,8 +124,8 @@ from mandheling_tpu_torch.ops.kernels import (build, fused_conv_int8, fused_dwco
                                               fused_matmul_int8, matmul_int8)
 from mandheling_tpu_torch.data.loader import onehot_padded
 from mandheling_tpu_torch.train import make_eval_step, make_train_step
-from mandheling_tpu_torch.train.trainer import train_niti
-from mandheling_tpu_torch.utils.jax_params import export_jax_params, flat_weights
+from mandheling_tpu_torch.train.trainer import train_fp32_bn, train_niti
+from mandheling_tpu_torch.utils.jax_params import export_jax_params, flat_weights, load_jax_params
 
 ROOT = Path(__file__).resolve().parent
 
@@ -179,6 +198,14 @@ K3_CASES = [
         ("layer3 256->256", (256, 8, 8, 256), (3, 3, 256, 256), (1, 1), ((1, 1), (1, 1))),
         ("layer4 s2 256->512", (256, 8, 8, 256), (3, 3, 256, 512), (2, 2), ((0, 1), (0, 1))),
     ]
+]
+K3_KEYS = {(xs, ws, stride, pads) for _, xs, ws, stride, pads in K3_CASES}
+# K2's calls in a batch-256 ResNet-18 train or eval step, (M, K, N, A's
+# layout, B's layout): the three strided 1x1 projections (B "n") and their
+# input grads (B "k"), whose accumulators `supports` takes from 2 MB on.
+K2_RESNET18_CASES = [
+    (4096, 256, 512, "k", "n"), (16384, 128, 256, "k", "n"), (16384, 512, 256, "k", "k"),
+    (65536, 64, 128, "k", "n"), (65536, 256, 128, "k", "k"), (262144, 128, 64, "k", "k"),
 ]
 # K4: (what, x shape, kernel size, pads, dilation). K4_PATH_CASES are the
 # depthwise calls of a batch-256 MobileNetV2 step, per-tensor and under the
@@ -280,6 +307,15 @@ EXPECTED_PER_STEP = {
                                     {"K1": 23, "K2": 13, "K4": 14}),
     ("mnv2pc", 16, "matmul_only"): ({"K1": 95, "K2": 12, "K4": 31, "K5": 17},
                                     {"K1": 30, "K2": 6, "K4": 14}),
+    # ResNet-18 (CIFAR): K2 takes the strided 1x1 projections and their input
+    # grads where the accumulator reaches 2 MB (at batch 8 one input grad);
+    # under "all" K3 takes the 3x3 forwards but layer4's 512 -> 512 and the
+    # stride-1 input grads of layer1-3. ResNet-v2-50 at 224x224, 1000
+    # classes: K2 the bottleneck 1x1s at 55x55 and 28x28, K1 the rest.
+    ("resnet18", 256, "matmul_only"): ({"K1": 56, "K2": 6}, {"K1": 18, "K2": 3}),
+    ("resnet18", 256, "all"): ({"K1": 32, "K2": 6, "K3": 24}, {"K1": 4, "K2": 3, "K3": 14}),
+    ("resnet18", 8, "matmul_only"): ({"K1": 61, "K2": 1}, {"K1": 21}),
+    ("resnet50v2", 16, "matmul_only"): ({"K1": 127, "K2": 34}, {"K1": 37, "K2": 17}),
 }
 FAMILIES = {"K1": ("matmul_int8",), "K2": ("fused_matmul_max", "fused_matmul_requant"),
             "K3": ("fused_conv_max", "fused_conv_requant"),
@@ -335,6 +371,11 @@ def cold_copies(m, k, n):
     return min(1000, max(2, -(-COLD_BYTES // (m * k + k * n))))
 
 
+def k3_key(x, w, pad, stride, **_):
+    """(x shape, w shape, stride, pads) of a K3 call, as K3_KEYS has them."""
+    return (tuple(x.shape), tuple(w.shape), tuple(stride), tuple(map(tuple, pad)))
+
+
 def k4_key(x, w, pads=((0, 0), (0, 0)), dilation=(1, 1), **_):
     """(x shape, kernel size, pads, dilation) of a K4 call; the forward and
     the input grad (w rotated) of one shape are one key."""
@@ -352,6 +393,7 @@ def k5_row_key(row):
 
 
 RECORD_K1 = {"K1": (matmul_int8, "matmul_acc_cuda", k1_key)}
+RECORD_K3 = {"K3": (fused_conv_int8, "conv_max_cuda", k3_key)}
 RECORD_K2 = {"K2": (fused_matmul_int8, "matmul_max_cuda", k1_key)}
 RECORD_K4 = {"K4": (fused_dwconv_int8, "dwconv_max_cuda", k4_key)}
 RECORD_K5 = {"K5": (fused_dwconv_int8, "dwconv_fgrad_acc_cuda", k5_key)}
@@ -1041,13 +1083,141 @@ def path_step_weights(fam, run_seen, n_train, n_eval, step_seen, keys=None):
     return train
 
 
-def throughput(batch, steps, start, model_fn=lenet_niti, data=synthetic_mnist):
+def throughput(batch, steps, start, model_fn=lenet_niti, data=synthetic_mnist,
+               mode="matmul_only"):
     """Samples/s of `train_niti` with the kernels: the second of two epochs
     of `steps` steps, as the trainer's StepTimer reports it."""
     x, y = data(batch * steps, seed=11)
     test = data(batch, seed=12)
-    run = train_run(batch, 2, (x, y), test, start, "cuda", "cuda", model_fn)
+    run = train_run(batch, 2, (x, y), test, start, "cuda", "cuda", model_fn, mode)
     return run["samples_per_s"], run["lines"][-1]
+
+
+def k3_step_sum(k3_per_step, k3_rows):
+    """K3's two phases over one train step, the per-call times of k3_rows
+    weighted by the launches recorded at each shape, beside the cuDNN fp32
+    conv and the non-fused route at the same shapes."""
+    rows = {(r["x"], r["w"], r["stride"], r["pads"]): r for r in k3_rows}
+    out = {"launches": sum(k3_per_step.values()),
+           "cudnn_fp32_ms": sum(n * rows[k]["cudnn_fp32_ms"] for k, n in k3_per_step.items()),
+           "nonfused_ms": sum(n * rows[k]["nonfused_ms"] for k, n in k3_per_step.items()),
+           "by_shape": [dict(what=rows[k]["what"], launches_per_train_step=n)
+                        for k, n in sorted(k3_per_step.items())]}
+    for phase in ("max", "requant"):
+        out[phase] = {key: sum(n * rows[k][phase][key] for k, n in k3_per_step.items())
+                      for key in ("ms", "plain_ms", "bound_ms")}
+    return out
+
+
+def resnet50v2_steps(start, backend, xs, ohs, xe, ye, record=None):
+    """Train steps on (xs, ohs) and one eval step of ResNet-v2-50 (1000
+    classes) through make_train_step / make_eval_step on the card ->
+    (params, losses, correct, the calls of `record` in the train steps)."""
+    model = load_jax_params(resnet50v2_niti(num_classes=1000), start).to("cuda")
+    step, evals = make_train_step(model), make_eval_step(model, num_classes=1000)
+    with kernels.use_backend(backend):
+        with recording(record or {}) as seen:
+            losses = [float(step(x, oh)) for x, oh in zip(xs, ohs)]
+        correct = int(evals(xe, ye))
+    return export_jax_params(model), losses, correct, seen
+
+
+def fp32_forward_close(tag, cls, x, rtol_train):
+    """A float twin's forward, eval and train mode, and its running stats
+    after the training forward, on the card against the CPU from the same
+    params (TF32 off): within 1e-5 of the CPU's largest magnitude (the
+    training forward within `rtol_train`), each batch norm's stats within
+    1e-5 of its (mean, var) pair's."""
+    cpu = cls().reset_parameters(torch.Generator().manual_seed(3))
+    card = cls().load_params(cpu.params_numpy()).to("cuda")
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            outs = [(m(x.to(dev)).cpu(), m(x.to(dev), training=True).cpu())
+                    for m, dev in ((card, "cuda"), (cpu, "cpu"))]
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    errs = []
+    for got, want, rtol in zip(outs[0], outs[1], (1e-5, rtol_train)):
+        err = float((got - want).abs().max() / want.abs().max())
+        if not err <= rtol:
+            raise AssertionError(f"{tag}: card forward {err} from the CPU's (> {rtol})")
+        errs.append(err)
+
+    def stats(tree):
+        if isinstance(tree, list):
+            return [s for t in tree for s in stats(t)]
+        if "mean" in tree:
+            return [(tree["mean"], tree["var"])]
+        return [s for v in tree.values() if isinstance(v, dict) for s in stats(v)]
+
+    worst = 0.0
+    for (m1, v1), (m2, v2) in zip(stats(card.params_numpy()), stats(cpu.params_numpy())):
+        scale = max(np.abs(m2).max(), np.abs(v2).max())
+        worst = max(worst, float(max(np.abs(m1 - m2).max(), np.abs(v1 - v2).max()) / scale))
+    if not worst <= 1e-5:
+        raise AssertionError(f"{tag}: card running stats {worst} from the CPU's")
+    return errs + [worst]
+
+
+def fp32_float64_steps(tag, cls, steps, batch):
+    """`train_fp32_bn` in float64 on the card and on the CPU for `steps`
+    steps from the same params: each layer entry within 1e-4 of its largest
+    magnitude (a float32 step at a small batch is too ill-conditioned to
+    compare, tests/test_torch_fp32_cifar_train.py)."""
+    start = cls().reset_parameters(torch.Generator().manual_seed(4)).params_numpy()
+    train, test = synthetic_cifar(batch * steps, seed=41), synthetic_cifar(batch, seed=42)
+    trees = []
+    for device in ("cuda", "cpu"):
+        model, _ = train_fp32_bn(cls().double(), train, test, epochs=1, batch=batch,
+                                 log=lambda ln: None, start_params=start, device=device)
+        trees.append(model.params_numpy())
+
+    def entries(tree):
+        return [e for t in tree for e in entries(t)] if isinstance(tree, list) else [tree]
+
+    def leaves(entry):
+        return [a for k in sorted(entry) for a in
+                (leaves(entry[k]) if isinstance(entry[k], dict) else [entry[k]])]
+
+    worst = 0.0
+    for a, b in zip(entries(trees[0]), entries(trees[1])):
+        scale = max(np.abs(v).max() for v in leaves(b))
+        worst = max(worst, float(max(np.abs(u - v).max() for u, v in zip(leaves(a), leaves(b)))
+                                 / scale))
+    if not worst <= 1e-4:
+        raise AssertionError(f"{tag}: float64 params after {steps} steps {worst} apart")
+    return worst
+
+
+def fp32_throughput(cls, batch, steps):
+    """Samples/s of `train_fp32_bn` on the card (TF32 off): the second of
+    two epochs of `steps` steps, as the trainer's StepTimer reports it."""
+    lines = []
+    train, test = synthetic_cifar(batch * steps, seed=11), synthetic_cifar(batch, seed=12)
+    train_fp32_bn(cls(), train, test, epochs=2, batch=batch, log=lines.append, device="cuda")
+    return float(re.search(r"([\d.]+) samples/s", lines[-1]).group(1)), lines[-1]
+
+
+def run_test_train_gate(config, timeout=600):
+    """tools/test_train_torch.py as a process of its own on `config` ->
+    its JSON record and exit code; exit 0 (PASS) and 1 (FAIL) are results,
+    any other code raises."""
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        path = Path(tmp) / "config.json"
+        path.write_text(json.dumps(config))
+        proc = subprocess.run([sys.executable, str(ROOT / "tools" / "test_train_torch.py"),
+                               str(path)], capture_output=True, text=True, timeout=timeout)
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode not in (0, 1) or len(lines) < 2:
+        raise AssertionError(f"test_train_torch.py exit {proc.returncode}:\n{proc.stderr[-3000:]}")
+    record = json.loads(lines[-2])
+    if lines[-1] != ("TEST_TRAIN PASS" if record["pass"] else "TEST_TRAIN FAIL") or \
+            proc.returncode != (0 if record["pass"] else 1):
+        raise AssertionError(f"test_train_torch.py printed {lines[-2:]}, exit {proc.returncode}")
+    return record, proc.returncode
+
 
 
 def fused_entries(name_prefix, source, replaces, row, launches, launches_by_run, extra):
@@ -1253,6 +1423,134 @@ def main() -> int:
     probe_counts = kernels.launch_counts()
     kernels.reset_launch_counts()
 
+    print("phase 11: ResNet-18 (NITI, CIFAR) and ResNet-v2-50, and the float twins", flush=True)
+    rn_start = export_jax_params(resnet18_niti().reset_parameters(torch.Generator().manual_seed(0)))
+    record_rn = {**RECORD_K1, **RECORD_K2}
+    run_rn, runs["resnet18_b256"], seen_rn = main_path(
+        "resnet18 b256", ("resnet18", 256, "matmul_only"), cifar_train, cifar_test, 1, rn_start,
+        [("cuda", "torch")], model_fn=resnet18_niti, record=record_rn)
+    _, seen_rn_steps = per_step_counts(("resnet18", 256, "matmul_only"), run_rn["model"], xc, yc,
+                                       NITI_LOGIT_CHANNELS, record=record_rn)
+    k1_rn_per_step = path_step_weights("K1", seen_rn, n_train, n_eval, seen_rn_steps)
+    k2_rn_per_step = path_step_weights("K2", seen_rn, n_train, n_eval, seen_rn_steps,
+                                       K2_RESNET18_CASES)
+    del run_rn
+    _, runs["resnet18_b8"], _ = main_path(
+        "resnet18 b8", ("resnet18", 8, "matmul_only"), synthetic_cifar(16, seed=3),
+        synthetic_cifar(8, seed=4), 1, rn_start, [("cpu", "cuda")], model_fn=resnet18_niti)
+    run_rn_all, runs["resnet18_all_b256"], seen_rn_all = main_path(
+        "resnet18 all b256", ("resnet18", 256, "all"), cifar_train, cifar_test, 1, rn_start,
+        [("cuda", "torch")], model_fn=resnet18_niti, record={**RECORD_K1, **RECORD_K3})
+    _, seen_rn_all_steps = per_step_counts(("resnet18", 256, "all"), run_rn_all["model"], xc, yc,
+                                           NITI_LOGIT_CHANNELS, record={**RECORD_K1, **RECORD_K3})
+    k3_rn_per_step = path_step_weights("K3", seen_rn_all, n_train, n_eval, seen_rn_all_steps)
+    k1_rn_all_per_step = path_step_weights("K1", seen_rn_all, n_train, n_eval, seen_rn_all_steps)
+    if not set(seen_rn_all["K3"]) <= K3_KEYS:
+        raise AssertionError(f"K3 shapes {sorted(set(seen_rn_all['K3']) - K3_KEYS)} of ResNet-18 "
+                             "are not K3_CASES shapes")
+    if not set(k1_rn_all_per_step) <= set(k1_rn_per_step):
+        raise AssertionError("K1 shapes of ResNet-18 under 'all' that 'matmul_only' lacks")
+    print(f"  ResNet-18 b256 'all': its {len(seen_rn_all['K3'])} K3 shapes are K3_CASES shapes, "
+          f"checked and timed in phase 3; K3 launches by shape, one train step: "
+          f"{ {k[0][1:] + k[1][2:]: n for k, n in k3_rn_per_step.items()} }", flush=True)
+    del run_rn_all
+    rn_rates = {"matmul_only": [], "all": []}
+    for mode in ("matmul_only", "all", "all", "matmul_only"):  # in turns
+        rate, line = throughput(256, 8, rn_start, resnet18_niti, synthetic_cifar, mode)
+        rn_rates[mode].append(rate)
+        print(f"  throughput on {name} ({card}): ResNet-18 batch 256 '{mode}' {rate:.1f} "
+              f"samples/s [{line}]", flush=True)
+    print(f"  K1 at the {len(k1_rn_per_step)} shapes of a ResNet-18 batch-256 train step, "
+          "against torch._int_mm (the yardstick)", flush=True)
+    k1_rn_rows = k1_library_rows(k1_rn_per_step, rates, gen)
+    k1_rn = k1_library_summary(k1_rn_rows)
+    rows_by_key = {(r["m"], r["k"], r["n"], r["a_layout"], r["b_layout"]): r for r in k1_rn_rows}
+    k1_rn["all_mode"] = {"launches": sum(k1_rn_all_per_step.values()),
+                         **{key: sum(n * rows_by_key[k][key] for k, n in k1_rn_all_per_step.items())
+                            for key in ("ms", "cold_ms", "bound_ms")}}
+    print(f"  K1 over one ResNet-18 b256 train step ({k1_rn['launches']} launches): "
+          f"{k1_rn['ms']:.4f} ms (cold {k1_rn['cold_ms']:.4f}), plain {k1_rn['plain_ms']:.4f} ms, "
+          f"bound {k1_rn['bound_ms']:.4f} ms; A row-major ({k1_rn['a']['all_launches']}) "
+          f"{k1_rn['a']['all_ms']:.4f} ms, A MN-major ({k1_rn['a_t']['all_launches']}) "
+          f"{k1_rn['a_t']['all_ms']:.4f} ms; on the {k1_rn['library_launches']} launches _int_mm "
+          f"takes: K1 {k1_rn['ms_where_library_takes']:.4f} ms, _int_mm {k1_rn['library_ms']:.4f} ms;"
+          f" under 'all' ({k1_rn['all_mode']['launches']} launches) {k1_rn['all_mode']['ms']:.4f} ms",
+          flush=True)
+    print(f"  K2 at the {len(k2_rn_per_step)} shapes of a ResNet-18 batch-256 train step", flush=True)
+    k2_rn_rows = k2_path_rows(k2_rn_per_step, rates, int_rate, gen)
+    k2_rn = k2_path_summary(k2_rn_rows, rates)
+    k3_rn = k3_step_sum(k3_rn_per_step, k3_rows)
+    for ph in ("max", "requant"):
+        print(f"  K2 {ph} over one ResNet-18 b256 train step ({k2_rn['launches']} launches): "
+              f"{k2_rn[ph]['ms']:.4f} ms, bound {k2_rn[ph]['bound_ms']:.4f} ms; K3 {ph} "
+              f"({k3_rn['launches']} launches, 'all'): {k3_rn[ph]['ms']:.4f} ms, plain "
+              f"{k3_rn[ph]['plain_ms']:.4f}, bound {k3_rn[ph]['bound_ms']:.4f} ms", flush=True)
+    print(f"  K3's shapes over one ResNet-18 b256 train step: cuDNN fp32 {k3_rn['cudnn_fp32_ms']:.4f}"
+          f" ms, the non-fused route {k3_rn['nonfused_ms']:.4f} ms", flush=True)
+
+    v2_start = export_jax_params(
+        resnet50v2_niti(num_classes=1000).reset_parameters(torch.Generator().manual_seed(0)))
+    rng = np.random.default_rng(50)
+    v2_x = [torch.from_numpy(rng.integers(0, 256, (16, 224, 224, 3)).astype(np.float32)).cuda()
+            for _ in range(3)]
+    v2_y = rng.integers(0, 1000, (3, 16))
+    v2_oh = [torch.from_numpy(onehot_padded(y, 1000, 1000)).cuda() for y in v2_y[:2]]
+    v2_labels = torch.from_numpy(v2_y[2].astype(np.int64)).cuda()
+    kernels.reset_launch_counts()
+    v2_params, v2_losses, v2_correct, seen_v2 = resnet50v2_steps(
+        v2_start, "cuda", v2_x[:2], v2_oh, v2_x[2], v2_labels, record=RECORD_K2)
+    torch.cuda.synchronize()
+    runs["resnet50v2_b16"] = kernels.launch_counts()
+    kernels.reset_launch_counts()
+    plain = resnet50v2_steps(v2_start, "torch", v2_x[:2], v2_oh, v2_x[2], v2_labels)
+    if any(kernels.launch_counts().values()):
+        raise AssertionError(f"plain runs launched kernels: {kernels.launch_counts()}")
+    if not params_equal(v2_params, plain[0]) or plain[2] != v2_correct or \
+            max(abs(a - b) for a, b in zip(v2_losses, plain[1])) > 1e-5:
+        raise AssertionError(f"resnet50v2 b16: kernels and plain on the card differ "
+                             f"(losses {v2_losses} vs {plain[1]})")
+    if not all(np.isfinite(v2_losses)) or params_equal(v2_params, v2_start):
+        raise AssertionError(f"resnet50v2 b16: losses {v2_losses}, or the params did not move")
+    want = expected_launches(("resnet50v2", 16, "matmul_only"), 2, 1)
+    if family_counts(runs["resnet50v2_b16"]) != want:
+        raise AssertionError(f"resnet50v2 b16 launches {runs['resnet50v2_b16']}, expected {want}")
+    print(f"  resnet50v2 b16 224x224: params byte-identical across the kernels and plain on the "
+          f"card; losses {v2_losses}; launches {family_counts(runs['resnet50v2_b16'])}", flush=True)
+    del plain, v2_x, v2_oh
+    if any(n % 2 for n in seen_v2["K2"].values()):
+        raise AssertionError(f"resnet50v2's two train steps gave K2 {dict(seen_v2['K2'])}")
+    print(f"  K2 at the {len(seen_v2['K2'])} shapes of a ResNet-v2-50 b16 train step", flush=True)
+    k2_v2_rows = k2_path_rows({k: n // 2 for k, n in seen_v2["K2"].items()}, rates, int_rate, gen)
+    k2_v2 = k2_path_summary(k2_v2_rows, rates)
+    torch.cuda.empty_cache()
+
+    fp32_checks = {
+        "resnet18_fp32_b8": fp32_forward_close("ResNet18FP32 b8", ResNet18FP32,
+                                               torch.from_numpy(synthetic_cifar(8, seed=9)[0]
+                                                                .astype(np.float32) / 127.5 - 1),
+                                               1e-5),
+        "mnv2_fp32_b8": fp32_forward_close("MobileNetV2FP32 b8", MobileNetV2FP32,
+                                           torch.from_numpy(synthetic_cifar(8, seed=9)[0]
+                                                            .astype(np.float32) / 127.5 - 1),
+                                           5e-5),
+        "resnet18_fp32_b8_float64_3_steps": fp32_float64_steps("ResNet18FP32", ResNet18FP32, 3, 8),
+        "mnv2_fp32_b8_float64_1_step": fp32_float64_steps("MobileNetV2FP32", MobileNetV2FP32, 1, 8),
+    }
+    print(f"  fp32 twins at b8, card against the CPU (forward eval / train / running stats; "
+          f"float64 trainer steps), largest relative differences: {fp32_checks}", flush=True)
+    fp32_rates = {}
+    for tag, cls in (("resnet18_fp32_b256", ResNet18FP32), ("mnv2_fp32_b256", MobileNetV2FP32)):
+        fp32_rates[tag], line = fp32_throughput(cls, 256, 2)
+        print(f"  throughput on {name} ({card}): {tag} (TF32 off) {fp32_rates[tag]:.1f} samples/s "
+              f"[{line}]", flush=True)
+    gate, gate_code = run_test_train_gate({"model": "resnet18_niti", "batch": 64, "steps": 50})
+    if gate["steps"] != 50 or not (np.isfinite(gate["first_loss"]) and
+                                   np.isfinite(gate["last_loss"])):
+        raise AssertionError(f"test_train_torch.py record {gate}")
+    print(f"  tools/test_train_torch.py resnet18_niti b64 x 50 steps on the card: {gate} -> "
+          f"TEST_TRAIN {'PASS' if gate['pass'] else 'FAIL'} (exit {gate_code}; reported, "
+          "not a check)", flush=True)
+
     names = list(kernels.launch_counts())
     launches = {n: sum(c[n] for c in runs.values()) for n in names}
     by_run = {n: {r: c[n] for r, c in runs.items()} for n in names}
@@ -1275,7 +1573,11 @@ def main() -> int:
              "recorded; times weighted by the launches; library_ms is torch._int_mm over "
              "the launches it takes, beside K1's ms_where_library_takes; cold_ms with operands "
              "rotated over more than the L2",
-             by_shape=k1_mn_rows)},
+             by_shape=k1_mn_rows),
+         "resnet18_b256_train_step": dict(
+             k1_rn, shapes="every K1 launch of one ResNet-18 batch-256 train step under "
+             "'matmul_only', as recorded (all_mode: the launches 'all' leaves to K1); times "
+             "weighted by the launches", by_shape=k1_rn_rows)},
     ]}
     for r in k2_rows:
         replaces = {"fused_matmul_max": "mandheling_tpu/ops/kernels/fused_matmul_int8.py:162",
@@ -1296,7 +1598,17 @@ def main() -> int:
                        "and held to K2_PATH_CASES; times weighted by the launches",
                 by_shape=[dict(x[phase], key=x["key"], max_abs_err=x["max_abs_err"],
                                launches_per_train_step=x["launches_per_train_step"])
-                          for x in k2_mn_rows])})
+                          for x in k2_mn_rows]),
+            **{f"{tag}_train_step": dict(
+                summary[phase], launches=summary["launches"],
+                shapes=f"every K2 launch of one {what} train step, as recorded; times weighted "
+                       "by the launches",
+                by_shape=[dict(x[phase], key=x["key"], max_abs_err=x["max_abs_err"],
+                               launches_per_train_step=x["launches_per_train_step"])
+                          for x in rows_])
+               for tag, what, summary, rows_ in (
+                   ("resnet18_b256", "ResNet-18 batch-256", k2_rn, k2_rn_rows),
+                   ("resnet50v2_b16", "ResNet-v2-50 batch-16 224x224", k2_v2, k2_v2_rows))}})
     stem = k3_rows[0]
     stem["max_abs_err"] = k3_err
     kernels_line["kernels"] += fused_entries(
@@ -1311,7 +1623,13 @@ def main() -> int:
                                for r in k3_rows[1:]},
               "library_note": "no PyTorch call computes an int8 conv on CUDA; cudnn_fp32_ms "
                               "(a float conv, inexact past 2^24) and nonfused_ms (the "
-                              "route fused mode 'all' replaces) are yardsticks"}
+                              "route fused mode 'all' replaces) are yardsticks",
+              "resnet18_b256_train_step": dict(
+                  k3_rn[ph], launches=k3_rn["launches"], cudnn_fp32_ms=k3_rn["cudnn_fp32_ms"],
+                  nonfused_ms=k3_rn["nonfused_ms"], by_shape=k3_rn["by_shape"],
+                  shapes="every K3 launch of one ResNet-18 batch-256 train step under 'all', as "
+                         "recorded, at the K3_CASES times; cudnn_fp32_ms and nonfused_ms sum "
+                         "both yardsticks over the same launches")}
          for ph in ("max", "requant")})
     k4_step = {"max_abs_err": k4_err}
     k4_recipe = {}
@@ -1390,7 +1708,11 @@ def main() -> int:
         if kern["launches"] <= 0:
             raise AssertionError(f"{kern['name']} was not launched on the main path")
     kernels_line["throughput_samples_per_s"] = {
-        "lenet_b64": rate64, "lenet_b2048": rate2k, "mnv2_b256": rate_mn}
+        "lenet_b64": rate64, "lenet_b2048": rate2k, "mnv2_b256": rate_mn,
+        "resnet18_b256_matmul_only_in_turns": rn_rates["matmul_only"],
+        "resnet18_b256_all_in_turns": rn_rates["all"], **fp32_rates}
+    kernels_line["fp32_twins_card_vs_cpu"] = fp32_checks
+    kernels_line["test_train_torch_resnet18_b64"] = dict(gate, exit=gate_code)
 
     print(f"done in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(f"{card}")

@@ -1,4 +1,5 @@
-from .blocks import GlobalAvgPool, NITIAvgPool, NITIDepthwiseConv2D, ResidualBlock
+from .blocks import (GlobalAvgPool, NITIAvgPool, NITIDepthwiseConv2D, ProjectedResidualBlock,
+                     ResidualBlock)
 from .init import niti_xavier_int8, niti_xavier_int8_dw_per_channel
 from .layers import Flatten, NITIConv2D, NITIMaxPool, NITIRelu, NITIRelu6, SqueezeLogits
 from .module import NITILayer, Sequential
@@ -15,6 +16,7 @@ __all__ = [
     "NITIMaxPool",
     "NITIRelu",
     "NITIRelu6",
+    "ProjectedResidualBlock",
     "ResidualBlock",
     "SqueezeLogits",
     "NITILayer",

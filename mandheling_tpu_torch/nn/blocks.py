@@ -1,5 +1,6 @@
-"""Composite NITI layers: depthwise conv, average pools, the residual block
-(port of ``mandheling_tpu/nn/blocks.py``).
+"""Composite NITI layers: depthwise conv, average pools, the residual blocks
+(port of ``mandheling_tpu/nn/blocks.py``, and of the projected block of
+``mandheling_tpu/models/resnet.py``).
 
 The residual add is the int8 eltwise of the reference with a NOP gradient
 (`NITI_Eltwise_Int8.cpp`, `grad/NITI_DSPBinaryGrad.cpp:27-32`): the output
@@ -142,3 +143,33 @@ class ResidualBlock(NITILayer):
     def bwd(self, res, gy):
         g_branch_in, grads = self.branch.bwd(res, gy)
         return _accum_grads(g_branch_in, gy), grads
+
+
+class ProjectedResidualBlock(NITILayer):
+    """y = requant(branch(x) + proj(x)) with a 1x1 strided projection on the
+    skip path (the standard ResNet downsample; the JAX package defines it in
+    models/resnet.py, which re-exports this one). The backward runs the
+    branch, then the projection, both on the same gy, and sums their input
+    grads. Its grads are ``{"branch": [...], "proj": {"w": ...}}``, the JAX
+    nesting."""
+
+    def __init__(self, branch: Sequential, proj: NITILayer):
+        super().__init__()
+        self.branch = branch
+        self.proj = proj
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        self.branch.reset_parameters(generator)
+        self.proj.reset_parameters(generator)
+
+    def fwd(self, q: QTensor):
+        out, res_b = self.branch.fwd(q)
+        skip, res_p = self.proj.fwd(q)
+        y, e = elt_ops.add_int8(out.data, out.exp, skip.data, skip.exp)
+        return QTensor(y, e), (res_b, res_p)
+
+    def bwd(self, res, gy):
+        res_b, res_p = res
+        g_in_b, g_branch = self.branch.bwd(res_b, gy)
+        g_in_p, g_proj = self.proj.bwd(res_p, gy)
+        return _accum_grads(g_in_b, g_in_p), {"branch": g_branch, "proj": g_proj}

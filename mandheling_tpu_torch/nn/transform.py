@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.depthwise import check_pc_spread, pc_shift_cap
-from .blocks import NITIDepthwiseConv2D, ResidualBlock
+from .blocks import NITIDepthwiseConv2D, ProjectedResidualBlock, ResidualBlock
 from .module import Sequential
 
 
@@ -62,9 +62,13 @@ def requant_dw_per_channel(w: torch.Tensor, w_exp: torch.Tensor):
 def dw_to_per_channel(model: Sequential) -> Sequential:
     """Re-quantize every per-tensor NITIDepthwiseConv2D of `model` in place
     to per-channel exponents (recursing into residual branches) and flip it
-    to ``per_channel=True``; returns the model. Raises on a layer with
-    parallel branches: ParallelAdd and ParallelConcat are not ported."""
+    to ``per_channel=True``; returns the model. A ProjectedResidualBlock is
+    left as it is, as the JAX walk returns its params untouched (ResNet has
+    no depthwise layer). Raises on a layer with parallel branches:
+    ParallelAdd and ParallelConcat are not ported."""
     for layer in model.layers:
+        if isinstance(layer, ProjectedResidualBlock):
+            continue
         if isinstance(layer, ResidualBlock):
             dw_to_per_channel(layer.branch)
         elif hasattr(layer, "branches"):

@@ -8,22 +8,30 @@ from typing import List, Sequence
 
 import torch
 
-from ..nn.module import Sequential
+from ..nn.blocks import ProjectedResidualBlock
+from ..nn.module import NITILayer, Sequential
 from ..ops.numerics import int8_clip
+
+
+def _update_weight(layer: NITILayer, g) -> None:
+    layer.w.copy_(int8_clip(layer.w.to(torch.int32) - g["w"].data.to(torch.int32)))
 
 
 def niti_sgd_update(model: Sequential, grads: List) -> None:
     """w <- clip_int8(w - g) for every layer with a weight grad; exponents
     unchanged (`NITI_SGD.hpp:20-57`). Updates the weight buffers in place,
     where the JAX package returns new params: no second copy of the model.
-    A block's grads are a nested list (a ResidualBlock's are its branch's):
-    the update recurses into the block's `branch`."""
+    A block's grads nest as its params do: a ResidualBlock's are its
+    branch's list, a ProjectedResidualBlock's {"branch": [...], "proj":
+    {"w": ...}}; the update recurses into them."""
     for layer, g in zip(model.layers, grads):
-        if isinstance(g, list):
+        if isinstance(layer, ProjectedResidualBlock):
+            niti_sgd_update(layer.branch, g["branch"])
+            _update_weight(layer.proj, g["proj"])
+        elif isinstance(g, list):
             niti_sgd_update(layer.branch, g)
         elif g:
-            new = int8_clip(layer.w.to(torch.int32) - g["w"].data.to(torch.int32))
-            layer.w.copy_(new)
+            _update_weight(layer, g)
 
 
 def sgd_init(params: Sequence[torch.Tensor]) -> List[torch.Tensor]:

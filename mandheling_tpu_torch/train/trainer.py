@@ -5,8 +5,11 @@ demo/MnistUtils.cpp:35-469).
 `NITIDSPInt8Train` is `train_niti` with the default model (the NITI LeNet)
 and the default backend "cuda": every contraction of the step runs through
 the hand-written kernels. `model=mobilenet_v2_niti()` trains MobileNetV2
-(`MobilenetV2Train`) through the same loop. `train_fp32` is the float
-LeNet baseline (`MnistTrain`).
+(`MobilenetV2Train`) through the same loop, and `model=resnet18_niti()`
+ResNet-18. `train_fp32` is the float LeNet baseline (`MnistTrain`);
+`train_fp32_bn` trains the float twins with batch norm (`ResNet18FP32`,
+`MobileNetV2FP32`, `MobileNetV1FP32`), the denominators of the JAX bench's
+int8 / fp32 ratios.
 """
 
 from __future__ import annotations
@@ -120,6 +123,49 @@ def _normalize(x: np.ndarray) -> np.ndarray:
     return (x / 255.0 - 0.5) * 2.0
 
 
+def _train_float(model, train_data, test_data, epochs, batch, seed, num_classes, log, device,
+                 **train_kwargs):
+    """The float loop of `train_fp32` and `train_fp32_bn` on a model already
+    on `device`: autograd, momentum SGD with the inv learning rate, TF32
+    off; `train_kwargs` go to the model's training forward. The eval runs on
+    whole batches. The inputs take the parameters' dtype (float32; float64
+    for a model moved to it)."""
+    params = list(model.parameters())
+    velocity = sgd_init(params)
+    sync = torch.cuda.synchronize if device.type == "cuda" else None
+    dtype = params[0].dtype
+
+    x, y = train_data
+    xt, yt = test_data
+    dl = DataLoader(x, y, batch, seed=seed)
+    it = 0
+    acc = 0.0
+    with _full_float32():
+        for epoch in range(epochs):
+            timer = StepTimer(sync)
+            loss = None
+            for bx, by in dl.epoch():
+                oh = torch.from_numpy(onehot_padded(by, NUM_CLASSES, num_classes)).to(device, dtype)
+                with timer.step(batch):
+                    logits = model(torch.from_numpy(_normalize(bx)).to(device, dtype),
+                                   **train_kwargs)
+                    loss = -torch.mean(torch.sum(F.log_softmax(logits, dim=-1) * oh, dim=-1))
+                    grads = torch.autograd.grad(loss, params)
+                    sgd_update(params, grads, velocity, lr_inv(0.01, it))
+                it += 1
+            n = (len(xt) // batch) * batch
+            correct = 0
+            with torch.no_grad():
+                for i in range(0, n, batch):
+                    bx = torch.from_numpy(_normalize(xt[i:i + batch].astype(np.float32)))
+                    pred = torch.argmax(model(bx.to(device, dtype)), dim=-1).cpu().numpy()
+                    correct += int(np.sum(pred == yt[i:i + batch]))
+            acc = correct / max(n, 1)
+            log(f"epoch {epoch}: loss {float(loss.detach()):.4f} test_acc {acc:.4f} "
+                f"[{timer.summary()}]")
+    return model, acc
+
+
 def train_fp32(
     train_data,
     test_data,
@@ -139,37 +185,33 @@ def train_fp32(
         model.reset_parameters(torch.Generator().manual_seed(seed))
     else:
         model.load_params(start_params)
-    model.to(device)
-    params = list(model.parameters())
-    velocity = sgd_init(params)
-    sync = torch.cuda.synchronize if device.type == "cuda" else None
+    return _train_float(model.to(device), train_data, test_data, epochs, batch, seed,
+                        NUM_CLASSES, log, device)
 
-    x, y = train_data
-    xt, yt = test_data
-    dl = DataLoader(x, y, batch, seed=seed)
-    it = 0
-    acc = 0.0
-    with _full_float32():
-        for epoch in range(epochs):
-            timer = StepTimer(sync)
-            loss = None
-            for bx, by in dl.epoch():
-                oh = torch.from_numpy(onehot_padded(by, NUM_CLASSES, NUM_CLASSES)
-                                      .astype(np.float32)).to(device)
-                with timer.step(batch):
-                    logits = model(torch.from_numpy(_normalize(bx)).to(device))
-                    loss = -torch.mean(torch.sum(F.log_softmax(logits, dim=-1) * oh, dim=-1))
-                    grads = torch.autograd.grad(loss, params)
-                    sgd_update(params, grads, velocity, lr_inv(0.01, it))
-                it += 1
-            n = (len(xt) // batch) * batch
-            correct = 0
-            with torch.no_grad():
-                for i in range(0, n, batch):
-                    bx = torch.from_numpy(_normalize(xt[i:i + batch].astype(np.float32)))
-                    pred = torch.argmax(model(bx.to(device)), dim=-1).cpu().numpy()
-                    correct += int(np.sum(pred == yt[i:i + batch]))
-            acc = correct / max(n, 1)
-            log(f"epoch {epoch}: loss {float(loss.detach()):.4f} test_acc {acc:.4f} "
-                f"[{timer.summary()}]")
-    return model, acc
+
+def train_fp32_bn(
+    model,
+    train_data,
+    test_data,
+    epochs: int = 10,
+    batch: int = 64,
+    seed: int = 0,
+    num_classes: int = NUM_CLASSES,
+    log: Callable[[str], None] = print,
+    start_params=None,
+    device=None,
+):
+    """The float loop of the batch-norm twins (models/mobilenet_fp32.py,
+    models/resnet_fp32.py) -> (model, final_test_accuracy), as `train_fp32`.
+    A training forward normalises by the batch and leaves the running stats
+    in the model's buffers, which the update does not touch: the stats come
+    from the forward, as the JAX loop takes them. The weights are drawn from
+    `seed` unless `start_params` (the JAX package's float tree) are given.
+    The eval uses the running stats."""
+    device = resolve_device(device)
+    if start_params is None:
+        model.reset_parameters(torch.Generator().manual_seed(seed))
+    else:
+        model.load_params(start_params)
+    return _train_float(model.to(device), train_data, test_data, epochs, batch, seed,
+                        num_classes, log, device, training=True)

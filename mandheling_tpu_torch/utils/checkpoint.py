@@ -5,7 +5,8 @@ file written by either package loads in the other.
 A checkpoint is a flat npz of the params in the JAX layout
 (``utils/jax_params.py``): one array per leaf, keyed by its JAX tree path
 (``[0]/['w']/.data``, ``[0]/['w']/.exp``, with one more ``[i]/`` level per
-residual branch), plus ``__meta__``, a JSON record of the step, the schema
+residual branch, and ``[i]/['branch']/...``, ``[i]/['proj']/['w']/...`` in a
+projected residual block), plus ``__meta__``, a JSON record of the step, the schema
 version and any extra. Loaders accept every schema up to
 :data:`SCHEMA_VERSION`, upgrading older files in memory (v0, written before
 the field existed, gains it), and refuse newer ones.
@@ -19,7 +20,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from ..models import lenet_niti, mobilenet_v1_niti, mobilenet_v2_niti
+from ..models import lenet_niti, mobilenet_v1_niti, mobilenet_v2_niti, resnet18_niti
 from .jax_params import export_jax_params, load_jax_params
 
 SCHEMA_VERSION = 1
@@ -31,38 +32,49 @@ _MIGRATIONS = {
 }
 
 
+def _flatten_entry(p, prefix: str, out: Dict[str, np.ndarray]) -> None:
+    """The leaves of one entry at `prefix` (its tree path, ending in "/")."""
+    if isinstance(p, list):
+        out.update(flatten_params(p, prefix))
+    elif p and "branch" in p:  # a projected block: JAX sorts the dict's keys
+        out.update(flatten_params(p["branch"], prefix + "['branch']/"))
+        _flatten_entry(p["proj"], prefix + "['proj']/", out)
+    elif p:
+        data, exp = p["w"]
+        out[prefix + "['w']/.data"] = np.asarray(data)
+        out[prefix + "['w']/.exp"] = np.asarray(exp)
+
+
 def flatten_params(params: List[Any], prefix: str = "") -> Dict[str, np.ndarray]:
     """{JAX tree path: array} of JAX-layout params, in tree order."""
     out: Dict[str, np.ndarray] = {}
     for i, p in enumerate(params):
-        if isinstance(p, list):
-            out.update(flatten_params(p, f"{prefix}[{i}]/"))
-        elif p:
-            data, exp = p["w"]
-            out[f"{prefix}[{i}]/['w']/.data"] = np.asarray(data)
-            out[f"{prefix}[{i}]/['w']/.exp"] = np.asarray(exp)
+        _flatten_entry(p, f"{prefix}[{i}]/", out)
     return out
+
+
+def _unflatten_entry(p, arrays: Dict[str, np.ndarray], prefix: str):
+    if isinstance(p, list):
+        return _unflatten(p, arrays, prefix)
+    if p and "branch" in p:
+        return {"branch": _unflatten(p["branch"], arrays, prefix + "['branch']/"),
+                "proj": _unflatten_entry(p["proj"], arrays, prefix + "['proj']/")}
+    if not p:
+        return ()
+    leaves = []
+    for leaf, field in zip(p["w"], ("data", "exp")):
+        key = f"{prefix}['w']/.{field}"
+        if key not in arrays:
+            raise KeyError(f"checkpoint missing leaf {key!r}")
+        want = np.asarray(leaf)
+        if arrays[key].shape != want.shape:
+            raise ValueError(f"shape mismatch at {key}: {arrays[key].shape} vs {want.shape}")
+        leaves.append(np.asarray(arrays[key], dtype=want.dtype))
+    return {"w": tuple(leaves)}
 
 
 def _unflatten(template: List[Any], arrays: Dict[str, np.ndarray], prefix: str = "") -> List[Any]:
-    out: List[Any] = []
-    for i, p in enumerate(template):
-        if isinstance(p, list):
-            out.append(_unflatten(p, arrays, f"{prefix}[{i}]/"))
-        elif p:
-            leaves = []
-            for leaf, field in zip(p["w"], ("data", "exp")):
-                key = f"{prefix}[{i}]/['w']/.{field}"
-                if key not in arrays:
-                    raise KeyError(f"checkpoint missing leaf {key!r}")
-                want = np.asarray(leaf)
-                if arrays[key].shape != want.shape:
-                    raise ValueError(f"shape mismatch at {key}: {arrays[key].shape} vs {want.shape}")
-                leaves.append(np.asarray(arrays[key], dtype=want.dtype))
-            out.append({"w": tuple(leaves)})
-        else:
-            out.append(())
-    return out
+    return [_unflatten_entry(p, arrays, f"{prefix}[{i}]/") for i, p in enumerate(template)]
 
 
 def _migrate(meta, arrays):
@@ -108,15 +120,13 @@ _MODEL_REGISTRY = {
     "lenet_niti": lenet_niti,
     "mobilenet_v1_niti": mobilenet_v1_niti,
     "mobilenet_v2_niti": mobilenet_v2_niti,
-    "resnet18_niti": None,  # known to the JAX package; not ported yet
+    "resnet18_niti": resnet18_niti,
 }
 
 
 def _constructor(name: Optional[str]):
     if name not in _MODEL_REGISTRY:
         raise ValueError(f"unknown model {name!r}; known: {sorted(_MODEL_REGISTRY)}")
-    if _MODEL_REGISTRY[name] is None:
-        raise NotImplementedError(f"model {name!r} is not ported yet")
     return _MODEL_REGISTRY[name]
 
 

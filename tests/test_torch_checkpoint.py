@@ -2,7 +2,7 @@
 JAX package: the npz format is the same both ways (a file written by either
 package loads in the other, keys and bytes equal), schema v0 files migrate,
 newer schemas are refused, inference artifacts cross with their registry
-name, and a `train_niti` run resumed from its checkpoint gives the JAX
+name (ResNet-18's projected blocks included), and a `train_niti` run resumed from its checkpoint gives the JAX
 package's resumed params byte for byte.
 
 The JAX trainer takes its native loader when the native library loads; the
@@ -21,9 +21,12 @@ import mandheling_tpu.train.trainer as jtrainer
 from mandheling_tpu.data.loader import DataLoader as JDataLoader
 from mandheling_tpu.models import lenet_niti as j_lenet_niti
 from mandheling_tpu.models import mobilenet_v2_niti as j_mobilenet_v2_niti
+from mandheling_tpu.models import resnet18_niti as j_resnet18_niti
+from mandheling_tpu.nn.transform import dw_to_per_channel as j_dw_to_per_channel
 from mandheling_tpu.utils import checkpoint as jckpt
 from mandheling_tpu_torch.data import synthetic_mnist
-from mandheling_tpu_torch.models import lenet_niti, mobilenet_v2_niti
+from mandheling_tpu_torch.models import lenet_niti, mobilenet_v2_niti, resnet18_niti
+from mandheling_tpu_torch.nn import dw_to_per_channel
 from mandheling_tpu_torch.train.trainer import train_niti
 from mandheling_tpu_torch.utils import checkpoint as tckpt
 from mandheling_tpu_torch.utils.jax_params import export_jax_params, flat_weights, load_jax_params
@@ -45,6 +48,8 @@ def to_numpy(params):
         return [to_numpy(p) for p in params]
     if not params:
         return ()
+    if "branch" in params:  # a ProjectedResidualBlock
+        return {"branch": to_numpy(params["branch"]), "proj": to_numpy(params["proj"])}
     return {"w": (np.asarray(params["w"].data), np.asarray(params["w"].exp))}
 
 
@@ -65,6 +70,7 @@ MODELS = {
     "lenet": (j_lenet_niti, lenet_niti, {}),
     "mnv2_pc": (j_mobilenet_v2_niti, mobilenet_v2_niti, {"width_mult": 0.25,
                                                          "dw_per_channel": True}),
+    "resnet18": (j_resnet18_niti, resnet18_niti, {}),
 }
 
 
@@ -94,6 +100,29 @@ def test_npz_crosses_both_ways(tmp_path, name):
     back, step = jckpt.load_checkpoint(tpath, jctor(**kwargs).init(jax.random.PRNGKey(9)))
     assert step == 5
     assert_params_equal(to_numpy(back), want)
+
+
+def test_resnet18_params_through_the_carrier_unchanged():
+    """JAX-layout ResNet-18 params (identity blocks as the branch's list,
+    projected ones as {"branch", "proj"}) go through load_jax_params ->
+    export_jax_params unchanged, flatten to the JAX package's 42 checkpoint
+    keys, and dw_to_per_channel leaves the model as it is (no depthwise
+    layer; the JAX walk returns a projected block's params untouched)."""
+    jparams = j_resnet18_niti().init(jax.random.PRNGKey(7))
+    want = to_numpy(jparams)
+    model = load_jax_params(resnet18_niti(), want)
+    got = export_jax_params(model)
+    assert [type(p) for p in got] == [type(p) for p in want]
+    assert [sorted(p) for p in got if isinstance(p, dict)] == \
+        [sorted(p) for p in want if isinstance(p, dict)]
+    assert_params_equal(got, want)
+    keys, _ = jckpt._flatten_with_paths(jparams)
+    assert list(tckpt.flatten_params(got)) == list(keys) and len(keys) == 42
+    assert "[6]/['proj']/['w']/.data" in keys and "[6]/['branch']/[0]/['w']/.data" in keys
+    assert dw_to_per_channel(model) is model
+    assert_params_equal(export_jax_params(model), want)
+    _, jback = j_dw_to_per_channel(j_resnet18_niti(), jparams)
+    assert_params_equal(to_numpy(jback), want)
 
 
 def test_schema_migration_and_refusal(tmp_path):
@@ -129,8 +158,16 @@ def test_inference_artifacts_cross(tmp_path):
     _, back = jckpt.load_inference(tpath)
     assert_params_equal(to_numpy(back), to_numpy(j_lenet_niti().init(jax.random.PRNGKey(5))))
 
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tckpt.export_inference(tpath, "resnet18_niti", [])
+    # resnet18_niti (with its projected blocks) crosses both ways too
+    rparams = j_resnet18_niti().init(jax.random.PRNGKey(6))
+    rpath = str(tmp_path / "r.npz")
+    jckpt.export_inference(rpath, "resnet18_niti", rparams)
+    model, params = tckpt.load_inference(rpath)
+    assert_params_equal(export_jax_params(model), to_numpy(rparams))
+    tckpt.export_inference(tpath, "resnet18_niti", export_jax_params(model))
+    _, back = jckpt.load_inference(tpath)
+    assert_params_equal(to_numpy(back), to_numpy(rparams))
+    assert sorted(tckpt._MODEL_REGISTRY) == sorted(jckpt._MODEL_REGISTRY)
     with pytest.raises(ValueError, match="unknown model"):
         tckpt.export_inference(tpath, "vgg", [])
 

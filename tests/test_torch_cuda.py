@@ -430,3 +430,82 @@ def test_matmul_max_bf16_kernel_matches_plain(gen, m, k, n):
     got = fmm.matmul_max_bf16_cuda(a, b)
     assert torch.equal(got, fmm.matmul_max_bf16_plain(a, b))
     assert torch.equal(got, fmm.matmul_max_plain(a, b))
+
+
+def test_matmul_kernel_wraps_resnet18_layer1_filter_grad(gen):
+    """ResNet-18 layer1's filter grad at batch 256: im2col(x)^T (576 x
+    262144, MN-major) times gy (262144 x 64), split over K. All -128
+    operands give 262144 * 2^14 = 2^32, which wraps to 0; random operands
+    are held to the plain version's int32 wrap too."""
+    m, k, n = 576, 262144, 64
+    a = torch.full((k, m), -128, dtype=torch.int8, device="cuda").t()
+    b = torch.full((k, n), -128, dtype=torch.int8, device="cuda")
+    pl = mm.plan(m, k, n, a.stride(), b.stride())
+    assert pl.route == "mnmajor" and pl.splits > 1
+    got = mm.matmul_acc_cuda(a, b)
+    assert bool((got == 0).all())
+    assert torch.equal(got, mm.matmul_acc_plain(a, b))
+    a, b = rand_int8((k, m), gen).t(), rand_int8((k, n), gen)
+    assert torch.equal(mm.matmul_acc_cuda(a, b), mm.matmul_acc_plain(a, b))
+
+
+# the three strided 1x1 projections of a batch-256 ResNet-18 (B N-major)
+# and their input grads (B K-major: the io-swapped weight)
+RESNET18_K2_CASES = [
+    ("fwd", 65536, 64, 128), ("fwd", 16384, 128, 256), ("fwd", 4096, 256, 512),
+    ("igrad", 262144, 128, 64), ("igrad", 65536, 256, 128), ("igrad", 16384, 512, 256),
+]
+
+
+@pytest.mark.parametrize("layout,m,k,n", RESNET18_K2_CASES)
+def test_fused_kernels_at_resnet18_projections(gen, layout, m, k, n):
+    a, b = _operands(layout, m, k, n, gen)
+    assert fmm.supports(m, k, n)
+    mx = fmm.matmul_max_cuda(a, b)
+    assert torch.equal(mx, fmm.matmul_max_plain(a, b))
+    for shift, grad in _shift_cases(mx):
+        got = fmm.matmul_requant_cuda(a, b, shift, grad)
+        assert torch.equal(got, fmm.matmul_requant_plain(a, b, shift, grad)), (shift, grad)
+
+
+@pytest.mark.parametrize("in_c,out_c,stride", [(64, 64, 1), (64, 128, 2)])
+def test_resnet18_block_under_fused_mode_all(gen, in_c, out_c, stride):
+    """A ResNet-18 basic block (identity, and projected with stride 2) at
+    batch 16, forward and backward under fused mode "all" with the kernels
+    (K3 on the 3x3 convs `supports` takes, K2 / K1 on the rest) against the
+    plain versions on the card: outputs, exponents, input grad and weight
+    grads byte-equal."""
+    from mandheling_tpu_torch.models.resnet import _basic_block
+    from mandheling_tpu_torch.ops.conv import use_fused_conv_mode
+    from mandheling_tpu_torch.ops.kernels import launch_counts, reset_launch_counts, use_backend
+    from mandheling_tpu_torch.ops.qtensor import QTensor
+
+    block = _basic_block(in_c, out_c, stride)
+    block.reset_parameters(torch.Generator().manual_seed(1))
+    block.to("cuda")
+    x = rand_int8((16, 32, 32, in_c), gen)
+    gy = rand_int8((16, 32 // stride, 32 // stride, out_c), gen)
+    exp = torch.tensor(-7, dtype=torch.int32, device="cuda")
+    runs = []
+    for backend in ("cuda", "torch"):
+        reset_launch_counts()
+        with use_backend(backend), use_fused_conv_mode("all"):
+            y, res = block.fwd(QTensor(x, exp))
+            gx, grads = block.bwd(res, gy)
+        torch.cuda.synchronize()
+        runs.append((y.data, y.exp, gx, grads, launch_counts()))
+    (y, e, gx, grads, counts), (y_p, e_p, gx_p, grads_p, counts_p) = runs
+    assert torch.equal(y, y_p) and torch.equal(e, e_p) and torch.equal(gx, gx_p)
+    flat = [g.data for g in _grad_leaves(grads)]
+    flat_p = [g.data for g in _grad_leaves(grads_p)]
+    assert len(flat) == len(flat_p) == (2 if stride == 1 else 3)
+    assert all(torch.equal(a, b) for a, b in zip(flat, flat_p))
+    assert counts["fused_conv_max"] >= 2 and not any(counts_p.values())
+
+
+def _grad_leaves(grads):
+    if isinstance(grads, list):
+        return [leaf for g in grads for leaf in _grad_leaves(g)]
+    if isinstance(grads, dict) and "branch" in grads:
+        return _grad_leaves(grads["branch"]) + _grad_leaves(grads["proj"])
+    return [grads["w"]] if grads else []

@@ -1,6 +1,7 @@
 """The port stands alone: no module of mandheling_tpu_torch, and none of
 chip_smoke.py, tools/profile_torch_step.py, the demo CLI
-tools/run_train_demo_torch.py and the probe tools/probes/dot_probe_torch.py,
+tools/run_train_demo_torch.py, the training gate tools/test_train_torch.py
+and the probe tools/probes/dot_probe_torch.py,
 imports jax or anything of the JAX package (not even a module there that
 uses no jax)."""
 
@@ -12,7 +13,8 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "mandheling_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_step.py",
-    ROOT / "tools" / "run_train_demo_torch.py", ROOT / "tools" / "probes" / "dot_probe_torch.py"]
+    ROOT / "tools" / "run_train_demo_torch.py", ROOT / "tools" / "test_train_torch.py",
+    ROOT / "tools" / "probes" / "dot_probe_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "mandheling_tpu")
 
 
@@ -42,7 +44,8 @@ def test_guard_sees_the_package():
              if ROOT / "mandheling_tpu_torch" in p.parents}
     for module in ("ops/depthwise.py", "ops/eltwise.py", "ops/kernels/fused_conv_int8.py",
                    "ops/kernels/fused_dwconv_int8.py", "nn/blocks.py", "models/mobilenet.py",
-                   "data/cifar.py", "nn/transform.py", "utils/checkpoint.py"):
+                   "data/cifar.py", "nn/transform.py", "utils/checkpoint.py",
+                   "models/resnet.py", "models/resnet_fp32.py", "models/mobilenet_fp32.py"):
         assert module in names
 
 
@@ -52,7 +55,8 @@ def test_guard_sees_the_package():
     "mandheling_tpu_torch.ops.kernels.fused_dwconv_int8", "mandheling_tpu_torch.nn.blocks",
     "mandheling_tpu_torch.models.mobilenet", "mandheling_tpu_torch.data.cifar",
     "mandheling_tpu_torch.nn.transform", "mandheling_tpu_torch.utils.checkpoint",
-    "mandheling_tpu_torch.train.trainer"])
+    "mandheling_tpu_torch.train.trainer", "mandheling_tpu_torch.models.resnet",
+    "mandheling_tpu_torch.models.resnet_fp32", "mandheling_tpu_torch.models.mobilenet_fp32"])
 def test_new_modules_import_without_building(module):
     """Importing a kernel module builds nothing: the build happens at the
     first launch, on the card."""

@@ -197,7 +197,8 @@ def test_chip_smoke_launch_table_is_the_routes(monkeypatch):
     EXPECTED_PER_STEP. Rehearsed here on the meta device (shapes only, no
     data): each dispatch call a train step and an eval step make, per
     kernel family, at the table's models ("mnv2pc": the r5 recipe's
-    per-channel depthwise MobileNetV2), batches and fused modes."""
+    per-channel depthwise MobileNetV2; the ResNets), batches and fused
+    modes."""
     from mandheling_tpu_torch.models import lenet_niti
     from mandheling_tpu_torch.ops.kernels import fused_conv_int8, fused_dwconv_int8
     from mandheling_tpu_torch.ops.kernels import fused_matmul_int8, matmul_int8
@@ -216,13 +217,17 @@ def test_chip_smoke_launch_table_is_the_routes(monkeypatch):
             calls[_fam] = calls.get(_fam, 0) + 1
             return _real(*a, **k)
         monkeypatch.setattr(mod, name, counted)
-    model_fns = {"lenet": (lenet_niti, (28, 28, 1)), "mnv2": (mobilenet_v2_niti, (32, 32, 3)),
-                 "mnv2pc": (lambda: mobilenet_v2_niti(dw_per_channel=True), (32, 32, 3))}
+    from mandheling_tpu_torch.models import resnet18_niti, resnet50v2_niti
+
+    model_fns = {"lenet": (lenet_niti, (28, 28, 1), 12), "mnv2": (mobilenet_v2_niti, (32, 32, 3), 12),
+                 "mnv2pc": (lambda: mobilenet_v2_niti(dw_per_channel=True), (32, 32, 3), 12),
+                 "resnet18": (resnet18_niti, (32, 32, 3), 12),
+                 "resnet50v2": (lambda: resnet50v2_niti(num_classes=1000), (224, 224, 3), 1000)}
     for (model_name, batch, mode), want in cs.EXPECTED_PER_STEP.items():
-        build, hwc = model_fns[model_name]
+        build, hwc, n_logits = model_fns[model_name]
         model = build().to("meta")
         x = torch.zeros((batch,) + hwc, device="meta")
-        oh = torch.zeros((batch, MOBILENET_V2_NITI_LOGITS), dtype=torch.int32, device="meta")
+        oh = torch.zeros((batch, n_logits), dtype=torch.int32, device="meta")
         got = []
         with tconv.use_fused_conv_mode(mode):
             for run in (lambda: make_train_step(model)(x, oh),

@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
 """Where the time of one training step of the PyTorch/CUDA port goes, on the GPU.
 
-    python3 tools/profile_torch_step.py [--model lenet|mnv2] [--mode matmul_only|all]
+    python3 tools/profile_torch_step.py [--model lenet|mnv2|resnet18] [--mode matmul_only|all]
                                         [--recipe] [--batch 64 2048] [--steps 20] [--out PATH]
 
 For each batch size: the NITI train step of mandheling_tpu_torch with the
 hand-written kernels (the step `train_niti` runs, host-to-device copies
 included) for the NITI LeNet on synthetic MNIST (default batches 64 and
-2048) or the full-width NITI MobileNetV2 on synthetic CIFAR (default batch
+2048), the full-width NITI MobileNetV2 on synthetic CIFAR (default batch
 256; `--recipe`: the r5 recipe, per-channel depthwise exponents and
-filter-grad margins 0/0, as `MobilenetV2Train` trains it), in fused mode
+filter-grad margins 0/0, as `MobilenetV2Train` trains it) or the NITI
+ResNet-18 on synthetic CIFAR (default batch 256), in fused mode
 `--mode`, timed without tracing, then traced with torch.profiler. Prints
 wall ms/step (back to back, and synchronised after each step as the
 trainer's StepTimer does), device busy ms/step (the union of the CUDA activity
@@ -41,7 +42,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from mandheling_tpu_torch.data import onehot_padded, synthetic_cifar, synthetic_mnist  # noqa: E402
 from mandheling_tpu_torch.models import (NITI_LOGIT_CHANNELS, NUM_CLASSES, lenet_niti,  # noqa: E402
-                                         mobilenet_v2_niti)
+                                         mobilenet_v2_niti, resnet18_niti)
 from mandheling_tpu_torch.ops.conv import use_fused_conv_mode  # noqa: E402
 from mandheling_tpu_torch.ops.depthwise import recipe_margins  # noqa: E402
 from mandheling_tpu_torch.ops.kernels import build  # noqa: E402
@@ -51,6 +52,7 @@ from mandheling_tpu_torch.train import make_train_step  # noqa: E402
 MODELS = {
     "lenet": (lenet_niti, synthetic_mnist, [64, 2048]),
     "mnv2": (mobilenet_v2_niti, synthetic_cifar, [256]),
+    "resnet18": (resnet18_niti, synthetic_cifar, [256]),
 }
 
 
@@ -143,7 +145,7 @@ def main() -> int:
     ap.add_argument("--mode", choices=["matmul_only", "all"], default="matmul_only",
                     help="fused conv mode")
     ap.add_argument("--batch", type=int, nargs="+",
-                    help="batch sizes (default: 64 2048 for lenet, 256 for mnv2)")
+                    help="batch sizes (default: 64 2048 for lenet, 256 for mnv2 and resnet18)")
     ap.add_argument("--recipe", action="store_true",
                     help="mnv2 only: per-channel depthwise exponents and margins 0/0")
     ap.add_argument("--steps", type=int, default=20)

@@ -15,8 +15,9 @@ raises on failure (the script then exits non-zero and prints no result):
    step gives it (K1_SHAPES), K2 (fused_matmul_max / _requant)
    at the fc2 input grad of batch 2048 and at a shape of the JAX package's
    tiled branch (K > 512), K3 (fused_conv_max / _requant) at the MobileNetV2
-   stem, LeNet's convs and the seven ResNet18 b256 3x3 shapes its `supports`
-   admits (beside each, the cuDNN fp32 conv and the non-fused route of
+   stem, LeNet's convs, the seven ResNet18 b256 3x3 shapes its `supports`
+   admits and the 17 shapes SqueezeNet b128 and Inception-v3 b32 give it
+   under "all" (beside each, the cuDNN fp32 conv and the non-fused route of
    fused mode "matmul_only", whose bytes phase 2 must equal), K4 (fused_dwconv_max / _requant) at the 10
    depthwise shapes of a batch-256 MobileNetV2 step (x unpadded with its
    pads; the strided input grads' gy undilated with the stride as the
@@ -75,7 +76,25 @@ raises on failure (the script then exits non-zero and prints no result):
    `train_fp32_bn` at batch 256 (TF32 off). Then tools/test_train_torch.py
    on resnet18_niti, batch 64, 50 steps, as a process of its own: its
    record must parse, its PASS or FAIL is reported;
-12. one JSON line listing every kernel, then the result line.
+12. the zoo, 1000 classes, through make_train_step / make_eval_step:
+   SqueezeNet v1.0 at (128, 224, 224, 3) and Inception-v3 at (32, 299, 299,
+   3), two train steps and one eval step in "matmul_only" and in "all",
+   kernels against plain on the card (the shapes of K1, K2 and K3
+   recorded; under "all" K3's held to K3_CASES, whose zoo shapes phase 3
+   checked and timed beside cuDNN fp32 and the non-fused route); each at
+   batch 2 and full size under "all" against the CPU; samples/s of batch
+   128 / 32 in both modes in turns; K1, K2 and K3 over one train step,
+   weighted by the recording, with their bounds. Then SqueezeNet with 10
+   classes through `train_niti` on synthetic CIFAR (batch 64, one epoch)
+   against the CPU;
+13. MobileNetV2 with int16 projection outputs, `mobilenet_v2_niti(
+   proj_bits=15)`, at full width through `train_niti`: batch 256 kernels
+   against plain on the card (the int16-A route's shapes recorded), batch 32
+   against the CPU; K1's int16-A route against its plain version at every
+   shape and layout of that step, timed beside K1's int8 route at the same
+   shapes, and at the extremes of both types (+-32767, -32768, 127, -128)
+   with sums that wrap past 2^31 and 2^32, in both layouts;
+14. one JSON line listing every kernel, then the result line.
 
 Every main-path run asserts its launch counts, per kernel, against the
 routes one train step and one eval step take (EXPECTED_PER_STEP). The
@@ -113,8 +132,9 @@ import torch
 
 from mandheling_tpu_torch.data import load_or_synthesize_cifar, synthetic_cifar, synthetic_mnist
 from mandheling_tpu_torch.models import (NITI_LOGIT_CHANNELS, NUM_CLASSES, MobileNetV2FP32,
-                                         ResNet18FP32, lenet_niti, mobilenet_v2_niti,
-                                         resnet18_niti, resnet50v2_niti)
+                                         ResNet18FP32, inceptionv3_niti, lenet_niti,
+                                         mobilenet_v2_niti, resnet18_niti, resnet50v2_niti,
+                                         squeezenet_niti)
 from mandheling_tpu_torch.ops import conv as conv_ops
 from mandheling_tpu_torch.ops import depthwise as dw_ops
 from mandheling_tpu_torch.ops import numerics
@@ -128,6 +148,7 @@ from mandheling_tpu_torch.train.trainer import train_fp32_bn, train_niti
 from mandheling_tpu_torch.utils.jax_params import export_jax_params, flat_weights, load_jax_params
 
 ROOT = Path(__file__).resolve().parent
+SAME3 = ((1, 1), (1, 1))
 
 # (what, M, K, N, A's layout, B's layout) of every int8 contraction of a
 # LeNet train step at batch 64, the layouts as matmul_int8.layout classes
@@ -198,6 +219,29 @@ K3_CASES = [
         ("layer3 256->256", (256, 8, 8, 256), (3, 3, 256, 256), (1, 1), ((1, 1), (1, 1))),
         ("layer4 s2 256->512", (256, 8, 8, 256), (3, 3, 256, 512), (2, 2), ((0, 1), (0, 1))),
     ]
+] + [  # the zoo under "all": SqueezeNet v1.0 at b128 (224x224), Inception-v3 at b32 (299x299)
+    (f"SqueezeNet {what} b128", xs, ws, st, pads) for what, xs, ws, st, pads in [
+        ("stem 7x7 s2 3->96", (128, 224, 224, 3), (7, 7, 3, 96), (2, 2), ((2, 3), (2, 3))),
+        ("fire2/3 expand3 16->64", (128, 55, 55, 16), (3, 3, 16, 64), (1, 1), SAME3),
+        ("fire4 expand3 32->128", (128, 55, 55, 32), (3, 3, 32, 128), (1, 1), SAME3),
+        ("fire5 expand3 32->128", (128, 27, 27, 32), (3, 3, 32, 128), (1, 1), SAME3),
+        ("fire6/7 expand3 48->192", (128, 27, 27, 48), (3, 3, 48, 192), (1, 1), SAME3),
+        ("fire8 expand3 64->256", (128, 27, 27, 64), (3, 3, 64, 256), (1, 1), SAME3),
+        ("fire9 expand3 64->256", (128, 13, 13, 64), (3, 3, 64, 256), (1, 1), SAME3),
+    ]
+] + [
+    (f"Inception-v3 {what} b32", xs, ws, st, pads) for what, xs, ws, st, pads in [
+        ("stem 3x3 s2 3->32", (32, 299, 299, 3), (3, 3, 3, 32), (2, 2), ((0, 0), (0, 0))),
+        ("A 3x3 64->96", (32, 35, 35, 64), (3, 3, 64, 96), (1, 1), SAME3),
+        ("C 1x7 128->128", (32, 17, 17, 128), (1, 7, 128, 128), (1, 1), ((0, 0), (3, 3))),
+        ("C 1x7 128->192", (32, 17, 17, 128), (1, 7, 128, 192), (1, 1), ((0, 0), (3, 3))),
+        ("C 1x7 160->160", (32, 17, 17, 160), (1, 7, 160, 160), (1, 1), ((0, 0), (3, 3))),
+        ("C 1x7 160->192", (32, 17, 17, 160), (1, 7, 160, 192), (1, 1), ((0, 0), (3, 3))),
+        ("C/D 1x7 192->192", (32, 17, 17, 192), (1, 7, 192, 192), (1, 1), ((0, 0), (3, 3))),
+        ("C 1x7 igrad 192->128", (32, 17, 17, 192), (1, 7, 192, 128), (1, 1), ((0, 0), (3, 3))),
+        ("C 1x7 igrad 192->160", (32, 17, 17, 192), (1, 7, 192, 160), (1, 1), ((0, 0), (3, 3))),
+        ("E 1x3 384->384", (32, 8, 8, 384), (1, 3, 384, 384), (1, 1), ((0, 0), (1, 1))),
+    ]
 ]
 K3_KEYS = {(xs, ws, stride, pads) for _, xs, ws, stride, pads in K3_CASES}
 # K2's calls in a batch-256 ResNet-18 train or eval step, (M, K, N, A's
@@ -218,7 +262,6 @@ K2_RESNET18_CASES = [
 # untiled instance too), with pads and dilations. K4_SATURATED: all -128 operands with per-channel
 # shifts 0..12 (the 3x3 cap): |acc| 147456 << 12, the largest the recipe
 # allows.
-SAME3 = ((1, 1), (1, 1))
 K4_PATH_CASES = [
     ("MNv2 b256 32ch 32x32", (256, 32, 32, 32), (3, 3), SAME3, (1, 1)),
     ("MNv2 b256 96ch 32x32", (256, 32, 32, 96), (3, 3), SAME3, (1, 1)),
@@ -316,8 +359,29 @@ EXPECTED_PER_STEP = {
     ("resnet18", 256, "all"): ({"K1": 32, "K2": 6, "K3": 24}, {"K1": 4, "K2": 3, "K3": 14}),
     ("resnet18", 8, "matmul_only"): ({"K1": 61, "K2": 1}, {"K1": 21}),
     ("resnet50v2", 16, "matmul_only"): ({"K1": 127, "K2": 34}, {"K1": 37, "K2": 17}),
+    # The zoo, 1000 classes: SqueezeNet v1.0 at 224x224, Inception-v3 at
+    # 299x299; under "all" K3 takes every non-1x1 SqueezeNet conv and 22
+    # Inception forwards (its 1x7s, 1x3s, the 35x35 3x3s and the stem) and 17
+    # of their input grads. "squeezenet10": 10 classes at 32x32 (CIFAR).
+    ("squeezenet", 128, "matmul_only"): ({"K1": 45, "K2": 32}, {"K1": 10, "K2": 16}),
+    ("squeezenet", 128, "all"): ({"K1": 36, "K2": 32, "K3": 9}, {"K1": 1, "K2": 16, "K3": 9}),
+    ("squeezenet", 2, "all"): ({"K1": 68, "K3": 9}, {"K1": 17, "K3": 9}),
+    ("squeezenet10", 64, "matmul_only"): ({"K1": 77}, {"K1": 26}),
+    ("inceptionv3", 32, "matmul_only"): ({"K1": 256, "K2": 28}, {"K1": 81, "K2": 14}),
+    ("inceptionv3", 32, "all"): ({"K1": 217, "K2": 28, "K3": 39},
+                                 {"K1": 59, "K2": 14, "K3": 22}),
+    ("inceptionv3", 2, "all"): ({"K1": 245, "K3": 39}, {"K1": 73, "K3": 22}),
+    # MobileNetV2 with int16 projection outputs (proj_bits=15): K1's int16-A
+    # route takes the 17 convs that read them (16 expansions and the head),
+    # forward and filter grad; no fused kernel takes an int16 operand or
+    # output, so K2 keeps only the input grads it took.
+    ("mnv2p15", 256, "matmul_only"): ({"K1": 52, "K1i16": 34, "K2": 21, "K4": 31, "K5": 17},
+                                      {"K1": 19, "K1i16": 17, "K4": 14}),
+    ("mnv2p15", 32, "matmul_only"): ({"K1": 60, "K1i16": 34, "K2": 13, "K4": 31, "K5": 17},
+                                     {"K1": 19, "K1i16": 17, "K4": 14}),
 }
-FAMILIES = {"K1": ("matmul_int8",), "K2": ("fused_matmul_max", "fused_matmul_requant"),
+FAMILIES = {"K1": ("matmul_int8",), "K1i16": ("matmul_int16a",),
+            "K2": ("fused_matmul_max", "fused_matmul_requant"),
             "K3": ("fused_conv_max", "fused_conv_requant"),
             "K4": ("fused_dwconv_max", "fused_dwconv_requant"),
             "K5": ("fused_dwconv_fgrad",)}
@@ -393,6 +457,7 @@ def k5_row_key(row):
 
 
 RECORD_K1 = {"K1": (matmul_int8, "matmul_acc_cuda", k1_key)}
+RECORD_K1I16 = {"K1i16": (matmul_int8, "matmul_acc_int16_cuda", k1_key)}
 RECORD_K3 = {"K3": (fused_conv_int8, "conv_max_cuda", k3_key)}
 RECORD_K2 = {"K2": (fused_matmul_int8, "matmul_max_cuda", k1_key)}
 RECORD_K4 = {"K4": (fused_dwconv_int8, "dwconv_max_cuda", k4_key)}
@@ -1109,17 +1174,156 @@ def k3_step_sum(k3_per_step, k3_rows):
     return out
 
 
-def resnet50v2_steps(start, backend, xs, ohs, xe, ye, record=None):
-    """Train steps on (xs, ohs) and one eval step of ResNet-v2-50 (1000
-    classes) through make_train_step / make_eval_step on the card ->
-    (params, losses, correct, the calls of `record` in the train steps)."""
-    model = load_jax_params(resnet50v2_niti(num_classes=1000), start).to("cuda")
+def class_steps(build, start, device, backend, mode, xs, ohs, xe, ye, record=None):
+    """Train steps on (xs, ohs) and one eval step of a 1000-class model
+    (ResNet-v2-50, the zoo) through make_train_step / make_eval_step on
+    `device` -> (params, losses, correct, the calls of `record` in the
+    train steps, in the eval step)."""
+    model = load_jax_params(build(num_classes=1000), start).to(device)
     step, evals = make_train_step(model), make_eval_step(model, num_classes=1000)
-    with kernels.use_backend(backend):
-        with recording(record or {}) as seen:
-            losses = [float(step(x, oh)) for x, oh in zip(xs, ohs)]
-        correct = int(evals(xe, ye))
-    return export_jax_params(model), losses, correct, seen
+    with kernels.use_backend(backend), use_fused_conv_mode(mode):
+        with recording(record or {}) as seen_train:
+            losses = [float(step(x.to(device), oh.to(device))) for x, oh in zip(xs, ohs)]
+        with recording(record or {}) as seen_eval:
+            correct = int(evals(xe.to(device), ye.to(device)))
+    return export_jax_params(model), losses, correct, seen_train, seen_eval
+
+
+def class_batches(batch, side, seed, n=3):
+    """n seeded batches of integer pixels at (batch, side, side, 3) on the
+    card: the one-hot labels (1000 wide) of the first n - 1 for the train
+    steps, the labels of the last for the eval step -> (xs, ohs, xe, ye)."""
+    rng = np.random.default_rng(seed)
+    xs = [torch.from_numpy(rng.integers(0, 256, (batch, side, side, 3)).astype(np.float32)).cuda()
+          for _ in range(n)]
+    ys = rng.integers(0, 1000, (n, batch))
+    ohs = [torch.from_numpy(onehot_padded(y, 1000, 1000)).cuda() for y in ys[:-1]]
+    return xs[:-1], ohs, xs[-1], torch.from_numpy(ys[-1].astype(np.int64)).cuda()
+
+
+def class_path(label, key, build, start, data, others, record=None, moves=True):
+    """class_steps on the card with the kernels (launches counted from 0,
+    the calls of `record` recorded), then from the same params with each
+    (device, backend) of `others`: byte-identical params, losses within
+    1e-5, equal correct counts, and the launches EXPECTED_PER_STEP gives;
+    the params move, or with `moves` False stay as they were -> (the
+    kernels' run, its launches)."""
+    mode = key[2]
+    kernels.reset_launch_counts()
+    run = class_steps(build, start, "cuda", "cuda", mode, *data, record=record)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    kernels.reset_launch_counts()
+    for device, backend in others:
+        other = class_steps(build, start, device, backend, mode, *data)
+        what = f"plain on the {'card' if device == 'cuda' else 'CPU'}"
+        if not params_equal(run[0], other[0]) or run[2] != other[2] or \
+                max(abs(a - b) for a, b in zip(run[1], other[1])) > 1e-5:
+            raise AssertionError(f"{label}: the kernels and {what} differ (losses {run[1]} vs "
+                                 f"{other[1]}, correct {run[2]} vs {other[2]})")
+    if any(kernels.launch_counts().values()):
+        raise AssertionError(f"plain runs launched kernels: {kernels.launch_counts()}")
+    if not all(np.isfinite(run[1])) or params_equal(run[0], start) == moves:
+        raise AssertionError(f"{label}: losses {run[1]}, or the params "
+                             f"{'did not move' if moves else 'moved'}")
+    want = expected_launches(key, len(data[0]), 1)
+    if family_counts(counts) != want:
+        raise AssertionError(f"{label}: launches {counts}, expected {want} by kernel family")
+    print(f"  {label}: params byte-identical across the kernels and "
+          f"{', '.join(('plain on the card' if d == 'cuda' else 'plain on the CPU') for d, _ in others)}; "
+          f"losses {run[1]}; launches {family_counts(counts)}", flush=True)
+    return run, counts
+
+
+def class_step_weights(key, fam, run):
+    """Launches of kernel family `fam` per train step and per eval step by
+    shape, from a class_path run's recording of its train steps (each the
+    same shapes) and eval step, held to EXPECTED_PER_STEP."""
+    n_train = len(run[1])
+    train, evals = run[3][fam], run[4][fam]
+    if any(n % n_train for n in train.values()):
+        raise AssertionError(f"{key}: {n_train} train steps gave {fam} {dict(train)}")
+    per_train = {k: n // n_train for k, n in train.items()}
+    want = EXPECTED_PER_STEP[key]
+    if (sum(per_train.values()), sum(evals.values())) != (want[0].get(fam, 0), want[1].get(fam, 0)):
+        raise AssertionError(f"{key}: {fam} launches by shape {per_train}, {dict(evals)}")
+    return per_train, dict(evals)
+
+
+def step_rate(build, start, batch, side, mode, steps):
+    """Samples/s of make_train_step on the card at (batch, side, side, 3),
+    1000 classes: `steps` steps back to back after a warm-up step, on the
+    host clock, synchronised at both ends."""
+    model = load_jax_params(build(num_classes=1000), start).to("cuda")
+    step = make_train_step(model)
+    (x,), (oh,), _, _ = class_batches(batch, side, seed=77, n=2)
+    with use_fused_conv_mode(mode):
+        step(x, oh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step(x, oh)
+        torch.cuda.synchronize()
+    return batch * steps / (time.perf_counter() - t0)
+
+
+def rand_int16(shape, gen):
+    return torch.randint(-32768, 32768, shape, generator=gen, dtype=torch.int16, device="cuda")
+
+
+def k1_step_rows(per_step, rates, gen, int16=False):
+    """K1 (or, with `int16`, its int16-A route, beside the int8 route at the
+    same shape and layouts) at each (M, K, N, A's layout, B's layout) of
+    one train step, in that layout, with the step's launches of each:
+    byte-equal to the plain version, the kernel's and the plain version's
+    times, and the bound (an int16 x int8 product counted as two int8
+    products on the tensor cores, which take no 16-bit integers)."""
+    rows = []
+    for key, count in sorted(per_step.items()):
+        m, k, n, al, bl = key
+        (a, b), = operands(m, k, n, al, bl, gen)
+        fn = matmul_int8.matmul_acc_cuda
+        if int16:
+            a8 = a
+            a = rand_int16((k, m), gen).t() if al == "m" else rand_int16((m, k), gen)
+            fn = matmul_int8.matmul_acc_int16_cuda
+        err = max_abs_err(fn(a, b), matmul_int8.matmul_acc_plain(a, b))
+        if err:
+            raise AssertionError(f"K1{' int16-A' if int16 else ''} at {key} differs from plain "
+                                 f"by {err}")
+        ops = 2.0 * m * n * k * (2 if int16 else 1)
+        nbytes = a.element_size() * m * k + k * n + 4.0 * m * n
+        b_ms, b_by = bound(ops, nbytes, rates)
+        row = dict(key=list(key), launches_per_train_step=count, max_abs_err=err,
+                   ms=time_ms(lambda: fn(a, b), launches=10, rounds=3),
+                   plain_ms=time_ms(lambda: matmul_int8.matmul_acc_plain(a, b), launches=1,
+                                    rounds=1),
+                   bound_ms=b_ms, bound_by=b_by, ops=ops, bytes=nbytes)
+        if int16:
+            row["int8_route_ms"] = time_ms(lambda: matmul_int8.matmul_acc_cuda(a8, b),
+                                           launches=10, rounds=3)
+        rows.append(row)
+        print(f"  K1{' int16-A' if int16 else ''} {key} x{count}: byte-equal | kernel "
+              f"{row['ms']:.4f} ms" + (f" (int8 route {row['int8_route_ms']:.4f})" if int16
+                                       else "")
+              + f", plain {row['plain_ms']:.4f} ms, bound {b_ms * 1e3:.2f} us ({b_by})",
+              flush=True)
+    return rows
+
+
+def step_sum(rows, rates, per_step=None):
+    """The rows' times over one train step, weighted by their launches (or
+    by `per_step`, {key: launches}, over the rows it names); the bound of
+    the sum from the summed operations and bytes."""
+    weights = {tuple(r["key"]): r["launches_per_train_step"] for r in rows} \
+        if per_step is None else per_step
+    sub = [r for r in rows if tuple(r["key"]) in weights]
+    out = {"launches": sum(weights.values())}
+    for field in ("ms", "plain_ms", "ops", "bytes") + (
+            ("int8_route_ms",) if sub and "int8_route_ms" in sub[0] else ()):
+        out[field] = sum(weights[tuple(r["key"])] * r[field] for r in sub)
+    out["bound_ms"], out["bound_by"] = bound(out["ops"], out["bytes"], rates)
+    return out
 
 
 def fp32_forward_close(tag, cls, x, rtol_train):
@@ -1254,9 +1458,14 @@ def main() -> int:
     logs = build.build_all()
     print(f"phase 2: built {sorted(logs)} in {time.perf_counter() - t0:.1f} s", flush=True)
     for lib, log in logs.items():
-        for ln in log.splitlines():
-            if "registers" in ln or "spill" in ln:
+        lines = log.splitlines()
+        for ln in lines:
+            if ("registers" in ln or "spill" in ln) and "C7519" not in ln:
                 print(f"  [{lib}] {ln.strip()}", flush=True)
+        injected = sum("C7519" in ln for ln in lines)
+        if injected:
+            print(f"  [{lib}] ptxas injected warpgroup.arrive (C7519, to use registers in GMMA) "
+                  f"at {injected} places", flush=True)
 
     print("phase 3: kernels against their plain versions on the card", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1490,37 +1699,14 @@ def main() -> int:
 
     v2_start = export_jax_params(
         resnet50v2_niti(num_classes=1000).reset_parameters(torch.Generator().manual_seed(0)))
-    rng = np.random.default_rng(50)
-    v2_x = [torch.from_numpy(rng.integers(0, 256, (16, 224, 224, 3)).astype(np.float32)).cuda()
-            for _ in range(3)]
-    v2_y = rng.integers(0, 1000, (3, 16))
-    v2_oh = [torch.from_numpy(onehot_padded(y, 1000, 1000)).cuda() for y in v2_y[:2]]
-    v2_labels = torch.from_numpy(v2_y[2].astype(np.int64)).cuda()
-    kernels.reset_launch_counts()
-    v2_params, v2_losses, v2_correct, seen_v2 = resnet50v2_steps(
-        v2_start, "cuda", v2_x[:2], v2_oh, v2_x[2], v2_labels, record=RECORD_K2)
-    torch.cuda.synchronize()
-    runs["resnet50v2_b16"] = kernels.launch_counts()
-    kernels.reset_launch_counts()
-    plain = resnet50v2_steps(v2_start, "torch", v2_x[:2], v2_oh, v2_x[2], v2_labels)
-    if any(kernels.launch_counts().values()):
-        raise AssertionError(f"plain runs launched kernels: {kernels.launch_counts()}")
-    if not params_equal(v2_params, plain[0]) or plain[2] != v2_correct or \
-            max(abs(a - b) for a, b in zip(v2_losses, plain[1])) > 1e-5:
-        raise AssertionError(f"resnet50v2 b16: kernels and plain on the card differ "
-                             f"(losses {v2_losses} vs {plain[1]})")
-    if not all(np.isfinite(v2_losses)) or params_equal(v2_params, v2_start):
-        raise AssertionError(f"resnet50v2 b16: losses {v2_losses}, or the params did not move")
-    want = expected_launches(("resnet50v2", 16, "matmul_only"), 2, 1)
-    if family_counts(runs["resnet50v2_b16"]) != want:
-        raise AssertionError(f"resnet50v2 b16 launches {runs['resnet50v2_b16']}, expected {want}")
-    print(f"  resnet50v2 b16 224x224: params byte-identical across the kernels and plain on the "
-          f"card; losses {v2_losses}; launches {family_counts(runs['resnet50v2_b16'])}", flush=True)
-    del plain, v2_x, v2_oh
-    if any(n % 2 for n in seen_v2["K2"].values()):
-        raise AssertionError(f"resnet50v2's two train steps gave K2 {dict(seen_v2['K2'])}")
-    print(f"  K2 at the {len(seen_v2['K2'])} shapes of a ResNet-v2-50 b16 train step", flush=True)
-    k2_v2_rows = k2_path_rows({k: n // 2 for k, n in seen_v2["K2"].items()}, rates, int_rate, gen)
+    v2_key = ("resnet50v2", 16, "matmul_only")
+    run_v2, runs["resnet50v2_b16"] = class_path(
+        "resnet50v2 b16 224x224", v2_key, resnet50v2_niti, v2_start, class_batches(16, 224, 50),
+        [("cuda", "torch")], record=RECORD_K2)
+    k2_v2_per_step, _ = class_step_weights(v2_key, "K2", run_v2)
+    del run_v2
+    print(f"  K2 at the {len(k2_v2_per_step)} shapes of a ResNet-v2-50 b16 train step", flush=True)
+    k2_v2_rows = k2_path_rows(k2_v2_per_step, rates, int_rate, gen)
     k2_v2 = k2_path_summary(k2_v2_rows, rates)
     torch.cuda.empty_cache()
 
@@ -1551,6 +1737,109 @@ def main() -> int:
           f"TEST_TRAIN {'PASS' if gate['pass'] else 'FAIL'} (exit {gate_code}; reported, "
           "not a check)", flush=True)
 
+    print("phase 12: the zoo, SqueezeNet v1.0 (b128, 224x224) and Inception-v3 (b32, "
+          "299x299), 1000 classes, through make_train_step / make_eval_step", flush=True)
+    record_zoo = {**RECORD_K1, **RECORD_K2, **RECORD_K3}
+    zoo = {}
+    for net, build_net, batch, side in (("squeezenet", squeezenet_niti, 128, 224),
+                                        ("inceptionv3", inceptionv3_niti, 32, 299)):
+        net_start = export_jax_params(build_net(num_classes=1000).reset_parameters(
+            torch.Generator().manual_seed(0)))
+        net_data = class_batches(batch, side, seed=batch)
+        # SqueezeNet at 224 ends in a 13x13 map: the global pool's backward
+        # divides every int8 gy by 169, truncating it to 0, so (as in the JAX
+        # package) no weight moves; SqueezeNet10 at 32x32 (1x1) does learn
+        moves = net != "squeezenet"
+        per_step = {}
+        for mode in ("matmul_only", "all"):
+            key = (net, batch, mode)
+            run, runs[f"{net}_b{batch}_{mode}"] = class_path(
+                f"{net} b{batch} {mode}", key, build_net, net_start, net_data, [("cuda", "torch")],
+                record=record_zoo, moves=moves)
+            per_step[mode] = {fam: class_step_weights(key, fam, run)
+                              for fam in ("K1", "K2", "K3") if fam in EXPECTED_PER_STEP[key][0]}
+            del run
+        del net_data
+        k3_train, k3_eval = per_step["all"]["K3"]
+        if not set(k3_train) | set(k3_eval) <= K3_KEYS:
+            raise AssertionError(f"{net}: K3 shapes {sorted((set(k3_train) | set(k3_eval)) - K3_KEYS)}"
+                                 " are not K3_CASES shapes")
+        # the card against the CPU at batch 2, full size, under "all" (K1 and K3)
+        _, runs[f"{net}_b2_all"] = class_path(
+            f"{net} b2 all", (net, 2, "all"), build_net, net_start,
+            class_batches(2, side, seed=2), [("cpu", "cuda")], moves=moves)
+        rates_zoo = {"matmul_only": [], "all": []}
+        for mode in ("matmul_only", "all", "all", "matmul_only"):  # in turns
+            rate = step_rate(build_net, net_start, batch, side, mode, 6)
+            rates_zoo[mode].append(rate)
+            print(f"  throughput on {name} ({card}): {net} b{batch} '{mode}' {rate:.1f} samples/s "
+                  "(make_train_step, 6 steps back to back)", flush=True)
+        k1_keys = {**per_step["matmul_only"]["K1"][0], **per_step["all"]["K1"][0]}
+        print(f"  K1 at the {len(k1_keys)} shapes of a {net} b{batch} train step (both modes)",
+              flush=True)
+        net_k1_rows = k1_step_rows(k1_keys, rates, gen)
+        net_k2_rows = k2_path_rows(per_step["matmul_only"]["K2"][0], rates, int_rate, gen)
+        zoo[net] = dict(
+            batch=batch, side=side, samples_per_s_in_turns=rates_zoo,
+            k1={mode: step_sum(net_k1_rows, rates, per_step[mode]["K1"][0]) for mode in per_step},
+            k1_by_shape=net_k1_rows, k2=k2_path_summary(net_k2_rows, rates), k2_by_shape=net_k2_rows,
+            k3=k3_step_sum(k3_train, k3_rows))
+        z = zoo[net]
+        print(f"  {net} b{batch} over one train step: K1 'matmul_only' ({z['k1']['matmul_only']['launches']}"
+              f" launches) {z['k1']['matmul_only']['ms']:.4f} ms (plain {z['k1']['matmul_only']['plain_ms']:.4f},"
+              f" bound {z['k1']['matmul_only']['bound_ms']:.4f}); K1 'all' ({z['k1']['all']['launches']}) "
+              f"{z['k1']['all']['ms']:.4f} ms; K2 ({z['k2']['launches']}) max {z['k2']['max']['ms']:.4f} + "
+              f"requant {z['k2']['requant']['ms']:.4f} ms (bounds {z['k2']['max']['bound_ms']:.4f} + "
+              f"{z['k2']['requant']['bound_ms']:.4f}); K3 'all' ({z['k3']['launches']}) max "
+              f"{z['k3']['max']['ms']:.4f} + requant {z['k3']['requant']['ms']:.4f} ms (bounds "
+              f"{z['k3']['max']['bound_ms']:.4f} + {z['k3']['requant']['bound_ms']:.4f}; cuDNN fp32 "
+              f"{z['k3']['cudnn_fp32_ms']:.4f}, non-fused route {z['k3']['nonfused_ms']:.4f})", flush=True)
+        torch.cuda.empty_cache()
+    sq10 = functools.partial(squeezenet_niti, num_classes=10)
+    sq10_start = export_jax_params(sq10().reset_parameters(torch.Generator().manual_seed(0)))
+    _, runs["squeezenet10_b64"], _ = main_path(
+        "squeezenet (10 classes) b64, train_niti on CIFAR", ("squeezenet10", 64, "matmul_only"),
+        cifar_train, synthetic_cifar(64, seed=1), 1, sq10_start, [("cpu", "cuda")], model_fn=sq10)
+
+    print("phase 13: MobileNetV2 with int16 projection outputs (proj_bits=15) and K1's "
+          "int16-A route", flush=True)
+    p15 = functools.partial(mobilenet_v2_niti, proj_bits=15)
+    p15_start = export_jax_params(p15().reset_parameters(torch.Generator().manual_seed(0)))
+    p15_key = ("mnv2p15", 256, "matmul_only")
+    run_p15, runs["mnv2p15_b256"], seen_p15 = main_path(
+        "mnv2p15 b256", p15_key, cifar_train, cifar_test, 1, p15_start, [("cuda", "torch")],
+        model_fn=p15, record={**RECORD_K1I16})
+    _, seen_p15_steps = per_step_counts(p15_key, run_p15["model"], xc, yc, NITI_LOGIT_CHANNELS,
+                                        record={**RECORD_K1I16})
+    i16_per_step = path_step_weights("K1i16", seen_p15, n_train, n_eval, seen_p15_steps)
+    del run_p15
+    _, runs["mnv2p15_b32"], _ = main_path(
+        "mnv2p15 b32", ("mnv2p15", 32, "matmul_only"), synthetic_cifar(32, seed=3),
+        synthetic_cifar(32, seed=4), 1, p15_start, [("cpu", "cuda")], model_fn=p15)
+    print(f"  K1's int16-A route at the {len(i16_per_step)} shapes of an mnv2p15 b256 train step",
+          flush=True)
+    i16_rows = k1_step_rows(i16_per_step, rates, gen, int16=True)
+    i16 = step_sum(i16_rows, rates)
+    extremes = []
+    for a_val, b_val, (m, k, n) in ((32767, 127, (300, 517, 70)), (-32768, -128, (70, 600, 33)),
+                                    (-32768, 127, (4096, 1030, 96)),
+                                    (32767, -128, (16, 262144, 96))):
+        for a_t in (False, True):
+            a = torch.full((k, m) if a_t else (m, k), a_val, dtype=torch.int16, device="cuda")
+            a = a.t() if a_t else a
+            b = torch.full((k, n), b_val, dtype=torch.int8, device="cuda")
+            got = matmul_int8.matmul_acc_int16_cuda(a, b)
+            want = (k * a_val * b_val + 2**31) % 2**32 - 2**31
+            if not bool((got == want).all()) or not torch.equal(got, matmul_int8.matmul_acc_plain(a, b)):
+                raise AssertionError(f"K1 int16-A at {a_val} x {b_val}, K {k}, A^T {a_t}: wrong")
+            extremes.append(dict(a=a_val, b=b_val, m=m, k=k, n=n, a_mn_major=a_t, int32=want))
+    print(f"  K1 int16-A at the extremes (+-32767, -32768 against 127, -128; sums past 2^31 and "
+          f"2^32, split K), both layouts: equal to the int32 wrap and to plain: {extremes}",
+          flush=True)
+    print(f"  K1 int16-A over one mnv2p15 b256 train step ({i16['launches']} launches): "
+          f"{i16['ms']:.4f} ms (the int8 route at the same shapes {i16['int8_route_ms']:.4f}), plain "
+          f"{i16['plain_ms']:.4f} ms, bound {i16['bound_ms']:.4f} ms ({i16['bound_by']})", flush=True)
+
     names = list(kernels.launch_counts())
     launches = {n: sum(c[n] for c in runs.values()) for n in names}
     by_run = {n: {r: c[n] for r, c in runs.items()} for n in names}
@@ -1577,7 +1866,26 @@ def main() -> int:
          "resnet18_b256_train_step": dict(
              k1_rn, shapes="every K1 launch of one ResNet-18 batch-256 train step under "
              "'matmul_only', as recorded (all_mode: the launches 'all' leaves to K1); times "
-             "weighted by the launches", by_shape=k1_rn_rows)},
+             "weighted by the launches", by_shape=k1_rn_rows),
+         **{f"{name}_b{z['batch']}_train_step": dict(
+             z["k1"], shapes=f"every K1 launch of one {name} batch-{z['batch']} train step in "
+             "each fused mode, as recorded; times weighted by the launches",
+             by_shape=z["k1_by_shape"]) for name, z in zoo.items()}},
+        {"name": "matmul_int16a", "route": "cuda",
+         "source": "mandheling_tpu_torch/csrc/matmul_int8.cu",
+         "replaces": "mandheling_tpu/ops/kernels/dispatch.py:99",
+         "replaces_note": "no Pallas site: the JAX package computes int16 x int8 products in "
+                          "XLA (dispatch.matmul_acc / conv_acc); K1's int16-A route",
+         "launches": launches["matmul_int16a"], "launches_by_run": by_run["matmul_int16a"],
+         "max_abs_err": max(r["max_abs_err"] for r in i16_rows),
+         **{key: i16[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "int8_route_ms")},
+         "library_ms": None,
+         "library_note": "no PyTorch call computes an integer product with int16 operands on "
+                         "CUDA (torch._int_mm takes int8 only)",
+         "shapes": f"the {i16['launches']} launches of one mnv2p15 (MobileNetV2, proj_bits=15) "
+                   "batch-256 train step, as recorded; times are their sum; int8_route_ms is "
+                   "K1's int8 route at the same shapes and layouts",
+         "by_shape": i16_rows, "extremes": extremes},
     ]}
     for r in k2_rows:
         replaces = {"fused_matmul_max": "mandheling_tpu/ops/kernels/fused_matmul_int8.py:162",
@@ -1608,7 +1916,9 @@ def main() -> int:
                           for x in rows_])
                for tag, what, summary, rows_ in (
                    ("resnet18_b256", "ResNet-18 batch-256", k2_rn, k2_rn_rows),
-                   ("resnet50v2_b16", "ResNet-v2-50 batch-16 224x224", k2_v2, k2_v2_rows))}})
+                   ("resnet50v2_b16", "ResNet-v2-50 batch-16 224x224", k2_v2, k2_v2_rows))
+               + tuple((f"{name}_b{z['batch']}", f"{name} batch-{z['batch']}", z["k2"],
+                        z["k2_by_shape"]) for name, z in zoo.items())}})
     stem = k3_rows[0]
     stem["max_abs_err"] = k3_err
     kernels_line["kernels"] += fused_entries(
@@ -1624,12 +1934,15 @@ def main() -> int:
               "library_note": "no PyTorch call computes an int8 conv on CUDA; cudnn_fp32_ms "
                               "(a float conv, inexact past 2^24) and nonfused_ms (the "
                               "route fused mode 'all' replaces) are yardsticks",
-              "resnet18_b256_train_step": dict(
-                  k3_rn[ph], launches=k3_rn["launches"], cudnn_fp32_ms=k3_rn["cudnn_fp32_ms"],
-                  nonfused_ms=k3_rn["nonfused_ms"], by_shape=k3_rn["by_shape"],
-                  shapes="every K3 launch of one ResNet-18 batch-256 train step under 'all', as "
+              **{f"{tag}_train_step": dict(
+                  k3s[ph], launches=k3s["launches"], cudnn_fp32_ms=k3s["cudnn_fp32_ms"],
+                  nonfused_ms=k3s["nonfused_ms"], by_shape=k3s["by_shape"],
+                  shapes=f"every K3 launch of one {what} train step under 'all', as "
                          "recorded, at the K3_CASES times; cudnn_fp32_ms and nonfused_ms sum "
-                         "both yardsticks over the same launches")}
+                         "both yardsticks over the same launches")
+                 for tag, what, k3s in (("resnet18_b256", "ResNet-18 batch-256", k3_rn),) + tuple(
+                     (f"{name}_b{z['batch']}", f"{name} batch-{z['batch']}", z["k3"])
+                     for name, z in zoo.items())}}
          for ph in ("max", "requant")})
     k4_step = {"max_abs_err": k4_err}
     k4_recipe = {}
@@ -1710,7 +2023,9 @@ def main() -> int:
     kernels_line["throughput_samples_per_s"] = {
         "lenet_b64": rate64, "lenet_b2048": rate2k, "mnv2_b256": rate_mn,
         "resnet18_b256_matmul_only_in_turns": rn_rates["matmul_only"],
-        "resnet18_b256_all_in_turns": rn_rates["all"], **fp32_rates}
+        "resnet18_b256_all_in_turns": rn_rates["all"], **fp32_rates,
+        **{f"{name}_b{z['batch']}_{mode}_in_turns": z["samples_per_s_in_turns"][mode]
+           for name, z in zoo.items() for mode in ("matmul_only", "all")}}
     kernels_line["fp32_twins_card_vs_cpu"] = fp32_checks
     kernels_line["test_train_torch_resnet18_b64"] = dict(gate, exit=gate_code)
 

@@ -89,6 +89,9 @@ __device__ __forceinline__ uint32_t load_if(const uint32_t* p, bool load) {
   return v;
 }
 
+// An empty range [lo, lo) loads nothing: src then need not point into x
+// (a row in the padding), and the word at src & ~3 may lie before x's first
+// byte, outside any allocation.
 __device__ __forceinline__ void fetch(Words& u, const int8_t* src, int lo, int hi) {
   const uintptr_t addr = reinterpret_cast<uintptr_t>(src);
   const uint32_t* q = reinterpret_cast<const uint32_t*>(addr & ~uintptr_t(3));
@@ -98,7 +101,7 @@ __device__ __forceinline__ void fetch(Words& u, const int8_t* src, int lo, int h
 #pragma unroll
   for (int i = 0; i < 5; ++i) {
     const int s = 4 * i - u.off;  // word i holds bytes [s, s + 4) of the unit
-    u.w[i] = load_if(q + i, s < hi && s + 4 > lo);
+    u.w[i] = load_if(q + i, lo < hi && s < hi && s + 4 > lo);
   }
 }
 

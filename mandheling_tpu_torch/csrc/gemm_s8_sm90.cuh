@@ -3,7 +3,9 @@
 // gathered from an NHWC input through the loader hook of the K-major
 // mainloops), and the primitives K6 (matmul_max_bf16.cu) builds its bf16
 // mainloop from: s8 x s8 -> s32 with int32 sums that wrap (no .satfinite),
-// as XLA's do.
+// as XLA's do. The mainloops also take A's bytes unsigned (LO): the second
+// pass of K1's int16-A route, which adds the low-byte plane's products to
+// the high-byte plane's sums times 256.
 //
 // Two routes, chosen by the wrapper from the operands' strides
 // (ops/kernels/matmul_int8.py `plan`):
@@ -159,19 +161,40 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
          (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
 }
 
+#define MH_WGMMA_N32(ATYPE)                                                              \
+  asm volatile(                                                                          \
+      "{\n"                                                                              \
+      ".reg .pred p;\n"                                                                  \
+      "setp.ne.b32 p, %18, 0;\n"                                                         \
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32." ATYPE ".s8 "                          \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "          \
+      "%16, %17, p;\n"                                                                   \
+      "}\n"                                                                              \
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),          \
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),        \
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])                               \
+      : "l"(da), "l"(db), "r"(1))
+
+// d += A * B over one 32-byte k-step; A's bytes are unsigned where UA (the
+// low-byte plane of K1's int16-A route), signed otherwise.
+template <bool UA = false>
 __device__ __forceinline__ void wgmma_n32(int (&d)[16], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "%16, %17, p;\n"
-      "}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
-        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
-        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
-      : "l"(da), "l"(db), "r"(1));
+  if constexpr (UA)
+    MH_WGMMA_N32("u8");
+  else
+    MH_WGMMA_N32("s8");
+}
+#undef MH_WGMMA_N32
+
+// The starting sums of a mainloop: 0, or with LO (the low-byte pass of K1's
+// int16-A route) the high-byte plane's sums times 256, modulo 2^32.
+template <bool LO, int NJ>
+__device__ __forceinline__ void init_acc(int (&acc)[NJ][16]) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      acc[j][i] = LO ? static_cast<int>(static_cast<unsigned>(acc[j][i]) << 8) : 0;
 }
 
 template <int NJ>
@@ -209,16 +232,14 @@ __device__ __forceinline__ uint8_t* aligned_smem() {
 // m0 + 64 wg + 16 w + g + 8 ((i >> 1) & 1), column n0 + 32 j + 8 (i >> 2)
 // + 2 t + (i & 1). load_a(tile, m0, k0) stages A's rows [m0, m0 + BM) x K
 // bytes [k0, k0 + kspan(k0, k_end)) as load_kmajor does (the hook of K3's
-// gather); the overload below reads A from p.
-template <int WG, int BN, typename LoadA>
+// gather); the overload below reads A from p. With LO, A's bytes are
+// unsigned and acc starts from its own value times 256 (init_acc).
+template <int WG, int BN, bool LO = false, typename LoadA>
 __device__ __forceinline__ void mainloop_kmajor(uint8_t* ring, const Gemm& p, int m0, int n0,
                                                 int k_begin, int k_end,
                                                 int (&acc)[BN / 32][16], LoadA load_a) {
   using T = KMajor<WG, BN>;
-#pragma unroll
-  for (int j = 0; j < T::NJ; ++j)
-#pragma unroll
-    for (int i = 0; i < 16; ++i) acc[j][i] = 0;
+  init_acc<LO>(acc);
   const int kt_n = k_end > k_begin ? (k_end - k_begin + 127) / 128 : 0;
   const int8_t* b = p.b + n0 * p.sbn;
   const int brows = p.N - n0;
@@ -259,7 +280,7 @@ __device__ __forceinline__ void mainloop_kmajor(uint8_t* ring, const Gemm& p, in
     for (int kk = 0; kk < nk; ++kk)
 #pragma unroll
       for (int j = 0; j < T::NJ; ++j)
-        wgmma_n32(acc[j], desc_sw128(sa + kk * 32), desc_sw128(sb + j * 32 * 128 + kk * 32));
+        wgmma_n32<LO>(acc[j], desc_sw128(sa + kk * 32), desc_sw128(sb + j * 32 * 128 + kk * 32));
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
     fence_acc(acc);
@@ -267,11 +288,11 @@ __device__ __forceinline__ void mainloop_kmajor(uint8_t* ring, const Gemm& p, in
   __syncthreads();  // the ring is free for the epilogue
 }
 
-template <int WG, int BN>
+template <int WG, int BN, bool LO = false>
 __device__ __forceinline__ void mainloop_kmajor(uint8_t* ring, const Gemm& p, int m0, int n0,
                                                 int k_begin, int k_end,
                                                 int (&acc)[BN / 32][16]) {
-  mainloop_kmajor<WG, BN>(ring, p, m0, n0, k_begin, k_end, acc,
+  mainloop_kmajor<WG, BN, LO>(ring, p, m0, n0, k_begin, k_end, acc,
                           [&](uint8_t* st, int m, int k0) {
                             load_kmajor<64 * WG, 128 * WG>(st, p.a + m * p.sam, p.sam, p.M - m,
                                                            k0, k_end, p.aw);
@@ -423,14 +444,23 @@ __device__ __forceinline__ void transpose4(const uint32_t (&w)[4], uint32_t (&x)
   x[3] = __byte_perm(t1, t3, 0x7632);
 }
 
+#define MH_MMA_S8(ATYPE)                                                     \
+  asm volatile(                                                              \
+      "mma.sync.aligned.m16n8k32.row.col.s32." ATYPE ".s8.s32 "             \
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"             \
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])                       \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]))
+
+// c += A * B (m16n8k32); A's bytes unsigned where UA, as in wgmma_n32.
+template <bool UA = false>
 __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
                                        const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  if constexpr (UA)
+    MH_MMA_S8("u8");
+  else
+    MH_MMA_S8("s8");
 }
+#undef MH_MMA_S8
 
 using MNAcc = int[4][4][4];  // [m16 tile][n8 tile][value]
 
@@ -439,7 +469,8 @@ using MNAcc = int[4][4][4];  // [m16 tile][n8 tile][value]
 // shared loads (4 k-rows x 4 m-bytes) yields a fragment register for four
 // m16 tiles: label row g (+8) of tile j is m = 4 g + j (+32); label column
 // g of n8 tile j is n = 4 g + j; k keeps its order. See for_each_mnmajor.
-template <int WGM>
+// LO as in mainloop_kmajor: A unsigned, acc starting from itself times 256.
+template <int WGM, bool LO = false>
 __device__ __forceinline__ void mainloop_mnmajor(uint8_t* ring, const Gemm& p, int m0, int n0,
                                                  int k_begin, int k_end, MNAcc& acc) {
   using T = MNMajor<WGM>;
@@ -448,7 +479,8 @@ __device__ __forceinline__ void mainloop_mnmajor(uint8_t* ring, const Gemm& p, i
 #pragma unroll
     for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int v = 0; v < 4; ++v) acc[i][j][v] = 0;
+      for (int v = 0; v < 4; ++v)
+        acc[i][j][v] = LO ? static_cast<int>(static_cast<unsigned>(acc[i][j][v]) << 8) : 0;
   const int kt_n = k_end > k_begin ? (k_end - k_begin + MN_BK - 1) / MN_BK : 0;
   const int8_t* a = p.a + m0;
   const int8_t* b = p.b + n0;
@@ -500,7 +532,7 @@ __device__ __forceinline__ void mainloop_mnmajor(uint8_t* ring, const Gemm& p, i
 #pragma unroll
       for (int jm = 0; jm < 4; ++jm)
 #pragma unroll
-        for (int jn = 0; jn < 4; ++jn) mma_s8(acc[jm][jn], af[jm], bf[jn]);
+        for (int jn = 0; jn < 4; ++jn) mma_s8<LO>(acc[jm][jn], af[jm], bf[jn]);
     }
   }
   __syncthreads();  // the ring is free for the epilogue

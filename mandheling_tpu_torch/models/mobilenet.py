@@ -81,8 +81,9 @@ def mobilenet_v2_niti(
     dw_per_channel: bool = False, proj_bits: int = 7,
 ) -> Sequential:
     """NITI int8 MobileNetV2; logit channels padded to a multiple of 4.
-    `proj_bits=15` (int16 projection outputs) is not ported: the layers
-    accept it, the int16 operands of the next conv raise."""
+    `proj_bits=15` requantizes the linear projections' outputs (and the
+    residual adds they feed) to int16; the convs that read them take K1's
+    int16-A route on the card."""
     _check_variant(variant)
     stem_stride = 2 if variant == "imagenet" else 1
     plan = IMAGENET_PLAN if variant == "imagenet" else CIFAR_PLAN

@@ -1,5 +1,5 @@
-from .blocks import (GlobalAvgPool, NITIAvgPool, NITIDepthwiseConv2D, ProjectedResidualBlock,
-                     ResidualBlock)
+from .blocks import (GlobalAvgPool, NITIAvgPool, NITIDepthwiseConv2D, ParallelAdd, ParallelConcat,
+                     ProjectedResidualBlock, ResidualBlock)
 from .init import niti_xavier_int8, niti_xavier_int8_dw_per_channel
 from .layers import Flatten, NITIConv2D, NITIMaxPool, NITIRelu, NITIRelu6, SqueezeLogits
 from .module import NITILayer, Sequential
@@ -16,6 +16,8 @@ __all__ = [
     "NITIMaxPool",
     "NITIRelu",
     "NITIRelu6",
+    "ParallelAdd",
+    "ParallelConcat",
     "ProjectedResidualBlock",
     "ResidualBlock",
     "SqueezeLogits",

@@ -1,19 +1,22 @@
-"""Composite NITI layers: depthwise conv, average pools, the residual blocks
-(port of ``mandheling_tpu/nn/blocks.py``, and of the projected block of
-``mandheling_tpu/models/resnet.py``).
+"""Composite NITI layers: depthwise conv, average pools, the parallel
+joins and the residual blocks (port of ``mandheling_tpu/nn/blocks.py``, and
+of the projected block of ``mandheling_tpu/models/resnet.py``).
 
 The residual add is the int8 eltwise of the reference with a NOP gradient
 (`NITI_Eltwise_Int8.cpp`, `grad/NITI_DSPBinaryGrad.cpp:27-32`): the output
 diff passes unchanged to both paths, and where two gradient paths meet the
 contributions are summed and clipped to int8 (`grad/OpGrad.cpp:64-128`).
+The channel concat's gradient is a channel split: each branch gets its own
+slice of the output diff.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..ops import depthwise as dw_ops
 from ..ops import eltwise as elt_ops
@@ -122,6 +125,79 @@ class GlobalAvgPool(NITILayer):
         b, h, w, c = res
         g = torch.div(gy.to(torch.int32), h * w, rounding_mode="trunc")
         return int8_clip(g.expand(b, h, w, c)).to(torch.int8), ()
+
+
+class _Parallel(NITILayer):
+    """Branches that all read the same input. Their grads are a list with
+    one list per branch, as the JAX package nests them; the backward sums
+    the branches' input grads in branch order."""
+
+    def __init__(self, branches: Sequence[Sequential]):
+        super().__init__()
+        self.branches = nn.ModuleList(branches)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        for branch in self.branches:
+            branch.reset_parameters(generator)
+
+    def _fwd_branches(self, q: QTensor):
+        outs, ress = [], []
+        for branch in self.branches:
+            out, r = branch.fwd(q)
+            outs.append(out)
+            ress.append(r)
+        return outs, ress
+
+    def _bwd_branches(self, ress, gys):
+        gx, grads = None, []
+        for branch, r, g in zip(self.branches, ress, gys):
+            g_in, g_p = branch.bwd(r, g)
+            grads.append(g_p)
+            gx = g_in if gx is None else _accum_grads(gx, g_in)
+        return gx, grads
+
+
+class ParallelConcat(_Parallel):
+    """Runs the branches on the same input and joins their outputs on the
+    channel axis, exponent-aligned (ops/eltwise.concat_int8): SqueezeNet's
+    Fire modules and the Inception modules. Each branch's backward gets its
+    own channel slice of gy, a strided view."""
+
+    def fwd(self, q: QTensor):
+        outs, ress = self._fwd_branches(q)
+        y, e = elt_ops.concat_int8([o.data for o in outs], [o.exp for o in outs])
+        return QTensor(y, e), (ress, tuple(o.data.shape[-1] for o in outs))
+
+    def bwd(self, res, gy):
+        ress, sizes = res
+        gys, off = [], 0
+        for c in sizes:
+            gys.append(gy[..., off:off + c])
+            off += c
+        return self._bwd_branches(ress, gys)
+
+
+class ParallelAdd(_Parallel):
+    """Runs the branches on the same input and joins them with the
+    exponent-aligned int8 add (ops/eltwise.add_int8), left to right. An
+    empty branch (``Sequential([])``) is the identity skip, so
+    ``ParallelAdd([main, Sequential([])])`` is ``ResidualBlock(main)``.
+    Every branch's backward gets all of gy."""
+
+    def __init__(self, branches: Sequence[Sequential]):
+        if len(branches) < 2:
+            raise ValueError("ParallelAdd needs >= 2 branches")
+        super().__init__(branches)
+
+    def fwd(self, q: QTensor):
+        outs, ress = self._fwd_branches(q)
+        y, e = outs[0].data, outs[0].exp
+        for o in outs[1:]:
+            y, e = elt_ops.add_int8(y, e, o.data, o.exp)
+        return QTensor(y, e), ress
+
+    def bwd(self, res, gy):
+        return self._bwd_branches(res, [gy] * len(self.branches))
 
 
 class ResidualBlock(NITILayer):

@@ -12,7 +12,8 @@ from __future__ import annotations
 import torch
 
 from ..ops.depthwise import check_pc_spread, pc_shift_cap
-from .blocks import NITIDepthwiseConv2D, ProjectedResidualBlock, ResidualBlock
+from .blocks import (NITIDepthwiseConv2D, ParallelAdd, ParallelConcat, ProjectedResidualBlock,
+                     ResidualBlock)
 from .module import Sequential
 
 
@@ -61,19 +62,22 @@ def requant_dw_per_channel(w: torch.Tensor, w_exp: torch.Tensor):
 
 def dw_to_per_channel(model: Sequential) -> Sequential:
     """Re-quantize every per-tensor NITIDepthwiseConv2D of `model` in place
-    to per-channel exponents (recursing into residual branches) and flip it
-    to ``per_channel=True``; returns the model. A ProjectedResidualBlock is
-    left as it is, as the JAX walk returns its params untouched (ResNet has
-    no depthwise layer). Raises on a layer with parallel branches:
-    ParallelAdd and ParallelConcat are not ported."""
+    to per-channel exponents and flip it to ``per_channel=True``; returns
+    the model. The walk recurses into residual branches, into a
+    Sequential used as a layer and into each branch of a ParallelConcat or
+    ParallelAdd, as the JAX walk does. A ProjectedResidualBlock is left as
+    it is, as the JAX walk returns its params untouched (ResNet has no
+    depthwise layer)."""
     for layer in model.layers:
         if isinstance(layer, ProjectedResidualBlock):
             continue
         if isinstance(layer, ResidualBlock):
             dw_to_per_channel(layer.branch)
-        elif hasattr(layer, "branches"):
-            raise NotImplementedError(
-                f"{type(layer).__name__}: parallel branches are not ported yet")
+        elif isinstance(layer, Sequential):
+            dw_to_per_channel(layer)
+        elif isinstance(layer, (ParallelAdd, ParallelConcat)):
+            for branch in layer.branches:
+                dw_to_per_channel(branch)
         elif isinstance(layer, NITIDepthwiseConv2D) and not layer.per_channel \
                 and layer.w_exp.dim() == 0:
             data, exp_c = requant_dw_per_channel(layer.w, layer.w_exp)

@@ -4,6 +4,7 @@ PyTorch versions, and the backend selector.
 | kernel                 | module                 | replaces (TPU kernel)                      |
 |------------------------|------------------------|--------------------------------------------|
 | `matmul_int8`          | matmul_int8.py         | matmul_int8.py `_matmul_kernel`            |
+| `matmul_int16a`        | matmul_int8.py         | K1's int16-A route (MobileNetV2's int16 projection outputs); the JAX package computes it in XLA |
 | `fused_matmul_max`     | fused_matmul_int8.py   | fused_matmul_int8.py `_small_max_kernel`, `_max_kernel` |
 | `fused_matmul_requant` | fused_matmul_int8.py   | fused_matmul_int8.py `_small_requant_kernel`, `_requant_kernel` |
 | `fused_conv_max`       | fused_conv_int8.py     | fused_conv_int8.py `_max_kernel` (`conv_max_pallas`) |
@@ -23,6 +24,7 @@ from .dispatch import get_backend, set_backend, use_backend
 # kernel name -> (module, name of its launch counter)
 _COUNTERS = {
     "matmul_int8": (matmul_int8, "LAUNCHES"),
+    "matmul_int16a": (matmul_int8, "INT16_LAUNCHES"),
     "fused_matmul_max": (fused_matmul_int8, "MAX_LAUNCHES"),
     "fused_matmul_requant": (fused_matmul_int8, "REQUANT_LAUNCHES"),
     "fused_conv_max": (fused_conv_int8, "MAX_LAUNCHES"),

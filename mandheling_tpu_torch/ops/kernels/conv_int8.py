@@ -1,4 +1,4 @@
-"""int8 convolution as im2col + the K1 GEMM (port of
+"""int8 (and int16 x int8) convolution as im2col + the K1 GEMM (port of
 ``mandheling_tpu/ops/kernels/conv_int8.py``).
 
 Patch extraction is plain torch data movement on the tensor's device, as
@@ -72,9 +72,9 @@ def conv_acc(
     rhs_dilation: Tuple[int, int] = (1, 1),
     matmul: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] = matmul_int8.matmul_acc,
 ) -> torch.Tensor:
-    """int8 NHWC x int8 HWIO -> int32 NHWC via im2col + `matmul` (K1 by
-    default; the dispatch layer passes the plain version for backend
-    "torch")."""
+    """int8 or int16 NHWC x int8 HWIO -> int32 NHWC via im2col + `matmul`
+    (K1, or its int16-A route, by default; the dispatch layer passes the
+    plain version for backend "torch")."""
     kh, kw, ic, oc = w.shape
     patches, (oh, ow) = im2col(x, (kh, kw), strides, padding, lhs_dilation,
                                rhs_dilation)

@@ -45,12 +45,13 @@ def use_backend(name: str):
         _BACKEND = prev
 
 
-def _require_int8(*ts: torch.Tensor) -> None:
-    if any(t.dtype != torch.int8 for t in ts):
-        raise NotImplementedError(
-            "only int8 operands are ported; the int16 (out_bits=15) operands "
-            "of the MobileNet path are not"
-        )
+def _check_types(a: torch.Tensor, b: torch.Tensor) -> None:
+    """An int8 or int16 left operand (int16: the projection outputs of
+    MobileNetV2 with proj_bits=15, which K1's int16-A route takes) against
+    an int8 right one. The JAX package widens an int8 gy to int16 in the
+    filter grad; the values are the same, so the port keeps it int8."""
+    if a.dtype not in (torch.int8, torch.int16) or b.dtype != torch.int8:
+        raise TypeError(f"need int8 or int16 x int8 operands, got {a.dtype} x {b.dtype}")
 
 
 def _matmul():
@@ -65,13 +66,15 @@ def conv_acc(
     lhs_dilation: Optional[Tuple[int, int]] = None,
     rhs_dilation: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
-    """int8 NHWC conv with int32 accumulation on the selected backend."""
-    _require_int8(x, w)
+    """int8 or int16 NHWC x * int8 HWIO w with int32 accumulation on the
+    selected backend."""
+    _check_types(x, w)
     return conv_int8.conv_acc(x, w, strides, padding, lhs_dilation or (1, 1),
                               rhs_dilation or (1, 1), matmul=_matmul())
 
 
 def matmul_acc(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """int8 (M,K) x int8 (K,N) -> int32 (M,N) on the selected backend."""
-    _require_int8(a, b)
+    """int8 or int16 (M,K) x int8 (K,N) -> int32 (M,N) on the selected
+    backend."""
+    _check_types(a, b)
     return _matmul()(a, b)

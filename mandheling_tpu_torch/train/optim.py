@@ -8,7 +8,7 @@ from typing import List, Sequence
 
 import torch
 
-from ..nn.blocks import ProjectedResidualBlock
+from ..nn.blocks import ParallelAdd, ParallelConcat, ProjectedResidualBlock
 from ..nn.module import NITILayer, Sequential
 from ..ops.numerics import int8_clip
 
@@ -22,12 +22,18 @@ def niti_sgd_update(model: Sequential, grads: List) -> None:
     unchanged (`NITI_SGD.hpp:20-57`). Updates the weight buffers in place,
     where the JAX package returns new params: no second copy of the model.
     A block's grads nest as its params do: a ResidualBlock's are its
-    branch's list, a ProjectedResidualBlock's {"branch": [...], "proj":
-    {"w": ...}}; the update recurses into them."""
+    branch's list, a Sequential's (used as a layer) its own list, a ParallelConcat's or ParallelAdd's one list per branch,
+    a ProjectedResidualBlock's {"branch": [...], "proj": {"w": ...}}; the
+    update recurses into them."""
     for layer, g in zip(model.layers, grads):
         if isinstance(layer, ProjectedResidualBlock):
             niti_sgd_update(layer.branch, g["branch"])
             _update_weight(layer.proj, g["proj"])
+        elif isinstance(layer, (ParallelAdd, ParallelConcat)):
+            for branch, gb in zip(layer.branches, g):
+                niti_sgd_update(branch, gb)
+        elif isinstance(layer, Sequential):
+            niti_sgd_update(layer, g)
         elif isinstance(g, list):
             niti_sgd_update(layer.branch, g)
         elif g:

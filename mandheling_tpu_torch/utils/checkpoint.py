@@ -5,7 +5,8 @@ file written by either package loads in the other.
 A checkpoint is a flat npz of the params in the JAX layout
 (``utils/jax_params.py``): one array per leaf, keyed by its JAX tree path
 (``[0]/['w']/.data``, ``[0]/['w']/.exp``, with one more ``[i]/`` level per
-residual branch, and ``[i]/['branch']/...``, ``[i]/['proj']/['w']/...`` in a
+residual branch, ``[k]/[b]/[i]/['w']/...`` for layer i of branch b of a
+parallel join k, and ``[i]/['branch']/...``, ``[i]/['proj']/['w']/...`` in a
 projected residual block), plus ``__meta__``, a JSON record of the step, the schema
 version and any extra. Loaders accept every schema up to
 :data:`SCHEMA_VERSION`, upgrading older files in memory (v0, written before

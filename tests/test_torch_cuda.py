@@ -509,3 +509,96 @@ def _grad_leaves(grads):
     if isinstance(grads, dict) and "branch" in grads:
         return _grad_leaves(grads["branch"]) + _grad_leaves(grads["proj"])
     return [grads["w"]] if grads else []
+
+
+def rand_int16(shape, gen, lo=-32768, hi=32768):
+    return torch.randint(lo, hi, shape, generator=gen, dtype=torch.int16, device="cuda")
+
+
+# (m, k, n): ragged tiles, K = 25 (the byte path), a K-major A wide enough
+# for two warpgroups in the int8 route, and MobileNetV2 proj_bits=15's
+# largest filter grad (split over K)
+INT16_CASES = [(1, 1, 1), (17, 12, 20), (65, 25, 52), (300, 100, 70), (4096, 320, 1280),
+               (262144, 24, 144), (24, 262144, 144)]
+
+
+@pytest.mark.parametrize("m,k,n", INT16_CASES)
+@pytest.mark.parametrize("a_t", [False, True])
+def test_matmul_int16_route_matches_plain(gen, m, k, n, a_t):
+    """K1's int16-A route, int16 (M, K) x int8 (K, N), in both of K1's
+    layouts (the forwards' K-major A, the filter grads' MN-major
+    im2col(x)^T), against the plain version's int32 wrap."""
+    a = rand_int16((k, m), gen).t() if a_t else rand_int16((m, k), gen)
+    b = rand_int8((k, n), gen)
+    got = mm.matmul_acc_int16_cuda(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, mm.matmul_acc_plain(a, b))
+
+
+@pytest.mark.parametrize("a_val,b_val,k", [(32767, 127, 100), (-32768, -128, 600),
+                                            (-32768, 127, 1030), (32767, -128, 140000)])
+@pytest.mark.parametrize("a_t", [False, True])
+def test_matmul_int16_route_extremes_and_wraps(gen, a_val, b_val, k, a_t):
+    """The extremes of int16 against those of int8, with sums that wrap
+    past 2^31 (600 x 2^22), past 2^32 (1030 products) and over a split K;
+    each output equal to the int32 wrap of the exact sum."""
+    m, n = 70, 33
+    a = torch.full((k, m) if a_t else (m, k), a_val, dtype=torch.int16, device="cuda")
+    a = a.t() if a_t else a
+    b = torch.full((k, n), b_val, dtype=torch.int8, device="cuda")
+    want = (k * a_val * b_val + 2**31) % 2**32 - 2**31
+    got = mm.matmul_acc_int16_cuda(a, b)
+    assert bool((got == want).all())
+    assert torch.equal(got, mm.matmul_acc_plain(a, b))
+
+
+# K3 at the zoo's shapes: an Inception-v3 1x7 and 1x3 conv (b4 of its b32),
+# and SqueezeNet's 7x7/2 stem at 224 (C = 3: the byte path)
+ZOO_K3_CASES = [
+    ((4, 17, 17, 160), (1, 7, 160, 160), (1, 1), ((0, 0), (3, 3))),
+    ((4, 8, 8, 384), (1, 3, 384, 384), (1, 1), ((0, 0), (1, 1))),
+    ((4, 224, 224, 3), (7, 7, 3, 96), (2, 2), ((2, 3), (2, 3))),
+]
+
+
+@pytest.mark.parametrize("x_shape,w_shape,stride,pad", ZOO_K3_CASES)
+def test_fused_conv_kernels_at_zoo_shapes(gen, x_shape, w_shape, stride, pad):
+    x, w = rand_int8(x_shape, gen), rand_int8(w_shape, gen)
+    assert fconv.supports(w_shape, x_shape[2] + pad[1][0] + pad[1][1], stride)
+    mx = fconv.conv_max_cuda(x, w, pad, stride)
+    assert torch.equal(mx, fconv.conv_max_plain(x, w, pad, stride))
+    for shift, grad in _shift_cases(mx):
+        got = fconv.conv_requant_cuda(x, w, shift, pad, stride, grad)
+        assert torch.equal(got, fconv.conv_requant_plain(x, w, shift, pad, stride, grad))
+
+
+@pytest.mark.parametrize("kernel,mode", [((1, 1), "matmul_only"), ((3, 3), "matmul_only"),
+                                         ((3, 3), "all")])
+def test_kernels_take_a_channel_sliced_gy(gen, kernel, mode):
+    """ParallelConcat's backward hands each branch gy[..., off:off + c], a
+    strided view. The input and filter grads of a conv given such a view,
+    with the kernels (a 1x1: K2 for the input grad, K1 for the filter grad;
+    a 3x3: K1 for both, or K3 for the input grad under "all"), equal those
+    given a contiguous copy of it and the plain versions'."""
+    from mandheling_tpu_torch.ops import conv as conv_ops
+    from mandheling_tpu_torch.ops.kernels import launch_counts, reset_launch_counts, use_backend
+
+    x = rand_int8((64, 16, 16, 64), gen)
+    w = rand_int8(kernel + (64, 96), gen)
+    gy_full = rand_int8((64, 16, 16, 160), gen)
+    gy = gy_full[..., 32:128]
+    assert not gy.is_contiguous()
+    runs = []
+    for backend, g in (("cuda", gy), ("cuda", gy.contiguous()), ("torch", gy)):
+        reset_launch_counts()
+        with use_backend(backend), conv_ops.use_fused_conv_mode(mode):
+            gx = conv_ops.conv2d_input_grad(g, w, (16, 16), (1, 1), "SAME")
+            gw = conv_ops.conv2d_filter_grad(x, g, kernel, (1, 1), "SAME")
+        torch.cuda.synchronize()
+        runs.append((gx, gw, launch_counts()))
+    for gx, gw, _ in runs[1:]:
+        assert torch.equal(runs[0][0], gx) and torch.equal(runs[0][1], gw)
+    counts = runs[0][2]
+    want = ("fused_matmul_max" if kernel == (1, 1) else
+            "fused_conv_max" if mode == "all" else "matmul_int8")
+    assert counts[want] >= 1 and counts["matmul_int8"] >= 1

@@ -268,10 +268,43 @@ def test_dw_to_per_channel_matches_jax(seed):
 
 
 def test_dw_to_per_channel_refuses_parallel_branches():
-    from mandheling_tpu_torch.nn import NITILayer, Sequential
+    """The walk goes into the branches of a ParallelConcat and a ParallelAdd
+    (one of them an empty identity branch) and into a Sequential used as a
+    layer, as the JAX walk does: every per-tensor depthwise layer there flips to per-channel with the
+    JAX transform's bytes, and every other weight is unchanged."""
+    import mandheling_tpu.nn.blocks as jblocks
+    import mandheling_tpu.nn.layers as jlayers
+    import mandheling_tpu.nn.module as jmodule
+    import mandheling_tpu_torch.nn.blocks as tblocks
+    import mandheling_tpu_torch.nn.layers as tlayers
+    import mandheling_tpu_torch.nn.module as tmodule
 
-    class Parallel(NITILayer):
-        branches = ()
+    def build(blocks, layers, module):
+        def dw(c):
+            return blocks.NITIDepthwiseConv2D(c, (3, 3), (1, 1), "SAME")
 
-    with pytest.raises(NotImplementedError, match="not ported"):
-        dw_to_per_channel(Sequential([Parallel()]))
+        seq = module.Sequential
+        return seq([
+            layers.NITIConv2D(3, 8, (3, 3), (1, 1), "SAME"),
+            blocks.ParallelConcat([seq([dw(8), layers.NITIRelu()]),
+                                   seq([layers.NITIConv2D(8, 4, (1, 1)), dw(4)])]),
+            seq([dw(12), blocks.ParallelAdd([seq([dw(12)]), seq([])])]),
+        ])
+
+    jmodel = build(jblocks, jlayers, jmodule)
+    jparams = jmodel.init(jax.random.PRNGKey(6))
+    start = to_numpy(jparams)
+    _, jnew = jtransform.dw_to_per_channel(jmodel, jparams)
+    model = load_jax_params(build(tblocks, tlayers, tmodule), start)
+    assert dw_to_per_channel(model) is model
+    got, want = export_jax_params(model), to_numpy(jnew)
+    from mandheling_tpu_torch.utils.jax_params import flat_weights
+    leaves_got, leaves_want = flat_weights(got), flat_weights(want)
+    assert len(leaves_got) == len(leaves_want) == 12
+    for a, b in zip(leaves_got, leaves_want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
+    per_channel = [layer.per_channel for layer in model.modules()
+                   if isinstance(layer, NITIDepthwiseConv2D)]
+    assert per_channel == [True] * 4
+    assert [leaves_got[i].shape for i in (3, 7, 9, 11)] == [(8,), (4,), (12,), (12,)]

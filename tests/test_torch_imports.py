@@ -45,7 +45,8 @@ def test_guard_sees_the_package():
     for module in ("ops/depthwise.py", "ops/eltwise.py", "ops/kernels/fused_conv_int8.py",
                    "ops/kernels/fused_dwconv_int8.py", "nn/blocks.py", "models/mobilenet.py",
                    "data/cifar.py", "nn/transform.py", "utils/checkpoint.py",
-                   "models/resnet.py", "models/resnet_fp32.py", "models/mobilenet_fp32.py"):
+                   "models/resnet.py", "models/resnet_fp32.py", "models/mobilenet_fp32.py",
+                   "models/squeezenet.py", "models/inception.py"):
         assert module in names
 
 
@@ -56,7 +57,8 @@ def test_guard_sees_the_package():
     "mandheling_tpu_torch.models.mobilenet", "mandheling_tpu_torch.data.cifar",
     "mandheling_tpu_torch.nn.transform", "mandheling_tpu_torch.utils.checkpoint",
     "mandheling_tpu_torch.train.trainer", "mandheling_tpu_torch.models.resnet",
-    "mandheling_tpu_torch.models.resnet_fp32", "mandheling_tpu_torch.models.mobilenet_fp32"])
+    "mandheling_tpu_torch.models.resnet_fp32", "mandheling_tpu_torch.models.mobilenet_fp32",
+    "mandheling_tpu_torch.models.squeezenet", "mandheling_tpu_torch.models.inception"])
 def test_new_modules_import_without_building(module):
     """Importing a kernel module builds nothing: the build happens at the
     first launch, on the card."""

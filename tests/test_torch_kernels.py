@@ -144,8 +144,11 @@ def test_dispatch_backends_and_guards():
     assert dispatch.get_backend() == "cuda"
     with pytest.raises(ValueError):
         dispatch.set_backend("pallas")
-    with pytest.raises(NotImplementedError):
-        dispatch.matmul_acc(a.to(torch.int16), b)
+    a16 = a.to(torch.int16) * 255  # int16 A takes K1's int16-A route (plain here)
+    np.testing.assert_array_equal(dispatch.matmul_acc(a16, b).numpy(),
+                                  a16.numpy().astype(np.int64) @ b.numpy().astype(np.int64))
+    with pytest.raises(TypeError):
+        dispatch.matmul_acc(a16, b.to(torch.int16))  # B stays int8
     with pytest.raises(ValueError):
         tmm.matmul_acc_cuda(a, b)  # a CPU tensor never reaches the kernel
     with pytest.raises(ValueError):

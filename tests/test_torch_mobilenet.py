@@ -196,8 +196,10 @@ def test_chip_smoke_launch_table_is_the_routes(monkeypatch):
     """chip_smoke.py asserts the launches of every main path against
     EXPECTED_PER_STEP. Rehearsed here on the meta device (shapes only, no
     data): each dispatch call a train step and an eval step make, per
-    kernel family, at the table's models ("mnv2pc": the r5 recipe's
-    per-channel depthwise MobileNetV2; the ResNets), batches and fused
+    kernel family (K1 on an int16 A is its int16-A route, "K1i16"), at the
+    table's models ("mnv2pc": the r5 recipe's per-channel depthwise
+    MobileNetV2; "mnv2p15": MobileNetV2 with int16 projection outputs; the
+    ResNets; the zoo, "squeezenet10" at 10 classes), batches and fused
     modes."""
     from mandheling_tpu_torch.models import lenet_niti
     from mandheling_tpu_torch.ops.kernels import fused_conv_int8, fused_dwconv_int8
@@ -214,15 +216,21 @@ def test_chip_smoke_launch_table_is_the_routes(monkeypatch):
         real = getattr(mod, name)
 
         def counted(*a, _fam=fam, _real=real, **k):
-            calls[_fam] = calls.get(_fam, 0) + 1
+            f = "K1i16" if _fam == "K1" and a[0].dtype == torch.int16 else _fam
+            calls[f] = calls.get(f, 0) + 1
             return _real(*a, **k)
         monkeypatch.setattr(mod, name, counted)
-    from mandheling_tpu_torch.models import resnet18_niti, resnet50v2_niti
+    from mandheling_tpu_torch.models import (inceptionv3_niti, resnet18_niti, resnet50v2_niti,
+                                             squeezenet_niti)
 
     model_fns = {"lenet": (lenet_niti, (28, 28, 1), 12), "mnv2": (mobilenet_v2_niti, (32, 32, 3), 12),
                  "mnv2pc": (lambda: mobilenet_v2_niti(dw_per_channel=True), (32, 32, 3), 12),
+                 "mnv2p15": (lambda: mobilenet_v2_niti(proj_bits=15), (32, 32, 3), 12),
                  "resnet18": (resnet18_niti, (32, 32, 3), 12),
-                 "resnet50v2": (lambda: resnet50v2_niti(num_classes=1000), (224, 224, 3), 1000)}
+                 "resnet50v2": (lambda: resnet50v2_niti(num_classes=1000), (224, 224, 3), 1000),
+                 "squeezenet": (lambda: squeezenet_niti(num_classes=1000), (224, 224, 3), 1000),
+                 "squeezenet10": (lambda: squeezenet_niti(num_classes=10), (32, 32, 3), 12),
+                 "inceptionv3": (lambda: inceptionv3_niti(num_classes=1000), (299, 299, 3), 1000)}
     for (model_name, batch, mode), want in cs.EXPECTED_PER_STEP.items():
         build, hwc, n_logits = model_fns[model_name]
         model = build().to("meta")

@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
 """Where the time of one training step of the PyTorch/CUDA port goes, on the GPU.
 
-    python3 tools/profile_torch_step.py [--model lenet|mnv2|resnet18] [--mode matmul_only|all]
-                                        [--recipe] [--batch 64 2048] [--steps 20] [--out PATH]
+    python3 tools/profile_torch_step.py [--model lenet|mnv2|resnet18|squeezenet|inceptionv3]
+                                        [--mode matmul_only|all] [--recipe] [--batch 64 2048]
+                                        [--steps 20] [--out PATH]
 
 For each batch size: the NITI train step of mandheling_tpu_torch with the
 hand-written kernels (the step `train_niti` runs, host-to-device copies
 included) for the NITI LeNet on synthetic MNIST (default batches 64 and
 2048), the full-width NITI MobileNetV2 on synthetic CIFAR (default batch
 256; `--recipe`: the r5 recipe, per-channel depthwise exponents and
-filter-grad margins 0/0, as `MobilenetV2Train` trains it) or the NITI
-ResNet-18 on synthetic CIFAR (default batch 256), in fused mode
+filter-grad margins 0/0, as `MobilenetV2Train` trains it), the NITI
+ResNet-18 on synthetic CIFAR (default batch 256), or the zoo's NITI
+SqueezeNet v1.0 (224x224, default batch 128) and Inception-v3 (299x299,
+default batch 32) with 1000 classes on seeded integer pixels, in fused mode
 `--mode`, timed without tracing, then traced with torch.profiler. Prints
 wall ms/step (back to back, and synchronised after each step as the
 trainer's StepTimer does), device busy ms/step (the union of the CUDA activity
@@ -41,18 +44,31 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from mandheling_tpu_torch.data import onehot_padded, synthetic_cifar, synthetic_mnist  # noqa: E402
-from mandheling_tpu_torch.models import (NITI_LOGIT_CHANNELS, NUM_CLASSES, lenet_niti,  # noqa: E402
-                                         mobilenet_v2_niti, resnet18_niti)
+from mandheling_tpu_torch.models import (NITI_LOGIT_CHANNELS, NUM_CLASSES,  # noqa: E402
+                                         inceptionv3_niti, lenet_niti, mobilenet_v2_niti,
+                                         resnet18_niti, squeezenet_niti)
 from mandheling_tpu_torch.ops.conv import use_fused_conv_mode  # noqa: E402
 from mandheling_tpu_torch.ops.depthwise import recipe_margins  # noqa: E402
 from mandheling_tpu_torch.ops.kernels import build  # noqa: E402
 from mandheling_tpu_torch.train import make_train_step  # noqa: E402
 
-# model -> (constructor, synthetic data, default batches)
+def imagenet_like(side: int):
+    """Seeded integer pixels at (side, side, 3) and labels of 1000 classes."""
+    def data(n: int, seed: int):
+        rng = np.random.default_rng(seed)
+        return rng.integers(0, 256, (n, side, side, 3), dtype=np.uint8), rng.integers(0, 1000, n)
+    return data
+
+
+# model -> (constructor, synthetic data, default batches, classes, logit channels)
 MODELS = {
-    "lenet": (lenet_niti, synthetic_mnist, [64, 2048]),
-    "mnv2": (mobilenet_v2_niti, synthetic_cifar, [256]),
-    "resnet18": (resnet18_niti, synthetic_cifar, [256]),
+    "lenet": (lenet_niti, synthetic_mnist, [64, 2048], NUM_CLASSES, NITI_LOGIT_CHANNELS),
+    "mnv2": (mobilenet_v2_niti, synthetic_cifar, [256], NUM_CLASSES, NITI_LOGIT_CHANNELS),
+    "resnet18": (resnet18_niti, synthetic_cifar, [256], NUM_CLASSES, NITI_LOGIT_CHANNELS),
+    "squeezenet": (functools.partial(squeezenet_niti, num_classes=1000), imagenet_like(224),
+                   [128], 1000, 1000),
+    "inceptionv3": (functools.partial(inceptionv3_niti, num_classes=1000), imagenet_like(299),
+                    [32], 1000, 1000),
 }
 
 
@@ -69,15 +85,14 @@ def union_us(intervals):
 
 
 def profile_batch(model_name: str, batch: int, steps: int, recipe: bool = False):
-    build_model, data, _ = MODELS[model_name]
+    build_model, data, _, classes, logits = MODELS[model_name]
     if recipe:
         build_model = functools.partial(build_model, dw_per_channel=True)
     model = build_model().reset_parameters(torch.Generator().manual_seed(0)).to("cuda")
     step = make_train_step(model)
     x, y = data(batch * steps, seed=5)
     xs = [x[i * batch:(i + 1) * batch].astype(np.float32) for i in range(steps)]
-    ohs = [onehot_padded(y[i * batch:(i + 1) * batch], NUM_CLASSES, NITI_LOGIT_CHANNELS)
-           for i in range(steps)]
+    ohs = [onehot_padded(y[i * batch:(i + 1) * batch], classes, logits) for i in range(steps)]
 
     def run(step_times=None):
         for xb, oh in zip(xs, ohs):
@@ -145,7 +160,8 @@ def main() -> int:
     ap.add_argument("--mode", choices=["matmul_only", "all"], default="matmul_only",
                     help="fused conv mode")
     ap.add_argument("--batch", type=int, nargs="+",
-                    help="batch sizes (default: 64 2048 for lenet, 256 for mnv2 and resnet18)")
+                    help="batch sizes (default: 64 2048 for lenet, 256 for mnv2 and resnet18, "
+                         "128 for squeezenet, 32 for inceptionv3)")
     ap.add_argument("--recipe", action="store_true",
                     help="mnv2 only: per-channel depthwise exponents and margins 0/0")
     ap.add_argument("--steps", type=int, default=20)

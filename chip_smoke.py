@@ -94,7 +94,26 @@ raises on failure (the script then exits non-zero and prints no result):
    shape and layout of that step, timed beside K1's int8 route at the same
    shapes, and at the extremes of both types (+-32767, -32768, 127, -128)
    with sums that wrap past 2^31 and 2^32, in both layouts;
-14. one JSON line listing every kernel, then the result line.
+14. QAT, distillation and transfer training: the int8 softmax forward and
+   grad at LeNet's logits (b64 x 12) at every ascale in -9..15, card against
+   CPU byte for byte, and matmul_int8_forward / matmul_int8_grad through K1
+   against the plain version on the card at the fc shapes (LeNet's 832->500
+   and 500->12 at b64, MobileNetV2's 1280->12 at b256); MnistInt8Train's
+   LeNetQAT (3 SGD steps at lr_inv(0.01, step)) and DistillTrainQuant (one
+   teacher and 3 student steps) in float64, card against CPU within 1e-9 of
+   each tensor's largest magnitude, and LeNetQAT's float32 samples/s at b64;
+   MobilenetV2Transfer at full width (mnv2_transfer_model: MobileNetV2
+   frozen up to its global pool, a NITIConv2D(1280, 12) head), 3 train steps
+   and 1 eval step through make_transfer_train_step / _eval_step at b256 in
+   "matmul_only" and "all", kernels against plain on the card, and at b32
+   against the CPU: head params byte-identical, the features byte-unchanged
+   (the shapes of K1, K2 and K4 recorded); K1, K2 and K4 over one transfer
+   step with their bounds; samples/s of the transfer step and the full
+   MobileNetV2 train step in turns; the demos MnistInt8Train,
+   DistillTrainQuant, MobilenetV2Transfer and QuanByMSE as processes of
+   their own. Phase 12 also times torch._int_mm at the row-major K1 shapes
+   of the zoo's steps, beside K1;
+15. one JSON line listing every kernel, then the result line.
 
 Every main-path run asserts its launch counts, per kernel, against the
 routes one train step and one eval step take (EXPECTED_PER_STEP). The
@@ -131,10 +150,13 @@ import numpy as np
 import torch
 
 from mandheling_tpu_torch.data import load_or_synthesize_cifar, synthetic_cifar, synthetic_mnist
-from mandheling_tpu_torch.models import (NITI_LOGIT_CHANNELS, NUM_CLASSES, MobileNetV2FP32,
-                                         ResNet18FP32, inceptionv3_niti, lenet_niti,
-                                         mobilenet_v2_niti, resnet18_niti, resnet50v2_niti,
-                                         squeezenet_niti)
+from mandheling_tpu_torch.models import (NITI_LOGIT_CHANNELS, NUM_CLASSES, LeNetFP32,
+                                         MobileNetV2FP32, ResNet18FP32, inceptionv3_niti,
+                                         lenet_niti, mobilenet_v2_niti, resnet18_niti,
+                                         resnet50v2_niti, squeezenet_niti)
+from mandheling_tpu_torch.models.lenet_qat import LeNetQAT
+from mandheling_tpu_torch.ops import matmul as matmul_ops
+from mandheling_tpu_torch.ops import softmax as softmax_ops
 from mandheling_tpu_torch.ops import conv as conv_ops
 from mandheling_tpu_torch.ops import depthwise as dw_ops
 from mandheling_tpu_torch.ops import numerics
@@ -144,7 +166,12 @@ from mandheling_tpu_torch.ops.kernels import (build, fused_conv_int8, fused_dwco
                                               fused_matmul_int8, matmul_int8)
 from mandheling_tpu_torch.data.loader import onehot_padded
 from mandheling_tpu_torch.train import make_eval_step, make_train_step
+from mandheling_tpu_torch.train.optim import lr_inv
+from mandheling_tpu_torch.train.qat_train import (make_distill_step, make_qat_train_step,
+                                                  make_teacher_step)
 from mandheling_tpu_torch.train.trainer import train_fp32_bn, train_niti
+from mandheling_tpu_torch.train.transfer import (TransferModel, make_transfer_eval_step,
+                                                 make_transfer_train_step, transfer_from)
 from mandheling_tpu_torch.utils.jax_params import export_jax_params, flat_weights, load_jax_params
 
 ROOT = Path(__file__).resolve().parent
@@ -379,12 +406,32 @@ EXPECTED_PER_STEP = {
                                       {"K1": 19, "K1i16": 17, "K4": 14}),
     ("mnv2p15", 32, "matmul_only"): ({"K1": 60, "K1i16": 34, "K2": 13, "K4": 31, "K5": 17},
                                      {"K1": 19, "K1i16": 17, "K4": 14}),
+    # MobilenetV2Transfer at full width (mnv2_transfer_model): the frozen
+    # features run a MobileNetV2 eval step's forward but its classifier; a
+    # train step adds the head's forward and filter grad (K1, K = 1280 > 512
+    # and 256), no input grad and no depthwise filter grad.
+    ("mnv2_transfer", 256, "matmul_only"): ({"K1": 16, "K2": 21, "K4": 14},
+                                           {"K1": 15, "K2": 21, "K4": 14}),
+    ("mnv2_transfer", 256, "all"): ({"K1": 15, "K2": 21, "K3": 1, "K4": 14},
+                                    {"K1": 14, "K2": 21, "K3": 1, "K4": 14}),
+    ("mnv2_transfer", 32, "matmul_only"): ({"K1": 24, "K2": 13, "K4": 14},
+                                          {"K1": 23, "K2": 13, "K4": 14}),
 }
 FAMILIES = {"K1": ("matmul_int8",), "K1i16": ("matmul_int16a",),
             "K2": ("fused_matmul_max", "fused_matmul_requant"),
             "K3": ("fused_conv_max", "fused_conv_requant"),
             "K4": ("fused_dwconv_max", "fused_dwconv_requant"),
             "K5": ("fused_dwconv_fgrad",)}
+
+
+def mnv2_transfer_model() -> TransferModel:
+    """MobilenetV2Transfer at full width: mobilenet_v2_niti(num_classes=10,
+    width_mult=1.0) (CIFAR plan, 32x32) split after its global pool, the
+    features frozen, the head NITIConv2D(1280, 12) + SqueezeLogits; the
+    features' weights drawn from seed 0, the head's from seed 1."""
+    full = mobilenet_v2_niti(num_classes=NUM_CLASSES, width_mult=1.0)
+    full.reset_parameters(torch.Generator().manual_seed(0))
+    return transfer_from(full, NUM_CLASSES).reset_parameters(torch.Generator().manual_seed(1))
 
 
 def peak_rates(name: str):
@@ -449,6 +496,11 @@ def k4_key(x, w, pads=((0, 0), (0, 0)), dilation=(1, 1), **_):
 def k5_key(x, gy, kernel, stride=(1, 1), pads=((0, 0), (0, 0)), **_):
     """(x shape, kernel size, pads, stride) of a K5 call."""
     return (tuple(x.shape), tuple(kernel), tuple(map(tuple, pads)), tuple(stride))
+
+
+def k4_key_row(row):
+    """The k4_key of a check_k4 row."""
+    return (row["x"], row["kernel"], row["pads"], row["dilation"])
 
 
 def k5_row_key(row):
@@ -1189,33 +1241,35 @@ def class_steps(build, start, device, backend, mode, xs, ohs, xe, ye, record=Non
     return export_jax_params(model), losses, correct, seen_train, seen_eval
 
 
-def class_batches(batch, side, seed, n=3):
+def class_batches(batch, side, seed, n=3, classes=1000, logits=1000):
     """n seeded batches of integer pixels at (batch, side, side, 3) on the
-    card: the one-hot labels (1000 wide) of the first n - 1 for the train
-    steps, the labels of the last for the eval step -> (xs, ohs, xe, ye)."""
+    card: the one-hot labels (`classes` in `logits` channels) of the first
+    n - 1 for the train steps, the labels of the last for the eval step ->
+    (xs, ohs, xe, ye)."""
     rng = np.random.default_rng(seed)
     xs = [torch.from_numpy(rng.integers(0, 256, (batch, side, side, 3)).astype(np.float32)).cuda()
           for _ in range(n)]
-    ys = rng.integers(0, 1000, (n, batch))
-    ohs = [torch.from_numpy(onehot_padded(y, 1000, 1000)).cuda() for y in ys[:-1]]
+    ys = rng.integers(0, classes, (n, batch))
+    ohs = [torch.from_numpy(onehot_padded(y, classes, logits)).cuda() for y in ys[:-1]]
     return xs[:-1], ohs, xs[-1], torch.from_numpy(ys[-1].astype(np.int64)).cuda()
 
 
-def class_path(label, key, build, start, data, others, record=None, moves=True):
-    """class_steps on the card with the kernels (launches counted from 0,
-    the calls of `record` recorded), then from the same params with each
-    (device, backend) of `others`: byte-identical params, losses within
-    1e-5, equal correct counts, and the launches EXPECTED_PER_STEP gives;
-    the params move, or with `moves` False stay as they were -> (the
+def class_path(label, key, steps, start, data, others, record=None, moves=True):
+    """steps(device, backend, mode, *data, record=) (class_steps with its
+    model, or transfer_steps) on the card with the kernels (launches counted
+    from 0, the calls of `record` recorded), then with each (device,
+    backend) of `others`: byte-identical params, losses within 1e-5, equal
+    correct counts, and the launches EXPECTED_PER_STEP gives; the params
+    move from `start`, or with `moves` False stay as they were -> (the
     kernels' run, its launches)."""
     mode = key[2]
     kernels.reset_launch_counts()
-    run = class_steps(build, start, "cuda", "cuda", mode, *data, record=record)
+    run = steps("cuda", "cuda", mode, *data, record=record)
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     kernels.reset_launch_counts()
     for device, backend in others:
-        other = class_steps(build, start, device, backend, mode, *data)
+        other = steps(device, backend, mode, *data)
         what = f"plain on the {'card' if device == 'cuda' else 'CPU'}"
         if not params_equal(run[0], other[0]) or run[2] != other[2] or \
                 max(abs(a - b) for a, b in zip(run[1], other[1])) > 1e-5:
@@ -1250,21 +1304,25 @@ def class_step_weights(key, fam, run):
     return per_train, dict(evals)
 
 
+def steps_per_s(step, args, batch, steps):
+    """Samples/s of `steps` calls of step(*args) back to back after a
+    warm-up call, on the host clock, synchronised at both ends."""
+    step(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step(*args)
+    torch.cuda.synchronize()
+    return batch * steps / (time.perf_counter() - t0)
+
+
 def step_rate(build, start, batch, side, mode, steps):
     """Samples/s of make_train_step on the card at (batch, side, side, 3),
-    1000 classes: `steps` steps back to back after a warm-up step, on the
-    host clock, synchronised at both ends."""
+    1000 classes (steps_per_s)."""
     model = load_jax_params(build(num_classes=1000), start).to("cuda")
-    step = make_train_step(model)
     (x,), (oh,), _, _ = class_batches(batch, side, seed=77, n=2)
     with use_fused_conv_mode(mode):
-        step(x, oh)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            step(x, oh)
-        torch.cuda.synchronize()
-    return batch * steps / (time.perf_counter() - t0)
+        return steps_per_s(make_train_step(model), (x, oh), batch, steps)
 
 
 def rand_int16(shape, gen):
@@ -1422,6 +1480,116 @@ def run_test_train_gate(config, timeout=600):
         raise AssertionError(f"test_train_torch.py printed {lines[-2:]}, exit {proc.returncode}")
     return record, proc.returncode
 
+
+
+def int_mm_rows(k1_rows, per_step, gen):
+    """torch._int_mm (the library yardstick; the port never calls it) at
+    the row-major K1 shapes of one train step (A "k") that it takes (M > 16,
+    K and N multiples of 8), beside K1's time there from `k1_rows`
+    (k1_step_rows), weighted by the step's launches `per_step`. Where it
+    refuses the operands as given (B "k", the transposed weights of an
+    input grad), it is timed on contiguous copies."""
+    rows = {tuple(r["key"]): r for r in k1_rows}
+    out = dict(launches=0, k1_ms=0.0, library_ms=0.0, shapes=0, copies=0,
+               refused_launches=0, differs=0)
+    for key, n in sorted(per_step.items()):
+        m, k, nn_, al, bl = key
+        if al != "k":
+            continue
+        if not int_mm_accepts(m, k, nn_):
+            out["refused_launches"] += n
+            continue
+        (a, b), = operands(m, k, nn_, al, bl, gen)
+        try:
+            torch._int_mm(a, b)
+        except RuntimeError:
+            a, b = a.contiguous(), b.contiguous()
+            out["copies"] += 1
+        out["differs"] += int(not torch.equal(torch._int_mm(a, b), matmul_int8.matmul_acc_cuda(a, b)))
+        out["library_ms"] += n * time_ms(lambda: torch._int_mm(a, b), launches=10, rounds=3)
+        out["k1_ms"] += n * rows[key]["ms"]
+        out["launches"] += n
+        out["shapes"] += 1
+    return out
+
+
+def transfer_steps(device, backend, mode, xs, ohs, xe, ye, record=None):
+    """Train steps on (xs, ohs) and one eval step of mnv2_transfer_model()
+    on `device` -> (head params, losses, correct, the calls of `record` in
+    the train steps, in the eval step, the features' params)."""
+    model = mnv2_transfer_model().to(device)
+    step = make_transfer_train_step(model)
+    evals = make_transfer_eval_step(model, NUM_CLASSES)
+    with kernels.use_backend(backend), use_fused_conv_mode(mode):
+        with recording(record or {}) as seen_train:
+            losses = [float(step(x.to(device), oh.to(device))) for x, oh in zip(xs, ohs)]
+        with recording(record or {}) as seen_eval:
+            correct = int(evals(xe.to(device), ye.to(device)))
+    return (export_jax_params(model.head), losses, correct, seen_train, seen_eval,
+            export_jax_params(model.features))
+
+
+def rel_diff(got, want):
+    """Largest |got - want| over the largest |want|, for tensors or arrays."""
+    got, want = (np.asarray(v.detach().cpu() if torch.is_tensor(v) else v, np.float64)
+                 for v in (got, want))
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-300))
+
+
+def qat_float64_card_vs_cpu(tag, run_steps):
+    """run_steps(device) -> {name: tensor} after its steps, on the card and
+    the CPU in float64: each tensor within 1e-9 of its largest magnitude on
+    the CPU -> the largest relative difference."""
+    card, cpu = run_steps("cuda"), run_steps("cpu")
+    worst = max(rel_diff(card[k], cpu[k]) for k in cpu)
+    if worst > 1e-9:
+        raise AssertionError(f"{tag}: card and CPU differ by {worst:.3e} of a tensor's largest "
+                             "magnitude")
+    print(f"  {tag}, float64, card against the CPU: largest difference {worst:.3e} of a "
+          f"tensor's largest magnitude ({len(cpu)} tensors)", flush=True)
+    return worst
+
+
+def qat_state(model):
+    """A LeNetQAT's or LeNetFP32's parameters and buffers by name."""
+    return {**dict(model.named_parameters()), **dict(model.named_buffers())}
+
+
+def mnist_int8_steps(device, steps=3, batch=64):
+    """MnistInt8Train's step, float64, `steps` steps at lr_inv(0.01, step)
+    from LeNetQAT seed 0 on normalised synthetic MNIST, dropout from a CPU
+    generator (so the card and the CPU draw one mask)."""
+    x, y = synthetic_mnist(batch * steps, seed=21)
+    model = LeNetQAT().reset_parameters(torch.Generator().manual_seed(0)).double().to(device)
+    step = make_qat_train_step(model)
+    gen = torch.Generator().manual_seed(1)
+    for i in range(steps):
+        xb = (x[i * batch:(i + 1) * batch].astype(np.float64) / 255.0 - 0.5) * 2.0
+        oh = onehot_padded(y[i * batch:(i + 1) * batch], NUM_CLASSES, NUM_CLASSES)
+        step(torch.from_numpy(xb).to(device), torch.from_numpy(oh).to(device, torch.float64),
+             lr_inv(0.01, i), gen)
+    return qat_state(model)
+
+
+def distill_steps(device, steps=3, batch=64):
+    """DistillTrainQuant, float64: one teacher step (LeNetFP32 seed 0) and
+    `steps` student steps (LeNetQAT seed 1) on raw synthetic MNIST pixels,
+    dropout from a CPU generator."""
+    x, y = synthetic_mnist(batch * (steps + 1), seed=22)
+    xs = [torch.from_numpy(x[i * batch:(i + 1) * batch].astype(np.float64)).to(device)
+          for i in range(steps + 1)]
+    ohs = [torch.from_numpy(onehot_padded(y[i * batch:(i + 1) * batch], NUM_CLASSES,
+                                          NUM_CLASSES)).to(device, torch.float64)
+           for i in range(steps + 1)]
+    teacher = LeNetFP32().reset_parameters(torch.Generator().manual_seed(0)).double().to(device)
+    make_teacher_step(teacher)(xs[0], ohs[0])
+    student = LeNetQAT().reset_parameters(torch.Generator().manual_seed(1)).double().to(device)
+    sstep = make_distill_step(student, teacher)
+    gen = torch.Generator().manual_seed(2)
+    for xb, oh in zip(xs[1:], ohs[1:]):
+        sstep(xb, oh, gen)
+    return {**{f"teacher.{k}": v for k, v in qat_state(teacher).items()},
+            **{f"student.{k}": v for k, v in qat_state(student).items()}}
 
 
 def fused_entries(name_prefix, source, replaces, row, launches, launches_by_run, extra):
@@ -1701,7 +1869,8 @@ def main() -> int:
         resnet50v2_niti(num_classes=1000).reset_parameters(torch.Generator().manual_seed(0)))
     v2_key = ("resnet50v2", 16, "matmul_only")
     run_v2, runs["resnet50v2_b16"] = class_path(
-        "resnet50v2 b16 224x224", v2_key, resnet50v2_niti, v2_start, class_batches(16, 224, 50),
+        "resnet50v2 b16 224x224", v2_key, functools.partial(class_steps, resnet50v2_niti, v2_start),
+        v2_start, class_batches(16, 224, 50),
         [("cuda", "torch")], record=RECORD_K2)
     k2_v2_per_step, _ = class_step_weights(v2_key, "K2", run_v2)
     del run_v2
@@ -1750,11 +1919,12 @@ def main() -> int:
         # divides every int8 gy by 169, truncating it to 0, so (as in the JAX
         # package) no weight moves; SqueezeNet10 at 32x32 (1x1) does learn
         moves = net != "squeezenet"
+        net_steps = functools.partial(class_steps, build_net, net_start)
         per_step = {}
         for mode in ("matmul_only", "all"):
             key = (net, batch, mode)
             run, runs[f"{net}_b{batch}_{mode}"] = class_path(
-                f"{net} b{batch} {mode}", key, build_net, net_start, net_data, [("cuda", "torch")],
+                f"{net} b{batch} {mode}", key, net_steps, net_start, net_data, [("cuda", "torch")],
                 record=record_zoo, moves=moves)
             per_step[mode] = {fam: class_step_weights(key, fam, run)
                               for fam in ("K1", "K2", "K3") if fam in EXPECTED_PER_STEP[key][0]}
@@ -1766,7 +1936,7 @@ def main() -> int:
                                  " are not K3_CASES shapes")
         # the card against the CPU at batch 2, full size, under "all" (K1 and K3)
         _, runs[f"{net}_b2_all"] = class_path(
-            f"{net} b2 all", (net, 2, "all"), build_net, net_start,
+            f"{net} b2 all", (net, 2, "all"), net_steps, net_start,
             class_batches(2, side, seed=2), [("cpu", "cuda")], moves=moves)
         rates_zoo = {"matmul_only": [], "all": []}
         for mode in ("matmul_only", "all", "all", "matmul_only"):  # in turns
@@ -1778,10 +1948,18 @@ def main() -> int:
         print(f"  K1 at the {len(k1_keys)} shapes of a {net} b{batch} train step (both modes)",
               flush=True)
         net_k1_rows = k1_step_rows(k1_keys, rates, gen)
+        k1_lib = int_mm_rows(net_k1_rows, per_step["matmul_only"]["K1"][0], gen)
+        print(f"  {net} b{batch} 'matmul_only', the {k1_lib['launches']} row-major K1 launches "
+              f"(of {sum(per_step['matmul_only']['K1'][0].values())}) that torch._int_mm takes, "
+              f"{k1_lib['shapes']} shapes: K1 {k1_lib['k1_ms']:.4f} ms, _int_mm "
+              f"{k1_lib['library_ms']:.4f} ms ({k1_lib['copies']} shapes on contiguous copies, "
+              f"{k1_lib['refused_launches']} row-major launches refused, {k1_lib['differs']} "
+              "results different from K1's)", flush=True)
         net_k2_rows = k2_path_rows(per_step["matmul_only"]["K2"][0], rates, int_rate, gen)
         zoo[net] = dict(
             batch=batch, side=side, samples_per_s_in_turns=rates_zoo,
             k1={mode: step_sum(net_k1_rows, rates, per_step[mode]["K1"][0]) for mode in per_step},
+            k1_int_mm=k1_lib,
             k1_by_shape=net_k1_rows, k2=k2_path_summary(net_k2_rows, rates), k2_by_shape=net_k2_rows,
             k3=k3_step_sum(k3_train, k3_rows))
         z = zoo[net]
@@ -1840,6 +2018,136 @@ def main() -> int:
           f"{i16['ms']:.4f} ms (the int8 route at the same shapes {i16['int8_route_ms']:.4f}), plain "
           f"{i16['plain_ms']:.4f} ms, bound {i16['bound_ms']:.4f} ms ({i16['bound_by']})", flush=True)
 
+    print("phase 14: QAT, distillation and transfer training (the int8 softmax and matmul "
+          "ops, MnistInt8Train, DistillTrainQuant, MobilenetV2Transfer at full width)",
+          flush=True)
+    for a in range(-9, 16):  # every ascale branch, at LeNet's logits (b64 x 12)
+        logits = rand_int8((64, NITI_LOGIT_CHANNELS), gen)
+        ascale = torch.tensor(a, dtype=torch.int32, device="cuda")
+        on_card = softmax_ops.softmax_int8_forward(logits, ascale)
+        on_cpu = softmax_ops.softmax_int8_forward(logits.cpu(), ascale.cpu())
+        up = torch.randint(-2**31, 2**31 - 1, (64, NITI_LOGIT_CHANNELS), generator=gen,
+                           dtype=torch.int32, device="cuda")
+        if not torch.equal(on_card.cpu(), on_cpu) or not torch.equal(
+                softmax_ops.softmax_grad_int8(up).cpu(), softmax_ops.softmax_grad_int8(up.cpu())):
+            raise AssertionError(f"softmax at ascale {a}: the card and the CPU differ")
+    matmul_checks = []
+    for what, m, k, n in (("LeNet fc1 832->500 b64", 64, 832, 500),
+                          ("LeNet fc2 500->12 b64", 64, 500, 12),
+                          ("MNv2 head 1280->12 b256", 256, 1280, 12)):
+        a, b = rand_int8((m, k), gen), rand_int8((k, n), gen)
+        a_exp, b_exp = (torch.tensor(e, dtype=torch.int32, device="cuda") for e in (-7, -6))
+        outs = {}
+        for backend in ("cuda", "torch"):
+            kernels.reset_launch_counts()
+            with kernels.use_backend(backend):
+                outs[backend] = (*matmul_ops.matmul_int8_forward(a, a_exp, b, b_exp),
+                                 matmul_ops.matmul_int8_grad(a, b))
+            torch.cuda.synchronize()
+            if kernels.launch_counts()["matmul_int8"] != (2 if backend == "cuda" else 0):
+                raise AssertionError(f"matmul ops at {what} under {backend}: launches "
+                                     f"{kernels.launch_counts()}")
+        kernels.reset_launch_counts()
+        if not all(torch.equal(x, y) for x, y in zip(outs["cuda"], outs["torch"])):
+            raise AssertionError(f"matmul ops at {what}: K1 and the plain version differ")
+        matmul_checks.append(what)
+    print(f"  softmax_int8_forward / softmax_grad_int8 at b64 x 12, ascale -9..15: card and CPU "
+          f"byte-equal; matmul_int8_forward / matmul_int8_grad through K1 and the plain version "
+          f"on the card byte-equal at {matmul_checks}", flush=True)
+
+    qat_checks = {"mnist_int8_train_3_steps": qat_float64_card_vs_cpu(
+                      "MnistInt8Train, LeNetQAT b64, 3 SGD steps at lr_inv(0.01, step)",
+                      mnist_int8_steps),
+                  "distill_1_teacher_3_student_steps": qat_float64_card_vs_cpu(
+                      "DistillTrainQuant b64, 1 teacher and 3 student steps", distill_steps)}
+    qat_model = LeNetQAT().reset_parameters(torch.Generator().manual_seed(0)).to("cuda")
+    qx, qy = synthetic_mnist(64, seed=23)
+    qat_args = (torch.from_numpy((qx.astype(np.float32) / 255.0 - 0.5) * 2.0).cuda(),
+                torch.from_numpy(onehot_padded(qy, NUM_CLASSES, NUM_CLASSES)
+                                 .astype(np.float32)).cuda(), 0.01,
+                torch.Generator(device="cuda").manual_seed(1))
+    qat_rate = steps_per_s(make_qat_train_step(qat_model), qat_args, 64, 30)
+    print(f"  throughput on {name} ({card}): MnistInt8Train LeNetQAT b64 float32 (TF32 off) "
+          f"{qat_rate:.1f} samples/s (30 steps back to back)", flush=True)
+
+    record_tr = {**RECORD_K1, **RECORD_K2, **RECORD_K4}
+    tr_start = mnv2_transfer_model()
+    tr_head, tr_features = export_jax_params(tr_start.head), export_jax_params(tr_start.features)
+    tr_key = ("mnv2_transfer", 256, "matmul_only")
+    tr_data = class_batches(256, 32, seed=256, n=4, classes=NUM_CLASSES, logits=NITI_LOGIT_CHANNELS)
+    tr_runs = {}
+    for label, key, data, others, record in (
+            ("mnv2_transfer b256", tr_key, tr_data, [("cuda", "torch")], record_tr),
+            ("mnv2_transfer all b256", ("mnv2_transfer", 256, "all"), tr_data,
+             [("cuda", "torch")], None),
+            ("mnv2_transfer b32", ("mnv2_transfer", 32, "matmul_only"),
+             class_batches(32, 32, seed=32, n=4, classes=NUM_CLASSES, logits=NITI_LOGIT_CHANNELS),
+             [("cpu", "cuda")], None)):
+        tr_runs[key], runs[label.replace(" ", "_")] = class_path(
+            label, key, transfer_steps, tr_head, data, others, record=record)
+        if not params_equal(tr_runs[key][5], tr_features):
+            raise AssertionError(f"{label}: the frozen features changed")
+    print("  the frozen features byte-unchanged in each transfer run", flush=True)
+    tr_per_step = {fam: class_step_weights(tr_key, fam, tr_runs[tr_key]) for fam in ("K1", "K2", "K4")}
+    del tr_runs, tr_data
+    k4_tr_train = tr_per_step["K4"][0]
+    if not set(k4_tr_train) <= {k4_key_row(r) for r in k4_rows}:
+        raise AssertionError(f"transfer K4 shapes {sorted(k4_tr_train)} are not K4_CASES shapes")
+    print(f"  K1 at the {len(tr_per_step['K1'][0])} shapes of a mnv2_transfer b256 train step",
+          flush=True)
+    tr_k1_rows = k1_step_rows(tr_per_step["K1"][0], rates, gen)
+    tr_k2_rows = k2_path_rows(tr_per_step["K2"][0], rates, int_rate, gen)
+    transfer = dict(k1=step_sum(tr_k1_rows, rates), k1_by_shape=tr_k1_rows,
+                    k2=k2_path_summary(tr_k2_rows, rates), k2_by_shape=tr_k2_rows, k4={})
+    for ph in ("max", "requant"):
+        k4 = {key: sum(k4_tr_train.get(k4_key_row(r), 0) * r[ph][key] for r in k4_rows)
+              for key in ("ms", "plain_ms", "macs", "bytes")}
+        k4["bound_ms"], k4["bound_by"] = bound(k4["macs"], k4["bytes"], (mac_rate, rates[1]))
+        transfer["k4"][ph] = dict(k4, launches=sum(k4_tr_train.values()))
+    mn_model = load_jax_params(mobilenet_v2_niti(), mnv2_start).to("cuda")
+    tr_model = mnv2_transfer_model().to("cuda")
+    (x_rate,), (oh_rate,), _, _ = class_batches(256, 32, seed=77, n=2, classes=NUM_CLASSES,
+                                                logits=NITI_LOGIT_CHANNELS)
+    transfer["samples_per_s_in_turns"] = {"transfer": [], "mnv2_train_step": []}
+    for which in ("transfer", "mnv2_train_step", "mnv2_train_step", "transfer"):
+        step = make_transfer_train_step(tr_model) if which == "transfer" else \
+            make_train_step(mn_model)
+        rate = steps_per_s(step, (x_rate, oh_rate), 256, 10)
+        transfer["samples_per_s_in_turns"][which].append(rate)
+        print(f"  throughput on {name} ({card}): {which} b256 {rate:.1f} samples/s (10 steps "
+              "back to back)", flush=True)
+    del mn_model, tr_model
+    t = transfer
+    print(f"  mnv2_transfer b256 over one train step: K1 ({t['k1']['launches']} launches) "
+          f"{t['k1']['ms']:.4f} ms (plain {t['k1']['plain_ms']:.4f}, bound {t['k1']['bound_ms']:.4f}); "
+          f"K2 ({t['k2']['launches']}) max {t['k2']['max']['ms']:.4f} + requant "
+          f"{t['k2']['requant']['ms']:.4f} ms (bounds {t['k2']['max']['bound_ms']:.4f} + "
+          f"{t['k2']['requant']['bound_ms']:.4f}); K4 ({t['k4']['max']['launches']}) max "
+          f"{t['k4']['max']['ms']:.4f} + requant {t['k4']['requant']['ms']:.4f} ms (bounds "
+          f"{t['k4']['max']['bound_ms']:.4f} + {t['k4']['requant']['bound_ms']:.4f})", flush=True)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        outs = cli_subprocesses({demo: [demo, "--epochs", "1"] for demo in (
+            "MnistInt8Train", "DistillTrainQuant", "MobilenetV2Transfer", "QuanByMSE")}, tmp)
+    demo_lines = {
+        "MnistInt8Train": [r"epoch 0: loss \d+\.\d{4} test_acc \d\.\d{4}"],
+        "DistillTrainQuant": [r"teacher pre-trained \(1 epoch\)",
+                              r"epoch 0: distill_loss \d+\.\d{4} student_test_acc \d\.\d{4}"],
+        "MobilenetV2Transfer": [r"\(no pretrained snapshot — feature extractor is random init\)",
+                                r"\(no image folder/txt — synthetic data\)",
+                                r"epoch 0: loss \d+\.\d{4} train_acc \d\.\d{4}"],
+        "QuanByMSE": [r"calibrating on MNIST/synthetic batches",
+                      r"MSE scales: input=\d+\.\d{4}, logits=\d+\.\d{4}",
+                      r"KL scales: input=\d+\.\d{4}, logits=\d+\.\d{4}",
+                      r"weight PTQ \(maxabs\): mean \|recon err\| per conv layer: .*",
+                      r"weight PTQ \(admm\): mean \|recon err\| per conv layer: .*"]}
+    for demo, patterns in demo_lines.items():
+        got = [ln for ln in outs[demo].splitlines() if not ln.startswith("(no MNIST")]
+        if len(got) != len(patterns) or not all(re.fullmatch(p_, ln)
+                                                for p_, ln in zip(patterns, got)):
+            raise AssertionError(f"{demo} printed {got}")
+    print("  the four demos exited 0 and printed the JAX CLI's lines", flush=True)
+
     names = list(kernels.launch_counts())
     launches = {n: sum(c[n] for c in runs.values()) for n in names}
     by_run = {n: {r: c[n] for r, c in runs.items()} for n in names}
@@ -1870,7 +2178,13 @@ def main() -> int:
          **{f"{name}_b{z['batch']}_train_step": dict(
              z["k1"], shapes=f"every K1 launch of one {name} batch-{z['batch']} train step in "
              "each fused mode, as recorded; times weighted by the launches",
-             by_shape=z["k1_by_shape"]) for name, z in zoo.items()}},
+             library=dict(z["k1_int_mm"], what="torch._int_mm against K1 over the row-major "
+                          "launches of a 'matmul_only' train step that _int_mm takes"),
+             by_shape=z["k1_by_shape"]) for name, z in zoo.items()},
+         "mnv2_transfer_b256_train_step": dict(
+             transfer["k1"], shapes="every K1 launch of one MobilenetV2Transfer batch-256 "
+             "train step (full width), as recorded; times weighted by the launches",
+             by_shape=transfer["k1_by_shape"])},
         {"name": "matmul_int16a", "route": "cuda",
          "source": "mandheling_tpu_torch/csrc/matmul_int8.cu",
          "replaces": "mandheling_tpu/ops/kernels/dispatch.py:99",
@@ -1918,7 +2232,9 @@ def main() -> int:
                    ("resnet18_b256", "ResNet-18 batch-256", k2_rn, k2_rn_rows),
                    ("resnet50v2_b16", "ResNet-v2-50 batch-16 224x224", k2_v2, k2_v2_rows))
                + tuple((f"{name}_b{z['batch']}", f"{name} batch-{z['batch']}", z["k2"],
-                        z["k2_by_shape"]) for name, z in zoo.items())}})
+                        z["k2_by_shape"]) for name, z in zoo.items())
+               + (("mnv2_transfer_b256", "MobilenetV2Transfer batch-256", transfer["k2"],
+                   transfer["k2_by_shape"]),)}})
     stem = k3_rows[0]
     stem["max_abs_err"] = k3_err
     kernels_line["kernels"] += fused_entries(
@@ -1972,6 +2288,7 @@ def main() -> int:
         {ph: {"shapes": f"the {sum(k4_per_step.values())} launches of one MobileNetV2 "
                         "batch-256 train step, as recorded; times are their sum",
               "recipe_train_step": dict(k4_recipe[ph], launches=sum(k4_pc_per_step.values())),
+              "mnv2_transfer_b256_train_step": transfer["k4"][ph],
               "by_shape": {r["what"]: dict(r[ph], pc=r["pc_" + ph], launches_per_train_step=r[
                   "launches_per_train_step"]) for r in k4_rows if r["launches_per_train_step"]},
               "library_note": "no PyTorch call computes an int8 depthwise conv on CUDA"}
@@ -2026,11 +2343,15 @@ def main() -> int:
         "resnet18_b256_all_in_turns": rn_rates["all"], **fp32_rates,
         **{f"{name}_b{z['batch']}_{mode}_in_turns": z["samples_per_s_in_turns"][mode]
            for name, z in zoo.items() for mode in ("matmul_only", "all")}}
+    kernels_line["throughput_samples_per_s"].update(
+        mnist_int8_train_lenet_qat_b64=qat_rate,
+        **{f"{which}_b256_in_turns": v for which, v in transfer["samples_per_s_in_turns"].items()})
+    kernels_line["qat_float64_card_vs_cpu"] = qat_checks
     kernels_line["fp32_twins_card_vs_cpu"] = fp32_checks
     kernels_line["test_train_torch_resnet18_b64"] = dict(gate, exit=gate_code)
 
     print(f"done in {time.perf_counter() - t_start:.1f} s", flush=True)
-    print(f"{card}")
+    print(card_line())
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                               "count": torch.cuda.device_count()}}))

@@ -1,4 +1,4 @@
-from . import allreduce, conv, depthwise, eltwise, loss, numerics, pool, relu
+from . import allreduce, conv, depthwise, eltwise, loss, matmul, numerics, pool, relu, softmax
 from .qtensor import QTensor, quantize_input, quantize_weights
 
 __all__ = [
@@ -7,9 +7,11 @@ __all__ = [
     "depthwise",
     "eltwise",
     "loss",
+    "matmul",
     "numerics",
     "pool",
     "relu",
+    "softmax",
     "QTensor",
     "quantize_input",
     "quantize_weights",

@@ -1,0 +1,44 @@
+"""NITI int8 matmul with its gradient and forward requants (port of
+``mandheling_tpu/ops/matmul.py``; reference NITI_Matmul_Int8.cpp:140-245).
+
+int8 x int8 -> int32 through the kernel dispatch (K1 under backend "cuda"
+on CUDA tensors), then either the FC-gradient requant (range estimate, psto
+shift by bw - 3, an all-zero accumulator gives zeros) or the forward
+requant (bw - 7 with the forward shift's branch rules). The JAX package
+recomputes the accumulator behind an optimization barrier for large
+outputs, which only schedules memory; the port computes it once.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from . import allreduce, numerics
+from .kernels import dispatch
+
+
+def matmul_int8_acc(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """int8 (M, K) x int8 (K, N) -> int32 (M, N)."""
+    return dispatch.matmul_acc(a, b)
+
+
+def matmul_int8_grad(a: torch.Tensor, b: torch.Tensor,
+                     axis_name: Optional[str] = None) -> torch.Tensor:
+    """int8 GEMM + bw-3 psto requant (NITI_Matmul_Int8.cpp:219-231)."""
+    return allreduce.grad_allreduce_requant(matmul_int8_acc(a, b), axis_name, margin=3)
+
+
+def matmul_int8_forward(a: torch.Tensor, a_exp: torch.Tensor, b: torch.Tensor,
+                        b_exp: torch.Tensor,
+                        axis_name: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Forward-style requant of an int8 GEMM -> (int8 (M, N), int32 exp_out):
+    the matmul analog of conv2d_forward. Only the single-replica path
+    (`axis_name` None) is ported."""
+    if axis_name is not None:
+        raise NotImplementedError("cross-replica maxima are not ported yet")
+    acc = matmul_int8_acc(a, b)
+    bw = numerics.range_estimate_from_max(numerics.abs_max(acc))
+    exp_in = a_exp.to(torch.int32) + b_exp.to(torch.int32)
+    return numerics.requant_forward_from_bw(acc, exp_in, bw)

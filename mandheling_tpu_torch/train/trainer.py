@@ -108,7 +108,7 @@ def train_niti(
 
 
 @contextlib.contextmanager
-def _full_float32():
+def full_float32():
     """float32 convolutions and matmuls in full precision: cuDNN takes TF32
     for float32 convolutions by default, which keeps ~3 decimal digits."""
     prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
@@ -140,7 +140,7 @@ def _train_float(model, train_data, test_data, epochs, batch, seed, num_classes,
     dl = DataLoader(x, y, batch, seed=seed)
     it = 0
     acc = 0.0
-    with _full_float32():
+    with full_float32():
         for epoch in range(epochs):
             timer = StepTimer(sync)
             loss = None

@@ -20,8 +20,10 @@ import os
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..models import lenet_niti, mobilenet_v1_niti, mobilenet_v2_niti, resnet18_niti
+from ..ops.qtensor import quantize_weights
 from .jax_params import export_jax_params, load_jax_params
 
 SCHEMA_VERSION = 1
@@ -112,6 +114,19 @@ def load_checkpoint(path: str, template: List[Any]) -> Tuple[List[Any], int]:
         arrays = {k: data[k] for k in data.files if k != "__meta__"}
     meta, arrays = _migrate(meta, arrays)
     return _unflatten(template, arrays), meta["step"]
+
+
+def quantize_params_tree(float_params: Any) -> Any:
+    """Turn a float weight tree (nested dicts, lists and tuples of tensors or
+    arrays) into NITI QTensors, leaf by leaf (`ops.qtensor.quantize_weights`):
+    the analog of `Transformer::turnModelToTrainable`
+    (transformer/Transformer.cpp:69), which converts a trained or loaded
+    float model into int8 trainable state."""
+    if isinstance(float_params, dict):
+        return {k: quantize_params_tree(v) for k, v in float_params.items()}
+    if isinstance(float_params, (list, tuple)):
+        return type(float_params)(quantize_params_tree(v) for v in float_params)
+    return quantize_weights(torch.as_tensor(float_params))
 
 
 # ---- inference artifacts: the model's registry name and kwargs beside its

@@ -10,13 +10,18 @@ layer (SqueezeNet's Fire module), a list of the branches' lists
 for a ParallelConcat or ParallelAdd, and {"branch": [...], "proj": {"w":
 ...}} for a ProjectedResidualBlock. A QTensor of JAX arrays unpacks
 as the pair, so JAX params can be passed in directly.
+
+The fake-quant LeNetQAT keeps the JAX package's float dicts instead: its
+params {"conv1": {"w", "b"}, ...} and one observer dict a layer
+(:func:`load_qat_params`, :func:`export_qat_params`).
 """
 
 from __future__ import annotations
 
-from typing import Any, List
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..nn.blocks import (GlobalAvgPool, NITIAvgPool, ParallelAdd, ParallelConcat,
                          ProjectedResidualBlock, ResidualBlock)
@@ -88,3 +93,33 @@ def flat_weights(params: List[Any]) -> List[np.ndarray]:
         elif p:
             out += [np.asarray(a) for a in p["w"]]
     return out
+
+
+def load_qat_params(model, params: Dict[str, Dict[str, Any]],
+                    observers: Optional[Dict[str, Dict[str, Any]]] = None):
+    """Copy the JAX package's LeNetQAT params ({"conv1": {"w", "b"}, ...})
+    and, if given, its observer dicts ({"conv1": {"in_min", ...}, ...}) into
+    `model` (models/lenet_qat.py), in the model's own dtype; returns it."""
+    with torch.no_grad():
+        for name, layer in model.layers.items():
+            for key, dst in layer.items():
+                src = torch.from_numpy(np.array(params[name][key]))
+                if tuple(src.shape) != tuple(dst.shape):
+                    raise ValueError(f"{name}.{key}: shape {tuple(src.shape)} != "
+                                     f"{tuple(dst.shape)}")
+                dst.copy_(src)
+        for name, obs in (observers or {}).items():
+            for key, value in obs.items():
+                getattr(model.observers[name], key).fill_(float(np.asarray(value)))
+    return model
+
+
+def export_qat_params(model) -> Tuple[Dict[str, Dict[str, np.ndarray]],
+                                      Dict[str, Dict[str, np.ndarray]]]:
+    """(params, observers) of a LeNetQAT in the JAX package's layout, as
+    numpy arrays."""
+    params = {name: {key: p.detach().cpu().numpy() for key, p in layer.items()}
+              for name, layer in model.layers.items()}
+    observers = {name: {key: v.cpu().numpy() for key, v in obs.as_dict().items()}
+                 for name, obs in model.observers.items()}
+    return params, observers

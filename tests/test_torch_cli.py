@@ -27,7 +27,8 @@ import mandheling_tpu_torch.train.trainer as ttrainer
 ROOT = Path(__file__).resolve().parents[1]
 PORTED = {"MnistTrain", "NITIInt8Train", "NITIDSPInt8Train", "MnistTrainSnapshot",
           "MobilenetV2Train", "MobilenetV1Train", "DataLoaderDemo", "NnGradTest",
-          "LinearRegression"}
+          "LinearRegression", "MnistInt8Train", "DistillTrainQuant", "MobilenetV2Transfer",
+          "QuanByMSE"}
 
 
 @pytest.fixture(autouse=True)

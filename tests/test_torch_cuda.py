@@ -602,3 +602,90 @@ def test_kernels_take_a_channel_sliced_gy(gen, kernel, mode):
     want = ("fused_matmul_max" if kernel == (1, 1) else
             "fused_conv_max" if mode == "all" else "matmul_int8")
     assert counts[want] >= 1 and counts["matmul_int8"] >= 1
+
+
+@pytest.mark.parametrize("m,k,n", [(64, 832, 500), (64, 500, 12), (256, 1280, 12),
+                                   (3, 140000, 2)])
+def test_matmul_ops_through_k1_match_plain(gen, m, k, n):
+    """ops/matmul.py's forward and gradient requants through K1 against the
+    plain version on the card, at the fc shapes and at a K whose all -128
+    sums wrap past 2^31."""
+    from mandheling_tpu_torch.ops import matmul as matmul_ops
+    from mandheling_tpu_torch.ops.kernels import launch_counts, reset_launch_counts, use_backend
+
+    if k > 100000:
+        a = torch.full((m, k), -128, dtype=torch.int8, device="cuda")
+        b = torch.full((k, n), -128, dtype=torch.int8, device="cuda")
+    else:
+        a, b = rand_int8((m, k), gen), rand_int8((k, n), gen)
+    a_exp, b_exp = (torch.tensor(e, dtype=torch.int32, device="cuda") for e in (-7, -5))
+    runs = []
+    for backend in ("cuda", "torch"):
+        reset_launch_counts()
+        with use_backend(backend):
+            runs.append((*matmul_ops.matmul_int8_forward(a, a_exp, b, b_exp),
+                         matmul_ops.matmul_int8_grad(a, b)))
+        torch.cuda.synchronize()
+        assert launch_counts()["matmul_int8"] == (2 if backend == "cuda" else 0)
+    assert all(torch.equal(x, y) for x, y in zip(*runs))
+
+
+def test_transfer_step_at_full_width_matches_plain(gen):
+    """One MobilenetV2Transfer step (full-width MobileNetV2 frozen up to its
+    global pool, a 1280 -> 12 head) and one eval step at b8 with the kernels
+    and with the plain versions on the card: head params byte-identical,
+    the features unchanged."""
+    import numpy as np
+
+    from mandheling_tpu_torch.models import mobilenet_v2_niti
+    from mandheling_tpu_torch.ops.kernels import launch_counts, reset_launch_counts, use_backend
+    from mandheling_tpu_torch.train.transfer import (make_transfer_eval_step,
+                                                     make_transfer_train_step, transfer_from)
+
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.integers(0, 256, (8, 32, 32, 3)).astype(np.float32)).cuda()
+    y = rng.integers(0, 10, 8)
+    oh = torch.zeros((8, 12), dtype=torch.int32, device="cuda")
+    oh[torch.arange(8), torch.from_numpy(y)] = 1
+    runs = []
+    for backend in ("cuda", "torch"):
+        full = mobilenet_v2_niti().reset_parameters(torch.Generator().manual_seed(0))
+        model = transfer_from(full).reset_parameters(torch.Generator().manual_seed(1)).to("cuda")
+        before = [t.clone() for t in model.features.buffers()]
+        head0 = model.head.layers[0].w.clone()
+        reset_launch_counts()
+        with use_backend(backend):
+            loss = make_transfer_train_step(model)(x, oh)
+            correct = make_transfer_eval_step(model)(x, torch.from_numpy(y).cuda())
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(before, model.features.buffers()))
+        assert not torch.equal(model.head.layers[0].w, head0)
+        runs.append((model.head.layers[0].w.clone(), float(loss), int(correct),
+                     sum(launch_counts().values())))
+    assert torch.equal(runs[0][0], runs[1][0]) and runs[0][1:3] == runs[1][1:3]
+    assert runs[0][3] > 0 and runs[1][3] == 0
+
+
+def test_lenet_qat_step_card_matches_cpu(gen):
+    """One MnistInt8Train step of LeNetQAT in float64 with dropout (its mask
+    drawn on the CPU for both), on the card and on the CPU: every parameter
+    and observer within 1e-9 of its largest magnitude."""
+    import numpy as np
+
+    from mandheling_tpu_torch.models.lenet_qat import LeNetQAT
+    from mandheling_tpu_torch.train.qat_train import make_qat_train_step
+
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy((rng.integers(0, 256, (64, 28, 28, 1)) / 255.0 - 0.5) * 2.0)
+    oh = torch.zeros((64, 10), dtype=torch.float64)
+    oh[torch.arange(64), torch.from_numpy(rng.integers(0, 10, 64))] = 1.0
+    states = []
+    for device in ("cuda", "cpu"):
+        model = LeNetQAT().reset_parameters(torch.Generator().manual_seed(0)).double().to(device)
+        make_qat_train_step(model)(x.to(device), oh.to(device), 0.01,
+                                   torch.Generator().manual_seed(3))
+        states.append({k: v.detach().cpu() for k, v in
+                       [*model.named_parameters(), *model.named_buffers()]})
+    for name, want in states[1].items():
+        err = float((states[0][name] - want).abs().max())
+        assert err <= 1e-9 * max(float(want.abs().max()), 1e-300), name

@@ -46,7 +46,9 @@ def test_guard_sees_the_package():
                    "ops/kernels/fused_dwconv_int8.py", "nn/blocks.py", "models/mobilenet.py",
                    "data/cifar.py", "nn/transform.py", "utils/checkpoint.py",
                    "models/resnet.py", "models/resnet_fp32.py", "models/mobilenet_fp32.py",
-                   "models/squeezenet.py", "models/inception.py"):
+                   "models/squeezenet.py", "models/inception.py", "ops/softmax.py",
+                   "ops/matmul.py", "train/losses.py", "nn/qat.py", "models/lenet_qat.py",
+                   "train/qat_train.py", "train/transfer.py", "utils/calibration.py"):
         assert module in names
 
 
@@ -58,7 +60,11 @@ def test_guard_sees_the_package():
     "mandheling_tpu_torch.nn.transform", "mandheling_tpu_torch.utils.checkpoint",
     "mandheling_tpu_torch.train.trainer", "mandheling_tpu_torch.models.resnet",
     "mandheling_tpu_torch.models.resnet_fp32", "mandheling_tpu_torch.models.mobilenet_fp32",
-    "mandheling_tpu_torch.models.squeezenet", "mandheling_tpu_torch.models.inception"])
+    "mandheling_tpu_torch.models.squeezenet", "mandheling_tpu_torch.models.inception",
+    "mandheling_tpu_torch.ops.softmax", "mandheling_tpu_torch.ops.matmul",
+    "mandheling_tpu_torch.train.losses", "mandheling_tpu_torch.nn.qat",
+    "mandheling_tpu_torch.models.lenet_qat", "mandheling_tpu_torch.train.qat_train",
+    "mandheling_tpu_torch.train.transfer", "mandheling_tpu_torch.utils.calibration"])
 def test_new_modules_import_without_building(module):
     """Importing a kernel module builds nothing: the build happens at the
     first launch, on the card."""

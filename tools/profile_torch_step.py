@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of one training step of the PyTorch/CUDA port goes, on the GPU.
 
-    python3 tools/profile_torch_step.py [--model lenet|mnv2|resnet18|squeezenet|inceptionv3]
+    python3 tools/profile_torch_step.py [--model lenet|mnv2|mnv2_transfer|resnet18|squeezenet|inceptionv3]
                                         [--mode matmul_only|all] [--recipe] [--batch 64 2048]
                                         [--steps 20] [--out PATH]
 
@@ -10,7 +10,9 @@ hand-written kernels (the step `train_niti` runs, host-to-device copies
 included) for the NITI LeNet on synthetic MNIST (default batches 64 and
 2048), the full-width NITI MobileNetV2 on synthetic CIFAR (default batch
 256; `--recipe`: the r5 recipe, per-channel depthwise exponents and
-filter-grad margins 0/0, as `MobilenetV2Train` trains it), the NITI
+filter-grad margins 0/0, as `MobilenetV2Train` trains it; `mnv2_transfer`:
+the MobilenetV2Transfer step at full width, MobileNetV2 frozen up to its
+global pool and a trained 1280 -> 12 head), the NITI
 ResNet-18 on synthetic CIFAR (default batch 256), or the zoo's NITI
 SqueezeNet v1.0 (224x224, default batch 128) and Inception-v3 (299x299,
 default batch 32) with 1000 classes on seeded integer pixels, in fused mode
@@ -51,6 +53,7 @@ from mandheling_tpu_torch.ops.conv import use_fused_conv_mode  # noqa: E402
 from mandheling_tpu_torch.ops.depthwise import recipe_margins  # noqa: E402
 from mandheling_tpu_torch.ops.kernels import build  # noqa: E402
 from mandheling_tpu_torch.train import make_train_step  # noqa: E402
+from mandheling_tpu_torch.train.transfer import make_transfer_train_step, transfer_from  # noqa: E402
 
 def imagenet_like(side: int):
     """Seeded integer pixels at (side, side, 3) and labels of 1000 classes."""
@@ -60,10 +63,18 @@ def imagenet_like(side: int):
     return data
 
 
+def mnv2_transfer():
+    """MobilenetV2Transfer at full width, the features drawn from seed 0
+    (reset_parameters then draws the head)."""
+    full = mobilenet_v2_niti().reset_parameters(torch.Generator().manual_seed(0))
+    return transfer_from(full, NUM_CLASSES)
+
+
 # model -> (constructor, synthetic data, default batches, classes, logit channels)
 MODELS = {
     "lenet": (lenet_niti, synthetic_mnist, [64, 2048], NUM_CLASSES, NITI_LOGIT_CHANNELS),
     "mnv2": (mobilenet_v2_niti, synthetic_cifar, [256], NUM_CLASSES, NITI_LOGIT_CHANNELS),
+    "mnv2_transfer": (mnv2_transfer, synthetic_cifar, [256], NUM_CLASSES, NITI_LOGIT_CHANNELS),
     "resnet18": (resnet18_niti, synthetic_cifar, [256], NUM_CLASSES, NITI_LOGIT_CHANNELS),
     "squeezenet": (functools.partial(squeezenet_niti, num_classes=1000), imagenet_like(224),
                    [128], 1000, 1000),
@@ -89,7 +100,7 @@ def profile_batch(model_name: str, batch: int, steps: int, recipe: bool = False)
     if recipe:
         build_model = functools.partial(build_model, dw_per_channel=True)
     model = build_model().reset_parameters(torch.Generator().manual_seed(0)).to("cuda")
-    step = make_train_step(model)
+    step = (make_transfer_train_step if model_name == "mnv2_transfer" else make_train_step)(model)
     x, y = data(batch * steps, seed=5)
     xs = [x[i * batch:(i + 1) * batch].astype(np.float32) for i in range(steps)]
     ohs = [onehot_padded(y[i * batch:(i + 1) * batch], classes, logits) for i in range(steps)]
@@ -160,7 +171,8 @@ def main() -> int:
     ap.add_argument("--mode", choices=["matmul_only", "all"], default="matmul_only",
                     help="fused conv mode")
     ap.add_argument("--batch", type=int, nargs="+",
-                    help="batch sizes (default: 64 2048 for lenet, 256 for mnv2 and resnet18, "
+                    help="batch sizes (default: 64 2048 for lenet, 256 for mnv2, mnv2_transfer and "
+                         "resnet18, "
                          "128 for squeezenet, 32 for inceptionv3)")
     ap.add_argument("--recipe", action="store_true",
                     help="mnv2 only: per-channel depthwise exponents and margins 0/0")

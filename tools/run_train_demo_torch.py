@@ -8,6 +8,10 @@ The same demo names, arguments and printed lines as tools/run_train_demo.py
     python tools/run_train_demo_torch.py NITIInt8Train      [mnist_root] [--epochs N] [--snapshot F]
     python tools/run_train_demo_torch.py NITIDSPInt8Train   [mnist_root] [--epochs N]
     python tools/run_train_demo_torch.py MnistTrainSnapshot [mnist_root] [--epochs N] [--snapshot F]
+    python tools/run_train_demo_torch.py MnistInt8Train     [mnist_root] [--epochs N]
+    python tools/run_train_demo_torch.py DistillTrainQuant  [mnist_root] [--epochs N]
+    python tools/run_train_demo_torch.py MobilenetV2Transfer [--epochs N] [--snapshot F]
+    python tools/run_train_demo_torch.py QuanByMSE          [mnist_root]
     python tools/run_train_demo_torch.py MobilenetV2Train   [cifar_root] [--epochs N]
     python tools/run_train_demo_torch.py MobilenetV1Train   [cifar_root] [--epochs N]
     python tools/run_train_demo_torch.py NnGradTest
@@ -18,7 +22,9 @@ Every demo runs on the GPU; `--device cpu` runs it on the CPU with the
 kernels' plain versions (for tests). The port has one lowering, so
 `NITIInt8Train` and `NITIDSPInt8Train` both run the hand-written kernels.
 Without a dataset on disk, the synthetic datasets made from a seed are used.
-It imports nothing of JAX or of the JAX package.
+The image-folder branches of MobilenetV2Transfer (root and --images-txt) and
+QuanByMSE (a root of image files) need an image dataset the port does not
+have yet: they raise. It imports nothing of JAX or of the JAX package.
 """
 
 import argparse
@@ -148,6 +154,209 @@ def mobilenet_v1_train(args):
     print(f"final test accuracy: {acc:.4f}")
 
 
+def _no_image_dataset(what):
+    return NotImplementedError(
+        f"{what} needs the image dataset of mandheling_tpu_torch/data/image.py, which the "
+        "port does not have yet; without it the demo runs on its synthetic data")
+
+
+@demo("MnistInt8Train")
+def mnist_int8_train(args):
+    """Fake-quant QAT training (reference MnistInt8Train): LeNetQAT by
+    autograd through the straight-through estimators, float momentum SGD at
+    lr_inv(0.01, step), dropout on ip1 (its mask from torch's generator)."""
+    import numpy as np
+    import torch
+
+    from mandheling_tpu_torch.data import DataLoader, onehot_padded
+    from mandheling_tpu_torch.device import resolve_device
+    from mandheling_tpu_torch.models.lenet_qat import LeNetQAT
+    from mandheling_tpu_torch.train.optim import lr_inv
+    from mandheling_tpu_torch.train.qat_train import make_qat_train_step, predict
+
+    device = resolve_device(args.device)
+    (x, y), (xt, yt) = _data(args.root)
+    model = LeNetQAT(bits=8).reset_parameters(torch.Generator().manual_seed(0)).to(device)
+    step = make_qat_train_step(model)
+    gen = torch.Generator(device=device).manual_seed(1)
+    dl = DataLoader(x, y, 64, seed=0)
+    it = 0
+    for epoch in range(args.epochs):
+        for bx, by in dl.epoch():
+            bx = (bx / 255.0 - 0.5) * 2.0
+            oh = onehot_padded(by, 10, 10).astype(np.float32)
+            loss = step(torch.from_numpy(bx).to(device), torch.from_numpy(oh).to(device),
+                        lr_inv(0.01, it), gen)
+            it += 1
+        n = (len(xt) // 64) * 64
+        correct = 0
+        for i in range(0, n, 64):
+            bx = (xt[i : i + 64].astype(np.float32) / 255.0 - 0.5) * 2.0
+            pred = predict(model, torch.from_numpy(bx).to(device)).cpu().numpy()
+            correct += int(np.sum(pred == yt[i : i + 64]))
+        print(f"epoch {epoch}: loss {float(loss):.4f} test_acc {correct/max(n,1):.4f}")
+
+
+@demo("DistillTrainQuant")
+def distill_train_quant(args):
+    """Knowledge-distillation QAT (reference demo/distillTrainQuant.cpp:114-139):
+    a float teacher's logits guide a fake-quant student through
+    distill_loss (T = 20, alpha = 0.9, Loss.cpp:68-84). Teacher = LeNetFP32,
+    pre-trained for one epoch of plain SGD; student = LeNetQAT."""
+    import numpy as np
+    import torch
+
+    from mandheling_tpu_torch.data import DataLoader, onehot_padded
+    from mandheling_tpu_torch.device import resolve_device
+    from mandheling_tpu_torch.models import LeNetFP32
+    from mandheling_tpu_torch.models.lenet_qat import LeNetQAT
+    from mandheling_tpu_torch.train.qat_train import (make_distill_step, make_teacher_step,
+                                                      predict)
+
+    device = resolve_device(args.device)
+
+    def dev(a):
+        return torch.from_numpy(a).to(device)
+
+    (x, y), (xt, yt) = _data(args.root)
+    teacher = LeNetFP32().reset_parameters(torch.Generator().manual_seed(0)).to(device)
+    tstep = make_teacher_step(teacher)
+    dl = DataLoader(x, y, 64, seed=0)
+    for bx, by in dl.epoch():
+        tstep(dev(bx), dev(onehot_padded(by, 10, 10).astype(np.float32)))
+    print("teacher pre-trained (1 epoch)")
+
+    student = LeNetQAT(bits=8).reset_parameters(torch.Generator().manual_seed(1)).to(device)
+    sstep = make_distill_step(student, teacher)
+    gen = torch.Generator(device=device).manual_seed(2)
+    for epoch in range(args.epochs):
+        loss = None
+        for bx, by in dl.epoch():
+            loss = sstep(dev(bx), dev(onehot_padded(by, 10, 10).astype(np.float32)), gen)
+        n = (len(xt) // 64) * 64
+        correct = sum(
+            int(np.sum(predict(student, dev(xt[i:i + 64].astype(np.float32))).cpu().numpy()
+                       == yt[i:i + 64]))
+            for i in range(0, n, 64)
+        )
+        print(f"epoch {epoch}: distill_loss {float(loss):.4f} "
+              f"student_test_acc {correct / max(n, 1):.4f}")
+
+
+@demo("MobilenetV2Transfer")
+def mobilenet_v2_transfer(args):
+    """Transfer learning (reference demo/mobilenetV2Train.cpp:29-53): frozen
+    NITI MobileNetV2 features (width 0.25) and a fresh trained classifier
+    conv, on synthetic CIFAR-shaped data. `--snapshot` loads pretrained
+    feature params (an npz checkpoint of the full model)."""
+    import numpy as np
+    import torch
+
+    from mandheling_tpu_torch.data import DataLoader, onehot_padded
+    from mandheling_tpu_torch.device import resolve_device
+    from mandheling_tpu_torch.models import mobilenet_v2_niti
+    from mandheling_tpu_torch.train.transfer import (make_transfer_eval_step,
+                                                     make_transfer_train_step, transfer_from)
+    from mandheling_tpu_torch.utils.checkpoint import load_checkpoint
+    from mandheling_tpu_torch.utils.jax_params import export_jax_params, load_jax_params
+
+    device = resolve_device(args.device)
+    num_classes = 10
+    full = mobilenet_v2_niti(num_classes=num_classes, width_mult=0.25)
+    full.reset_parameters(torch.Generator().manual_seed(0))
+    if args.snapshot and os.path.exists(args.snapshot):
+        load_jax_params(full, load_checkpoint(args.snapshot, export_jax_params(full))[0])
+        print(f"loaded pretrained features from {args.snapshot}")
+    else:
+        print("(no pretrained snapshot — feature extractor is random init)")
+    # split after GlobalAvgPool: everything before the classifier conv is
+    # frozen (the reference freezes up to MobilenetV2/Logits/AvgPool)
+    model = transfer_from(full, num_classes)
+    model.reset_parameters(torch.Generator().manual_seed(1)).to(device)
+    logit_width = model.head.layers[0].out_channels
+
+    if args.root and args.images_txt:
+        raise _no_image_dataset("MobilenetV2Transfer on an image folder (--images-txt)")
+    rng = np.random.default_rng(0)
+    x = rng.normal(0, 1, (512, 32, 32, 3)).astype(np.float32)
+    y = (rng.integers(0, num_classes, 512)).astype(np.int32)
+    print("(no image folder/txt — synthetic data)")
+
+    step = make_transfer_train_step(model)
+    evals = make_transfer_eval_step(model, num_classes)
+    dl = DataLoader(x, y, 64, seed=0)
+    for epoch in range(args.epochs):
+        loss = None
+        for bx, by in dl.epoch():
+            oh = onehot_padded(by, num_classes, logit_width)
+            loss = step(torch.from_numpy(bx).to(device), torch.from_numpy(oh).to(device))
+        n = (len(x) // 64) * 64
+        correct = sum(
+            int(evals(torch.from_numpy(x[i:i + 64]).to(device),
+                      torch.from_numpy(y[i:i + 64]).to(device)))
+            for i in range(0, n, 64)
+        )
+        print(f"epoch {epoch}: loss {float(loss):.4f} "
+              f"train_acc {correct / max(n, 1):.4f}")
+
+
+@demo("QuanByMSE")
+def quan_by_mse(args):
+    """Post-training quantization by MSE / KL scale search (reference
+    demo/quanByMSE.cpp + tools/quantization/calibration.cpp): calibrates a
+    float LeNet's activation scales on sample batches (MNIST or synthetic),
+    quantizes its weights per channel, and reports the scales and the
+    quantized-vs-float agreement."""
+    import numpy as np
+    import torch
+
+    from mandheling_tpu_torch.device import resolve_device
+    from mandheling_tpu_torch.models import LeNetFP32
+    from mandheling_tpu_torch.train.trainer import full_float32
+    from mandheling_tpu_torch.utils.calibration import (calibrate_activations,
+                                                        quantize_weight_admm,
+                                                        quantize_weight_maxabs)
+
+    device = resolve_device(args.device)
+    if args.root and os.path.isdir(args.root) and any(
+        f.lower().endswith((".png", ".jpg", ".jpeg", ".bmp"))
+        for f in os.listdir(args.root)
+    ):
+        raise _no_image_dataset(f"QuanByMSE on the image folder {args.root}")
+    (x, _), _ = _data(args.root, synth_n=512)
+    batches = [x[i:i + 64].astype(np.float32)[..., None]
+               if x.ndim == 3 else x[i:i + 64].astype(np.float32)
+               for i in range(0, 256, 64)]
+    print("calibrating on MNIST/synthetic batches")
+
+    model = LeNetFP32().reset_parameters(torch.Generator().manual_seed(0)).to(device)
+
+    # collect per-layer activations by tapping the forward
+    acts = {"input": [], "logits": []}
+    with torch.no_grad(), full_float32():
+        for b in batches:
+            acts["input"].append(b)
+            acts["logits"].append(model(torch.from_numpy(b).to(device)).cpu().numpy())
+
+    for method in ("MSE", "KL"):
+        scales = calibrate_activations(acts, method)
+        print(f"{method} scales: " +
+              ", ".join(f"{k}={v:.4f}" for k, v in sorted(scales.items())))
+
+    # weight PTQ: per-channel max-abs vs ADMM reconstruction error
+    params = model.params_numpy()
+    for name, quant in (("maxabs", quantize_weight_maxabs),
+                        ("admm", quantize_weight_admm)):
+        errs = []
+        for layer in sorted(params):
+            for w in (params[layer][key] for key in sorted(params[layer])):
+                if w.ndim == 4:
+                    q, s = quant(w)
+                    errs.append(float(np.abs(q * s - w).mean()))
+        print(f"weight PTQ ({name}): mean |recon err| per conv layer: "
+              + ", ".join(f"{e:.5f}" for e in errs))
+
+
 @demo("NnGradTest")
 def nn_grad_test(args):
     """Gradient correctness check (reference nnGradTest.cpp / DEBUG_GRAD
@@ -234,6 +443,8 @@ def main(argv=None):
                         help="MNIST idx-file (or CIFAR-10 bin) root dir")
     parser.add_argument("--epochs", type=int, default=10)
     parser.add_argument("--snapshot", default=None)
+    parser.add_argument("--images-txt", default=None,
+                        help="label txt for MobilenetV2Transfer's image dataset (not ported yet)")
     parser.add_argument("--device", default=None,
                         help="torch device; default: the GPU (cpu: the plain versions, for tests)")
     args = parser.parse_args(argv)

@@ -106,10 +106,10 @@ def make_data(cfg):
 def train_fp32_lenet(cfg, x, y, device):
     import numpy as np
     import torch
-    import torch.nn.functional as F
 
     from mandheling_tpu_torch.data import DataLoader, onehot_padded
     from mandheling_tpu_torch.models import LeNetFP32
+    from mandheling_tpu_torch.train.losses import cross_entropy_with_logits
     from mandheling_tpu_torch.train.optim import sgd_init, sgd_update
 
     model = LeNetFP32().reset_parameters(torch.Generator().manual_seed(cfg["seed"])).to(device)
@@ -119,7 +119,7 @@ def train_fp32_lenet(cfg, x, y, device):
     for bx, by in DataLoader(x, y, cfg["batch"], seed=cfg["seed"]).epoch():
         oh = torch.from_numpy(onehot_padded(by, 10, 10).astype(np.float32)).to(device)
         logits = model(torch.from_numpy(bx).to(device))
-        loss = -torch.mean(torch.sum(oh * F.log_softmax(logits, dim=-1), dim=-1))
+        loss = cross_entropy_with_logits(logits, oh)
         sgd_update(params, torch.autograd.grad(loss, params), vel, cfg["lr"])
         losses.append(float(loss.detach()))
     return losses

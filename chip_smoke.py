@@ -113,7 +113,26 @@ raises on failure (the script then exits non-zero and prints no result):
    DistillTrainQuant, MobilenetV2Transfer and QuanByMSE as processes of
    their own. Phase 12 also times torch._int_mm at the row-major K1 shapes
    of the zoo's steps, beside K1;
-15. one JSON line listing every kernel, then the result line.
+15. imported models: full-width NITI ResNet-18 and MobileNetV2 built from
+   seeded params, exported by the port's `tflite_from_sequential` at
+   (256, 32, 32, 3) and imported by `tools/import_model_torch.py` as a
+   process of its own (on the card) into a checkpoint, which must hold the
+   built weights; 2 train steps and 1 eval step of the imported model through
+   make_train_step / make_eval_step at batch 256 in "matmul_only" and "all",
+   kernels against plain on the card and against the built model from the
+   same params (params, losses and correct counts byte-identical, the same
+   launches, the built model's EXPECTED_PER_STEP rows); the imported model
+   at batch 8 (ResNet-18) and 32 (MobileNetV2) against the CPU; samples/s of
+   the train step in turns, built and imported; then the demos
+   OnnxImportTrain, TfImportTrain, CaffeImportTrain and TFLiteImportTrain as
+   processes of their own on the card and with --device cpu (the same
+   printed lines), and the ONNX, TF and Caffe demo files through
+   `import_model_torch.py --check` on both (the same lines and checkpoints);
+16. one JSON line listing every kernel, then the result line.
+
+If a phase fails, the script prints `chip_smoke: failed in phase N (...)`
+on standard output (phase 0 is the imports) and the exception propagates:
+the exit code is 1 and no result line is printed.
 
 Every main-path run asserts its launch counts, per kernel, against the
 routes one train step and one eval step take (EXPECTED_PER_STEP). The
@@ -134,6 +153,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import copy
 import functools
 import importlib.util
 import io
@@ -145,6 +165,19 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+
+# The phase the script is in. An exception that ends the script names it on
+# standard output first, then propagates as ever (exit code 1).
+PHASE = "0 (imports)"
+
+
+def _name_the_phase(exc_type, exc, tb):
+    print(f"chip_smoke: failed in phase {PHASE}", flush=True)
+    sys.__excepthook__(exc_type, exc, tb)
+
+
+if __name__ == "__main__":
+    sys.excepthook = _name_the_phase
 
 import numpy as np
 import torch
@@ -172,9 +205,18 @@ from mandheling_tpu_torch.train.qat_train import (make_distill_step, make_qat_tr
 from mandheling_tpu_torch.train.trainer import train_fp32_bn, train_niti
 from mandheling_tpu_torch.train.transfer import (TransferModel, make_transfer_eval_step,
                                                  make_transfer_train_step, transfer_from)
+from mandheling_tpu_torch.utils.checkpoint import load_checkpoint
 from mandheling_tpu_torch.utils.jax_params import export_jax_params, flat_weights, load_jax_params
+from mandheling_tpu_torch.utils.tflite_model import niti_model_from_tflite, tflite_from_sequential
 
 ROOT = Path(__file__).resolve().parent
+
+
+def enter(phase: str, what: str) -> None:
+    """Record the phase the script is in and announce it."""
+    global PHASE
+    PHASE = f"{phase} ({what})"
+    print(f"phase {phase}: {what}", flush=True)
 SAME3 = ((1, 1), (1, 1))
 
 # (what, M, K, N, A's layout, B's layout) of every int8 contraction of a
@@ -1050,10 +1092,11 @@ def cli_in_process(cli, argv, record):
     return out.getvalue().splitlines(), counts, seen
 
 
-def cli_subprocesses(jobs, cwd, timeout=600):
-    """Run each {label: argv} of the demo CLI as its own process, all
-    started together; each must exit 0. Returns {label: stdout}."""
-    script = str(ROOT / "tools" / "run_train_demo_torch.py")
+def cli_subprocesses(jobs, cwd, timeout=600, tool="tools/run_train_demo_torch.py"):
+    """Run each {label: argv} of a CLI of the checkout (the demo CLI unless
+    `tool` names another) as its own process, all started together; each
+    must exit 0. Returns {label: stdout}."""
+    script = str(ROOT / tool)
     procs = {label: subprocess.Popen([sys.executable, script, *argv], cwd=cwd, text=True,
                                      stdout=subprocess.PIPE, stderr=subprocess.PIPE)
              for label, argv in jobs.items()}
@@ -1227,12 +1270,19 @@ def k3_step_sum(k3_per_step, k3_rows):
 
 
 def class_steps(build, start, device, backend, mode, xs, ohs, xe, ye, record=None):
-    """Train steps on (xs, ohs) and one eval step of a 1000-class model
-    (ResNet-v2-50, the zoo) through make_train_step / make_eval_step on
-    `device` -> (params, losses, correct, the calls of `record` in the
-    train steps, in the eval step)."""
-    model = load_jax_params(build(num_classes=1000), start).to(device)
-    step, evals = make_train_step(model), make_eval_step(model, num_classes=1000)
+    """model_steps of a 1000-class model (ResNet-v2-50, the zoo) built by
+    `build` from the params `start`."""
+    return model_steps(lambda: load_jax_params(build(num_classes=1000), start), 1000, device,
+                       backend, mode, xs, ohs, xe, ye, record)
+
+
+def model_steps(make, num_classes, device, backend, mode, xs, ohs, xe, ye, record=None):
+    """Train steps on (xs, ohs) and one eval step of the model make()
+    returns, through make_train_step / make_eval_step on `device` ->
+    (params, losses, correct, the calls of `record` in the train steps, in
+    the eval step)."""
+    model = make().to(device)
+    step, evals = make_train_step(model), make_eval_step(model, num_classes=num_classes)
     with kernels.use_backend(backend), use_fused_conv_mode(mode):
         with recording(record or {}) as seen_train:
             losses = [float(step(x.to(device), oh.to(device))) for x, oh in zip(xs, ohs)]
@@ -1592,6 +1642,132 @@ def distill_steps(device, steps=3, batch=64):
             **{f"student.{k}": v for k, v in qat_state(student).items()}}
 
 
+# The batch of each imported model's run against the CPU in phase 15 (an
+# EXPECTED_PER_STEP row of the built model).
+IMPORTED_NETS_SMALL = (("resnet18", 8), ("mnv2", 32))
+
+
+def imported_model(net, build_net, start, tmp, name, card):
+    """Phase 15 for one full-width model built from the params `start`:
+    the port's TFLite export of it at (256, 32, 32, 3), the import by
+    tools/import_model_torch.py as a process of its own (on the card) into
+    a checkpoint, which must hold `start`'s weights; 2 train steps and 1 eval
+    step of the imported model in both fused modes, kernels against plain on
+    the card and against the built model from the same params (byte for
+    byte, the same launches, EXPECTED_PER_STEP's rows of the built model);
+    at a small batch the card against the CPU; samples/s of the train step
+    in turns, built and imported. -> (its record, {run: launches})."""
+    runs = {}
+    built = load_jax_params(build_net(), start)
+    t0 = time.perf_counter()
+    buf = tflite_from_sequential(built, None, (256, 32, 32, 3))
+    export_s = time.perf_counter() - t0
+    path, npz = Path(tmp) / f"{net}.tflite", Path(tmp) / f"{net}.npz"
+    path.write_bytes(buf)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(ROOT / "tools" / "import_model_torch.py"),
+                           str(path), "--out", str(npz)], cwd=tmp, text=True,
+                          capture_output=True, timeout=600)
+    import_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"import_model_torch.py {net}: exit {proc.returncode}\n"
+                             f"{proc.stderr[-3000:]}")
+    template, _ = niti_model_from_tflite(str(path), device="cpu")
+    kinds = [type(layer).__name__ for layer in template.layers]
+    if proc.stdout.splitlines() != [f"imported {len(kinds)} NITI layers: {kinds}", f"wrote {npz}"]:
+        raise AssertionError(f"import_model_torch.py {net} printed {proc.stdout!r}")
+    imported, _ = load_checkpoint(str(npz), export_jax_params(template))
+    if not params_equal(imported, start):
+        raise AssertionError(f"{net}: the imported checkpoint differs from the built weights")
+    print(f"  on {name} ({card}): {net} exported as {len(buf)} bytes of TFLite in "
+          f"{export_s:.3f} s (host); import_model_torch.py read them into {len(kinds)} layers "
+          f"({len(built.layers)} built) in {import_s:.3f} s (a process of its own on the card, "
+          "start-up included); the checkpoint holds the built weights byte for byte", flush=True)
+
+    def make_imported():
+        return load_jax_params(copy.deepcopy(template), imported)
+
+    def make_built():
+        return load_jax_params(build_net(), start)
+
+    imported_steps = functools.partial(model_steps, make_imported, NUM_CLASSES)
+    data = class_batches(256, 32, seed=256, classes=NUM_CLASSES, logits=NITI_LOGIT_CHANNELS)
+    for mode in ("matmul_only", "all"):
+        run, runs[f"imported_{net}_b256_{mode}"] = class_path(
+            f"imported {net} b256 {mode}", (net, 256, mode), imported_steps, imported, data,
+            [("cuda", "torch")])
+        kernels.reset_launch_counts()
+        built_run = model_steps(make_built, NUM_CLASSES, "cuda", "cuda", mode, *data)
+        torch.cuda.synchronize()
+        built_counts = kernels.launch_counts()
+        kernels.reset_launch_counts()
+        if not params_equal(run[0], built_run[0]) or run[1] != built_run[1] or \
+                run[2] != built_run[2] or built_counts != runs[f"imported_{net}_b256_{mode}"]:
+            raise AssertionError(f"imported {net} b256 {mode}: differs from the built model "
+                                 f"(losses {run[1]} vs {built_run[1]}, launches "
+                                 f"{family_counts(built_counts)})")
+        print(f"  imported {net} b256 {mode}: params, losses and correct count byte-identical "
+              "to the built model's from the same params, the same launches", flush=True)
+    small = dict(IMPORTED_NETS_SMALL)[net]
+    _, runs[f"imported_{net}_b{small}"] = class_path(
+        f"imported {net} b{small}", (net, small, "matmul_only"), imported_steps, imported,
+        class_batches(small, 32, seed=small, classes=NUM_CLASSES, logits=NITI_LOGIT_CHANNELS),
+        [("cpu", "cuda")])
+    (x, ), (oh, ), _, _ = class_batches(256, 32, seed=77, n=2, classes=NUM_CLASSES,
+                                       logits=NITI_LOGIT_CHANNELS)
+    rates = {"built": [], "imported": []}
+    for which in ("built", "imported", "imported", "built"):  # in turns
+        model = (make_built if which == "built" else make_imported)().to("cuda")
+        rates[which].append(steps_per_s(make_train_step(model), (x, oh), 256, 8))
+        del model
+        print(f"  throughput on {name} ({card}): {which} {net} b256 {rates[which][-1]:.1f} "
+              f"samples/s, {256e3 / rates[which][-1]:.2f} ms a step (make_train_step, 8 steps "
+              "back to back)", flush=True)
+    torch.cuda.empty_cache()
+    return dict(export_s=export_s, import_s=import_s, tflite_bytes=len(buf),
+                layers_imported=len(kinds), layers_built=len(built.layers),
+                samples_per_s_in_turns=rates,
+                step_ms_in_turns={k: [256e3 / r for r in v] for k, v in rates.items()}), runs
+
+
+def import_demos_and_checks(cli, tmp):
+    """The four import demos as processes of their own on the card and with
+    --device cpu, one epoch each: the same printed lines; and the demos'
+    ONNX, TF and Caffe files through tools/import_model_torch.py --check on
+    the card and the CPU: the same printed lines and checkpoints."""
+    demos = ("OnnxImportTrain", "TfImportTrain", "CaffeImportTrain", "TFLiteImportTrain")
+    jobs = {f"{demo} {dev}": [demo, "--epochs", "1"] + (["--device", "cpu"] if dev == "cpu"
+                                                        else [])
+            for demo in demos for dev in ("cuda", "cpu")}
+    outs = cli_subprocesses(jobs, tmp)
+    for demo in demos:
+        if outs[f"{demo} cuda"] != outs[f"{demo} cpu"]:
+            raise AssertionError(f"{demo}: the card printed {outs[f'{demo} cuda']!r}, the CPU "
+                                 f"{outs[f'{demo} cpu']!r}")
+    files = {"onnx": ("demo.onnx", cli.onnx_demo_model().SerializeToString(), "1,1,28,28"),
+             "tf": ("demo.pb", cli.tf_demo_graph(), "1,28,28,1"),
+             "caffe": ("demo.caffemodel", cli.caffe_demo_net(), "1,1,28,28")}
+    jobs = {}
+    for fmt, (fname, data, shape) in files.items():
+        (Path(tmp) / fname).write_bytes(data)
+        for dev in ("cuda", "cpu"):
+            jobs[f"{fmt} {dev}"] = [fname, "--input-shape", shape, "--check", "--out",
+                                    f"{fmt}_{dev}.npz"] + (["--device", "cpu"] if dev == "cpu"
+                                                           else [])
+    outs = cli_subprocesses(jobs, tmp, tool="tools/import_model_torch.py")
+    for fmt in files:
+        card_out = outs[f"{fmt} cuda"].replace(f"{fmt}_cuda.npz", "OUT")
+        if card_out != outs[f"{fmt} cpu"].replace(f"{fmt}_cpu.npz", "OUT") or \
+                "check: one integer train step OK" not in card_out:
+            raise AssertionError(f"import_model_torch.py {fmt}: the card and the CPU differ")
+        with np.load(Path(tmp) / f"{fmt}_cuda.npz") as a, np.load(Path(tmp) / f"{fmt}_cpu.npz") as b:
+            if a.files != b.files or any(not np.array_equal(a[k], b[k]) for k in a.files):
+                raise AssertionError(f"import_model_torch.py {fmt}: checkpoints differ")
+    print("  the four import demos printed the same lines on the card and the CPU; "
+          "import_model_torch.py --check on the ONNX, TF and Caffe demo files gave the same "
+          "lines and checkpoints on both", flush=True)
+
+
 def fused_entries(name_prefix, source, replaces, row, launches, launches_by_run, extra):
     """The kernels-line entries of a two-phase kernel from its timing row."""
     out = []
@@ -1611,6 +1787,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's smoke test needs the GPU", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
+    enter("1", "the card's name and power limit (nvidia-smi)")
     card = card_line()
     name = torch.cuda.get_device_name(0)
     rates = peak_rates(name)
@@ -1623,8 +1800,9 @@ def main() -> int:
           flush=True)
 
     t0 = time.perf_counter()
+    enter("2", "build every kernel of csrc/ (nvcc, sm_90a, one process per source)")
     logs = build.build_all()
-    print(f"phase 2: built {sorted(logs)} in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"  built {sorted(logs)} in {time.perf_counter() - t0:.1f} s", flush=True)
     for lib, log in logs.items():
         lines = log.splitlines()
         for ln in lines:
@@ -1635,7 +1813,7 @@ def main() -> int:
             print(f"  [{lib}] ptxas injected warpgroup.arrive (C7519, to use registers in GMMA) "
                   f"at {injected} places", flush=True)
 
-    print("phase 3: kernels against their plain versions on the card", flush=True)
+    enter("3", "kernels against their plain versions on the card")
     gen = torch.Generator(device="cuda").manual_seed(0)
     k1_rows = check_k1(rates, gen)
     k2_rows = check_k2(rates, gen)
@@ -1646,7 +1824,7 @@ def main() -> int:
     runs = {}
     start = export_jax_params(lenet_niti().reset_parameters(torch.Generator().manual_seed(0)))
     plain_both = [("cuda", "torch"), ("cpu", "cuda")]
-    print("phase 4: LeNet main path at batch 64", flush=True)
+    enter("4", "LeNet main path at batch 64")
     run64, runs["lenet_b64"], seen64 = main_path(
         "lenet b64", ("lenet", 64, "matmul_only"), synthetic_mnist(64, seed=128),
         synthetic_mnist(64, seed=129), 3, start, plain_both, record=RECORD_K1)
@@ -1657,7 +1835,7 @@ def main() -> int:
     x64, y64 = synthetic_mnist(64, seed=7)
     per_step_counts(("lenet", 64, "matmul_only"), run64["model"], x64, y64, NITI_LOGIT_CHANNELS)
 
-    print("phase 5: LeNet main path at batch 2048", flush=True)
+    enter("5", "LeNet main path at batch 2048")
     _, runs["lenet_b2048"], _ = main_path(
         "lenet b2048", ("lenet", 2048, "matmul_only"), synthetic_mnist(2048, seed=4096),
         synthetic_mnist(2048, seed=4097), 2, start, plain_both)
@@ -1666,13 +1844,13 @@ def main() -> int:
     print(f"  throughput on {name}: LeNet batch 64 {rate64:.0f} samples/s [{line64}]", flush=True)
     print(f"  throughput on {name}: LeNet batch 2048 {rate2k:.0f} samples/s [{line2k}]", flush=True)
 
-    print('phase 6: LeNet at batch 64 under fused mode "all" (K3)', flush=True)
+    enter("6", 'LeNet at batch 64 under fused mode "all" (K3)')
     run_all, runs["lenet_all_b64"], _ = main_path(
         "lenet all b64", ("lenet", 64, "all"), synthetic_mnist(128, seed=5),
         synthetic_mnist(64, seed=6), 1, start, [("cuda", "torch")])
     per_step_counts(("lenet", 64, "all"), run_all["model"], x64, y64, NITI_LOGIT_CHANNELS)
 
-    print("phase 7: MobileNetV2 (full width, per-tensor depthwise) on synthetic CIFAR", flush=True)
+    enter("7", "MobileNetV2 (full width, per-tensor depthwise) on synthetic CIFAR")
     mnv2_start = export_jax_params(
         mobilenet_v2_niti().reset_parameters(torch.Generator().manual_seed(0)))
     cifar_train, cifar_test = synthetic_cifar(512, seed=0), synthetic_cifar(256, seed=1)
@@ -1725,8 +1903,8 @@ def main() -> int:
               + (f", psto epilogue floor {t['epilogue_floor_ms']:.4f} ms" if ph == "requant" else ""),
               flush=True)
 
-    print("phase 8: the r5 recipe (per-channel depthwise exponents, filter-grad margins "
-          "0/0) at full width", flush=True)
+    enter("8", "the r5 recipe (per-channel depthwise exponents, filter-grad margins "
+          "0/0) at full width")
     recipe_fn = functools.partial(mobilenet_v2_niti, dw_per_channel=True)
     recipe_start = export_jax_params(recipe_fn().reset_parameters(torch.Generator().manual_seed(0)))
     with dw_ops.recipe_margins():
@@ -1753,7 +1931,7 @@ def main() -> int:
     if (conv_ops.get_fgrad_margin(), dw_ops.get_dw_fgrad_margin()) != (2, 2):
         raise AssertionError("the recipe's margins were not restored")
 
-    print("phase 9: the demo CLI (tools/run_train_demo_torch.py) on the card", flush=True)
+    enter("9", "the demo CLI (tools/run_train_demo_torch.py) on the card")
     cli = load_tool("tools/run_train_demo_torch.py")
     lines, runs["cli_MobilenetV2Train"], seen_cli = cli_in_process(
         cli, ["MobilenetV2Train", "--epochs", "1"], {**RECORD_K1, **RECORD_K4, **RECORD_K5})
@@ -1792,7 +1970,7 @@ def main() -> int:
     if "resumed from mnist.snapshot.npz at epoch 1" not in again["MnistTrainSnapshot 2"]:
         raise AssertionError("the second MnistTrainSnapshot did not resume from the first's file")
 
-    print("phase 10: the dot probe (tools/probes/dot_probe_torch.py)", flush=True)
+    enter("10", "the dot probe (tools/probes/dot_probe_torch.py)")
     dot_probe = load_tool("tools/probes/dot_probe_torch.py")
     kernels.reset_launch_counts()
     probe_rows = dot_probe.probe(log=lambda ln: print(f"  {ln}", flush=True))
@@ -1800,7 +1978,7 @@ def main() -> int:
     probe_counts = kernels.launch_counts()
     kernels.reset_launch_counts()
 
-    print("phase 11: ResNet-18 (NITI, CIFAR) and ResNet-v2-50, and the float twins", flush=True)
+    enter("11", "ResNet-18 (NITI, CIFAR) and ResNet-v2-50, and the float twins")
     rn_start = export_jax_params(resnet18_niti().reset_parameters(torch.Generator().manual_seed(0)))
     record_rn = {**RECORD_K1, **RECORD_K2}
     run_rn, runs["resnet18_b256"], seen_rn = main_path(
@@ -1906,8 +2084,8 @@ def main() -> int:
           f"TEST_TRAIN {'PASS' if gate['pass'] else 'FAIL'} (exit {gate_code}; reported, "
           "not a check)", flush=True)
 
-    print("phase 12: the zoo, SqueezeNet v1.0 (b128, 224x224) and Inception-v3 (b32, "
-          "299x299), 1000 classes, through make_train_step / make_eval_step", flush=True)
+    enter("12", "the zoo, SqueezeNet v1.0 (b128, 224x224) and Inception-v3 (b32, "
+          "299x299), 1000 classes, through make_train_step / make_eval_step")
     record_zoo = {**RECORD_K1, **RECORD_K2, **RECORD_K3}
     zoo = {}
     for net, build_net, batch, side in (("squeezenet", squeezenet_niti, 128, 224),
@@ -1979,8 +2157,8 @@ def main() -> int:
         "squeezenet (10 classes) b64, train_niti on CIFAR", ("squeezenet10", 64, "matmul_only"),
         cifar_train, synthetic_cifar(64, seed=1), 1, sq10_start, [("cpu", "cuda")], model_fn=sq10)
 
-    print("phase 13: MobileNetV2 with int16 projection outputs (proj_bits=15) and K1's "
-          "int16-A route", flush=True)
+    enter("13", "MobileNetV2 with int16 projection outputs (proj_bits=15) and K1's "
+          "int16-A route")
     p15 = functools.partial(mobilenet_v2_niti, proj_bits=15)
     p15_start = export_jax_params(p15().reset_parameters(torch.Generator().manual_seed(0)))
     p15_key = ("mnv2p15", 256, "matmul_only")
@@ -2018,9 +2196,8 @@ def main() -> int:
           f"{i16['ms']:.4f} ms (the int8 route at the same shapes {i16['int8_route_ms']:.4f}), plain "
           f"{i16['plain_ms']:.4f} ms, bound {i16['bound_ms']:.4f} ms ({i16['bound_by']})", flush=True)
 
-    print("phase 14: QAT, distillation and transfer training (the int8 softmax and matmul "
-          "ops, MnistInt8Train, DistillTrainQuant, MobilenetV2Transfer at full width)",
-          flush=True)
+    enter("14", "QAT, distillation and transfer training (the int8 softmax and matmul "
+          "ops, MnistInt8Train, DistillTrainQuant, MobilenetV2Transfer at full width)")
     for a in range(-9, 16):  # every ascale branch, at LeNet's logits (b64 x 12)
         logits = rand_int8((64, NITI_LOGIT_CHANNELS), gen)
         ascale = torch.tensor(a, dtype=torch.int32, device="cuda")
@@ -2148,6 +2325,18 @@ def main() -> int:
             raise AssertionError(f"{demo} printed {got}")
     print("  the four demos exited 0 and printed the JAX CLI's lines", flush=True)
 
+    enter("15", "imported models: full-width ResNet-18 and MobileNetV2 exported to TFLite, "
+          "imported by tools/import_model_torch.py and trained through the kernels; the "
+          "import demos and --check on the card and the CPU")
+    imported = {}
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        for net, build_net, net_start in (("resnet18", resnet18_niti, rn_start),
+                                          ("mnv2", mobilenet_v2_niti, mnv2_start)):
+            imported[net], net_runs = imported_model(net, build_net, net_start, tmp, name, card)
+            runs.update(net_runs)
+        import_demos_and_checks(cli, tmp)
+
+    enter("16", "the kernels line")
     names = list(kernels.launch_counts())
     launches = {n: sum(c[n] for c in runs.values()) for n in names}
     by_run = {n: {r: c[n] for r, c in runs.items()} for n in names}
@@ -2349,6 +2538,7 @@ def main() -> int:
     kernels_line["qat_float64_card_vs_cpu"] = qat_checks
     kernels_line["fp32_twins_card_vs_cpu"] = fp32_checks
     kernels_line["test_train_torch_resnet18_b64"] = dict(gate, exit=gate_code)
+    kernels_line["imported_tflite_b256"] = imported
 
     print(f"done in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card_line())

@@ -10,7 +10,10 @@ run on the card unless the caller passes ``device="cpu"``.
 
 It covers NITI LeNet training (``NITIDSPInt8Train``), NITI MobileNetV2
 training per-tensor and as the r5 recipe (``MobilenetV2Train``), the float
-LeNet baseline, checkpoints and the demo CLI ``tools/run_train_demo_torch.py``.
+LeNet baseline, checkpoints and the demo CLI ``tools/run_train_demo_torch.py``,
+and what the package list below names since (ResNets, the zoo, QAT and
+transfer, the TFLite / ONNX / TF / Caffe importers in ``utils``, the image
+datasets in ``data``).
 """
 
 __version__ = "0.1.0"

@@ -1,6 +1,8 @@
-"""Batched, shuffled, prefetching data loader (copy of the Python path of
-``mandheling_tpu/data/loader.py``; the native C++ loader is not ported yet).
-Batches are host numpy arrays; the trainer moves them to the device."""
+"""Batched, shuffled, prefetching data loader (copy of
+``mandheling_tpu/data/loader.py``): the Python `DataLoader`, and
+`make_loader`, which prefers the native C++ loader of ``data/native.py``
+as the JAX package's does. Batches are host numpy arrays; the trainer moves
+them to the device."""
 
 from __future__ import annotations
 
@@ -65,6 +67,29 @@ class DataLoader:
                 yield item
         finally:
             stop.set()
+
+
+def make_loader(
+    images: np.ndarray,
+    labels: np.ndarray,
+    batch_size: int,
+    shuffle: bool = True,
+    seed: int = 0,
+    prefer_native: bool = True,
+):
+    """Factory: native C++ worker-thread loader when its library loads,
+    Python fallback (the JAX package's choice: same batches either way).
+
+    Note: the native path feeds raw [0,255] float batches like the Python
+    path — normalization/quantization runs on-device in the step."""
+    if prefer_native:
+        try:
+            from .native import NativeLoader
+
+            return NativeLoader(images, labels, batch_size, shuffle, seed)
+        except (RuntimeError, OSError):
+            pass
+    return DataLoader(images, labels, batch_size, shuffle, seed)
 
 
 def onehot_padded(labels: np.ndarray, num_classes: int, width: int) -> np.ndarray:

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from ..models import lenet_niti, mobilenet_v1_niti, mobilenet_v2_niti, resnet18_niti
-from ..ops.qtensor import quantize_weights
+from ..ops.qtensor import QTensor, quantize_weights
 from .jax_params import export_jax_params, load_jax_params
 
 SCHEMA_VERSION = 1
@@ -93,10 +93,46 @@ def _migrate(meta, arrays):
     return meta, arrays
 
 
+def flatten_tree(tree: Any) -> Dict[str, np.ndarray]:
+    """{JAX tree path: array} of any tree of dicts, lists, tuples and
+    QTensors (a float model's params, ``quantize_params_tree``'s output), in
+    the order and with the keys of ``jax.tree.flatten_with_path``: dict keys
+    sorted as ``['key']``, sequence items ``[i]``, QTensor fields ``.data``
+    and ``.exp``."""
+    out: Dict[str, np.ndarray] = {}
+
+    def walk(node, path):
+        if isinstance(node, QTensor):
+            for field in node._fields:
+                walk(getattr(node, field), path + [f".{field}"])
+        elif isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], path + [f"[{k!r}]"])
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, path + [f"[{i}]"])
+        elif node is not None:
+            if isinstance(node, torch.Tensor):
+                node = node.detach().cpu().numpy()
+            out["/".join(path)] = np.asarray(node)
+
+    walk(tree, [])
+    return out
+
+
+def save_tree(path: str, tree: Any, step: int = 0, extra: Any = None) -> None:
+    """Save any params tree (``flatten_tree``) as the JAX package's
+    ``save_checkpoint`` saves it."""
+    _write(path, flatten_tree(tree), step, extra)
+
+
 def save_checkpoint(path: str, params: List[Any], step: int = 0, extra: Any = None) -> None:
     """Save JAX-layout params (``export_jax_params(model)``) and the step to
     an npz, atomically through a temporary file."""
-    arrays = flatten_params(params)
+    _write(path, flatten_params(params), step, extra)
+
+
+def _write(path: str, arrays: Dict[str, np.ndarray], step: int, extra: Any) -> None:
     meta = {"step": int(step), "schema": SCHEMA_VERSION}
     if extra is not None:
         meta["extra"] = extra

@@ -28,7 +28,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PORTED = {"MnistTrain", "NITIInt8Train", "NITIDSPInt8Train", "MnistTrainSnapshot",
           "MobilenetV2Train", "MobilenetV1Train", "DataLoaderDemo", "NnGradTest",
           "LinearRegression", "MnistInt8Train", "DistillTrainQuant", "MobilenetV2Transfer",
-          "QuanByMSE"}
+          "QuanByMSE", "OnnxImportTrain", "TfImportTrain", "CaffeImportTrain",
+          "TFLiteImportTrain"}
 
 
 @pytest.fixture(autouse=True)

@@ -689,3 +689,42 @@ def test_lenet_qat_step_card_matches_cpu(gen):
     for name, want in states[1].items():
         err = float((states[0][name] - want).abs().max())
         assert err <= 1e-9 * max(float(want.abs().max()), 1e-300), name
+
+
+def test_imported_resnet18_step_matches_plain(gen):
+    """Full-width NITI ResNet-18 exported to TFLite and imported back
+    (utils/tflite_model.py, onto the card): one train step and one eval step
+    at b8 with the kernels and with the plain versions on the card, params
+    byte-identical, and the same as the built model's step from the same
+    params."""
+    import numpy as np
+
+    from mandheling_tpu_torch.models import resnet18_niti
+    from mandheling_tpu_torch.ops.kernels import launch_counts, reset_launch_counts, use_backend
+    from mandheling_tpu_torch.train import make_eval_step, make_train_step
+    from mandheling_tpu_torch.utils.jax_params import export_jax_params, flat_weights
+    from mandheling_tpu_torch.utils.tflite_model import (niti_model_from_tflite,
+                                                         tflite_from_sequential)
+
+    built = resnet18_niti().reset_parameters(torch.Generator().manual_seed(0))
+    buf = tflite_from_sequential(built, None, (8, 32, 32, 3))
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.integers(0, 256, (8, 32, 32, 3)).astype(np.float32)).cuda()
+    y = rng.integers(0, 10, 8)
+    oh = torch.zeros((8, 12), dtype=torch.int32, device="cuda")
+    oh[torch.arange(8), torch.from_numpy(y)] = 1
+    runs = []
+    for which, backend in (("imported", "cuda"), ("imported", "torch"), ("built", "cuda")):
+        model = (niti_model_from_tflite(buf, device="cuda")[0] if which == "imported"
+                 else built.to("cuda"))
+        reset_launch_counts()
+        with use_backend(backend):
+            loss = make_train_step(model)(x, oh)
+            correct = make_eval_step(model)(x, torch.from_numpy(y).cuda())
+        torch.cuda.synchronize()
+        runs.append((flat_weights(export_jax_params(model)), float(loss), int(correct),
+                     sum(launch_counts().values())))
+    for other in runs[1:]:
+        assert all(np.array_equal(a, b) for a, b in zip(runs[0][0], other[0]))
+        assert runs[0][1:3] == other[1:3]
+    assert runs[0][3] == runs[2][3] > 0 and runs[1][3] == 0

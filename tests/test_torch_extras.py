@@ -241,7 +241,8 @@ def test_quantize_params_tree_matches_jax():
 def test_quan_by_mse_demo(tmp_path, capsys):
     """QuanByMSE through the port's CLI on the CPU: the JAX CLI's lines (its
     numbers differ: the float LeNet is drawn by torch); on a folder of
-    images it raises for the image dataset the port lacks."""
+    images it calibrates on them (tests/test_torch_import_cli.py holds those
+    lines to the JAX CLI's)."""
     import importlib.util
     import re
     from pathlib import Path
@@ -258,6 +259,11 @@ def test_quan_by_mse_demo(tmp_path, capsys):
     for name, ln in zip(("maxabs", "admm"), out[4:6]):
         assert re.fullmatch(rf"weight PTQ \({name}\): mean \|recon err\| per conv layer: "
                             r"(\d\.\d{5}, ){3}\d\.\d{5}", ln), ln
-    (tmp_path / "a.png").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="data/image.py"):
-        cli.main(["QuanByMSE", str(tmp_path), "--device", "cpu"])
+    from PIL import Image
+
+    Image.fromarray(np.full((30, 30, 3), 200, np.uint8)).save(tmp_path / "a.png")
+    cli.main(["QuanByMSE", str(tmp_path), "--device", "cpu"])
+    out = capsys.readouterr().out.splitlines()
+    assert out[0] == f"calibrating on 1 images from {tmp_path}"
+    for method, ln in zip(("MSE", "KL"), out[1:3]):
+        assert re.fullmatch(rf"{method} scales: input=\d+\.\d{{4}}, logits=\d+\.\d{{4}}", ln), ln

@@ -1,7 +1,8 @@
 """The port stands alone: no module of mandheling_tpu_torch, and none of
 chip_smoke.py, tools/profile_torch_step.py, the demo CLI
-tools/run_train_demo_torch.py, the training gate tools/test_train_torch.py
-and the probe tools/probes/dot_probe_torch.py,
+tools/run_train_demo_torch.py, the training gate tools/test_train_torch.py,
+the importer and converter CLIs tools/import_model_torch.py and
+tools/convert_torch.py and the probe tools/probes/dot_probe_torch.py,
 imports jax or anything of the JAX package (not even a module there that
 uses no jax)."""
 
@@ -14,6 +15,7 @@ ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "mandheling_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_step.py",
     ROOT / "tools" / "run_train_demo_torch.py", ROOT / "tools" / "test_train_torch.py",
+    ROOT / "tools" / "import_model_torch.py", ROOT / "tools" / "convert_torch.py",
     ROOT / "tools" / "probes" / "dot_probe_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "mandheling_tpu")
 
@@ -48,7 +50,12 @@ def test_guard_sees_the_package():
                    "models/resnet.py", "models/resnet_fp32.py", "models/mobilenet_fp32.py",
                    "models/squeezenet.py", "models/inception.py", "ops/softmax.py",
                    "ops/matmul.py", "train/losses.py", "nn/qat.py", "models/lenet_qat.py",
-                   "train/qat_train.py", "train/transfer.py", "utils/calibration.py"):
+                   "train/qat_train.py", "train/transfer.py", "utils/calibration.py",
+                   "data/image.py", "data/native.py", "utils/flatbuf.py", "utils/tflite_io.py",
+                   "utils/onnx_io.py", "utils/onnx_proto/onnx_subset_pb2.py",
+                   "utils/tf_graphdef.py", "utils/graph_import.py", "utils/tflite_model.py",
+                   "utils/onnx_model.py", "utils/tf_model.py", "utils/caffe_model.py",
+                   "utils/convert.py"):
         assert module in names
 
 
@@ -64,7 +71,13 @@ def test_guard_sees_the_package():
     "mandheling_tpu_torch.ops.softmax", "mandheling_tpu_torch.ops.matmul",
     "mandheling_tpu_torch.train.losses", "mandheling_tpu_torch.nn.qat",
     "mandheling_tpu_torch.models.lenet_qat", "mandheling_tpu_torch.train.qat_train",
-    "mandheling_tpu_torch.train.transfer", "mandheling_tpu_torch.utils.calibration"])
+    "mandheling_tpu_torch.train.transfer", "mandheling_tpu_torch.utils.calibration",
+    "mandheling_tpu_torch.data.image", "mandheling_tpu_torch.data.native",
+    "mandheling_tpu_torch.utils.flatbuf", "mandheling_tpu_torch.utils.tflite_io",
+    "mandheling_tpu_torch.utils.onnx_io", "mandheling_tpu_torch.utils.tf_graphdef",
+    "mandheling_tpu_torch.utils.graph_import", "mandheling_tpu_torch.utils.tflite_model",
+    "mandheling_tpu_torch.utils.onnx_model", "mandheling_tpu_torch.utils.tf_model",
+    "mandheling_tpu_torch.utils.caffe_model", "mandheling_tpu_torch.utils.convert"])
 def test_new_modules_import_without_building(module):
     """Importing a kernel module builds nothing: the build happens at the
     first launch, on the card."""

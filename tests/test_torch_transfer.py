@@ -178,7 +178,10 @@ def test_transfer_model_draws_only_the_head():
 def test_mobilenet_v2_transfer_demo_on_the_cpu(tmp_path, capsys):
     """The demo, one epoch on the CPU: the lines the JAX CLI prints; with a
     snapshot of the full model it loads the features; its image-folder
-    branch raises for the image dataset the port lacks."""
+    branch trains on the images of the label file (64 PNGs here;
+    tests/test_torch_import_cli.py holds its lines to the JAX CLI's)."""
+    from PIL import Image
+
     from mandheling_tpu_torch.utils.checkpoint import save_checkpoint
 
     cli = load_module("tools/run_train_demo_torch.py", "run_train_demo_torch")
@@ -191,10 +194,17 @@ def test_mobilenet_v2_transfer_demo_on_the_cpu(tmp_path, capsys):
     full = mobilenet_v2_niti(num_classes=10, width_mult=0.25)
     save_checkpoint(str(snap), export_jax_params(full.reset_parameters(
         torch.Generator().manual_seed(3))))
-    with pytest.raises(NotImplementedError, match="data/image.py"):
-        cli.main(["MobilenetV2Transfer", str(tmp_path), "--images-txt", str(tmp_path / "l.txt"),
-                  "--snapshot", str(snap), "--device", "cpu"])
-    assert capsys.readouterr().out.splitlines()[0] == f"loaded pretrained features from {snap}"
+    rng = np.random.default_rng(0)
+    for i in range(64):
+        Image.fromarray(rng.integers(0, 255, (36, 40, 3)).astype(np.uint8)).save(
+            tmp_path / f"im{i}.png")
+    (tmp_path / "l.txt").write_text("".join(f"im{i}.png {i % 10}\n" for i in range(64)))
+    cli.main(["MobilenetV2Transfer", str(tmp_path), "--images-txt", str(tmp_path / "l.txt"),
+              "--snapshot", str(snap), "--epochs", "1", "--device", "cpu"])
+    out = capsys.readouterr().out.splitlines()
+    assert out[:2] == [f"loaded pretrained features from {snap}",
+                       f"ImageDataset: 64 images from {tmp_path / 'l.txt'}"]
+    assert re.fullmatch(r"epoch 0: loss \d+\.\d{4} train_acc \d\.\d{4}", out[-1]), out
 
 
 def test_chip_smoke_transfer_launch_table_is_the_routes(monkeypatch):

@@ -10,8 +10,12 @@ The same demo names, arguments and printed lines as tools/run_train_demo.py
     python tools/run_train_demo_torch.py MnistTrainSnapshot [mnist_root] [--epochs N] [--snapshot F]
     python tools/run_train_demo_torch.py MnistInt8Train     [mnist_root] [--epochs N]
     python tools/run_train_demo_torch.py DistillTrainQuant  [mnist_root] [--epochs N]
-    python tools/run_train_demo_torch.py MobilenetV2Transfer [--epochs N] [--snapshot F]
-    python tools/run_train_demo_torch.py QuanByMSE          [mnist_root]
+    python tools/run_train_demo_torch.py MobilenetV2Transfer [img_root --images-txt F] [--epochs N] [--snapshot F]
+    python tools/run_train_demo_torch.py QuanByMSE          [mnist_root | image_folder]
+    python tools/run_train_demo_torch.py OnnxImportTrain    [mnist_root] [--epochs N]
+    python tools/run_train_demo_torch.py TfImportTrain      [mnist_root] [--epochs N]
+    python tools/run_train_demo_torch.py CaffeImportTrain   [mnist_root] [--epochs N]
+    python tools/run_train_demo_torch.py TFLiteImportTrain  [mnist_root] [--epochs N]
     python tools/run_train_demo_torch.py MobilenetV2Train   [cifar_root] [--epochs N]
     python tools/run_train_demo_torch.py MobilenetV1Train   [cifar_root] [--epochs N]
     python tools/run_train_demo_torch.py NnGradTest
@@ -23,8 +27,10 @@ kernels' plain versions (for tests). The port has one lowering, so
 `NITIInt8Train` and `NITIDSPInt8Train` both run the hand-written kernels.
 Without a dataset on disk, the synthetic datasets made from a seed are used.
 The image-folder branches of MobilenetV2Transfer (root and --images-txt) and
-QuanByMSE (a root of image files) need an image dataset the port does not
-have yet: they raise. It imports nothing of JAX or of the JAX package.
+QuanByMSE (a root of image files) read images with PIL or the native
+decoder, on the host. The four import demos build a model file in memory,
+import it as a trainable NITI model and train it a few steps. It imports
+nothing of JAX or of the JAX package.
 """
 
 import argparse
@@ -154,12 +160,6 @@ def mobilenet_v1_train(args):
     print(f"final test accuracy: {acc:.4f}")
 
 
-def _no_image_dataset(what):
-    return NotImplementedError(
-        f"{what} needs the image dataset of mandheling_tpu_torch/data/image.py, which the "
-        "port does not have yet; without it the demo runs on its synthetic data")
-
-
 @demo("MnistInt8Train")
 def mnist_int8_train(args):
     """Fake-quant QAT training (reference MnistInt8Train): LeNetQAT by
@@ -276,11 +276,19 @@ def mobilenet_v2_transfer(args):
     logit_width = model.head.layers[0].out_channels
 
     if args.root and args.images_txt:
-        raise _no_image_dataset("MobilenetV2Transfer on an image folder (--images-txt)")
-    rng = np.random.default_rng(0)
-    x = rng.normal(0, 1, (512, 32, 32, 3)).astype(np.float32)
-    y = (rng.integers(0, num_classes, 512)).astype(np.int32)
-    print("(no image folder/txt — synthetic data)")
+        from mandheling_tpu_torch.data.image import ImageConfig, ImageDataset
+
+        cfg = ImageConfig(resize_height=32, resize_width=32,
+                          crop_fraction=(0.875, 0.875))
+        ds = ImageDataset(args.root, args.images_txt, cfg)
+        x = np.stack([ds[i][0] for i in range(len(ds))])
+        y = np.array([ds[i][1] for i in range(len(ds))], np.int32)
+        print(f"ImageDataset: {len(ds)} images from {args.images_txt}")
+    else:
+        rng = np.random.default_rng(0)
+        x = rng.normal(0, 1, (512, 32, 32, 3)).astype(np.float32)
+        y = (rng.integers(0, num_classes, 512)).astype(np.int32)
+        print("(no image folder/txt — synthetic data)")
 
     step = make_transfer_train_step(model)
     evals = make_transfer_eval_step(model, num_classes)
@@ -322,12 +330,17 @@ def quan_by_mse(args):
         f.lower().endswith((".png", ".jpg", ".jpeg", ".bmp"))
         for f in os.listdir(args.root)
     ):
-        raise _no_image_dataset(f"QuanByMSE on the image folder {args.root}")
-    (x, _), _ = _data(args.root, synth_n=512)
-    batches = [x[i:i + 64].astype(np.float32)[..., None]
-               if x.ndim == 3 else x[i:i + 64].astype(np.float32)
-               for i in range(0, 256, 64)]
-    print("calibrating on MNIST/synthetic batches")
+        from mandheling_tpu_torch.data.image import ImageConfig, ImageNoLabelDataset
+
+        ds = ImageNoLabelDataset(args.root, ImageConfig(28, 28, [1 / 127.5], [127.5]))
+        batches = [np.stack([ds[i][..., :1] for i in range(min(len(ds), 64))])]
+        print(f"calibrating on {len(ds)} images from {args.root}")
+    else:
+        (x, _), _ = _data(args.root, synth_n=512)
+        batches = [x[i:i + 64].astype(np.float32)[..., None]
+                   if x.ndim == 3 else x[i:i + 64].astype(np.float32)
+                   for i in range(0, 256, 64)]
+        print("calibrating on MNIST/synthetic batches")
 
     model = LeNetFP32().reset_parameters(torch.Generator().manual_seed(0)).to(device)
 
@@ -355,6 +368,178 @@ def quan_by_mse(args):
                     errs.append(float(np.abs(q * s - w).mean()))
         print(f"weight PTQ ({name}): mean |recon err| per conv layer: "
               + ", ".join(f"{e:.5f}" for e in errs))
+
+
+def _seeded(model, seed):
+    """`model` with its weights drawn from torch's generator at `seed`."""
+    import torch
+
+    return model.reset_parameters(torch.Generator().manual_seed(seed))
+
+
+def _train_imported(args, model):
+    """The import demos' loop: 16 steps an epoch at batch 64 over the MNIST
+    (or synthetic) images in order, the loss printed every 16 steps."""
+    import numpy as np
+    import torch
+
+    from mandheling_tpu_torch.data import onehot_padded
+    from mandheling_tpu_torch.device import resolve_device
+    from mandheling_tpu_torch.train import make_train_step
+
+    device = resolve_device(args.device)
+    step = make_train_step(model)
+    (x, y), _ = _data(args.root)
+    for it in range(args.epochs * 16):
+        i0 = (it * 64) % (len(x) - 64)
+        xf = torch.from_numpy(x[i0 : i0 + 64].astype(np.float32)).to(device)
+        oh = torch.from_numpy(onehot_padded(y[i0 : i0 + 64], 10, 12)).to(device)
+        loss = step(xf, oh)
+        if it % 16 == 0:
+            print(f"iter {it}: loss {float(loss):.4f}")
+    print(f"final loss: {float(loss):.4f}")
+
+
+def onnx_demo_model():
+    """OnnxImportTrain's graph (a ModelProto): conv, relu, pool twice, flatten
+    and a 400 -> 12 Gemm, at (1, 1, 28, 28), its weights from numpy's
+    generator at seed 0."""
+    import numpy as np
+
+    from mandheling_tpu_torch.utils.onnx_io import build_onnx_sequential
+
+    rng = np.random.default_rng(0)
+    ops = [
+        ("Conv", {"w": rng.normal(0, 0.2, (8, 1, 5, 5)).astype(np.float32)}),
+        ("Relu", {}),
+        ("MaxPool", {"kernel": (2, 2), "strides": (2, 2)}),
+        ("Conv", {"w": rng.normal(0, 0.2, (16, 8, 3, 3)).astype(np.float32)}),
+        ("Relu", {}),
+        ("MaxPool", {"kernel": (2, 2), "strides": (2, 2)}),
+        ("Flatten", {}),
+        ("Gemm", {"w": rng.normal(0, 0.1, (12, 400)).astype(np.float32)}),
+    ]
+    return build_onnx_sequential(ops, (1, 1, 28, 28))
+
+
+def tf_demo_graph() -> bytes:
+    """TfImportTrain's frozen GraphDef: conv, relu, a residual conv, a global
+    mean, reshape and the logits MatMul (input (1, 28, 28, 1), NHWC)."""
+    import numpy as np
+
+    from mandheling_tpu_torch.utils import tf_graphdef as G
+
+    rng = np.random.default_rng(0)
+    F = np.float32
+    DT = ("dtype", G.DT_FLOAT)
+
+    def const(name, arr):
+        return (name, "Const", [], {"dtype": DT, "value": np.asarray(arr, F)})
+
+    return G.build_graphdef([
+        ("input", "Placeholder", [], {"dtype": DT}),
+        const("w0", rng.normal(0, 0.2, (5, 5, 1, 8)).astype(F)),
+        ("conv0", "Conv2D", ["input", "w0"],
+         {"strides": [1, 1, 1, 1], "padding": "SAME"}),
+        ("relu0", "Relu", ["conv0"], {}),
+        const("w1", rng.normal(0, 0.2, (3, 3, 8, 8)).astype(F)),
+        ("conv1", "Conv2D", ["relu0", "w1"],
+         {"strides": [1, 1, 1, 1], "padding": "SAME"}),
+        ("res", "AddV2", ["conv1", "relu0"], {}),
+        ("relu1", "Relu", ["res"], {}),
+        const("axes", np.asarray([1, 2], np.int32)),
+        ("gap", "Mean", ["relu1", "axes"], {"keep_dims": True}),
+        const("shape", np.asarray([-1, 8], np.int32)),
+        ("flat", "Reshape", ["gap", "shape"], {}),
+        const("wf", rng.normal(0, 0.1, (8, 12)).astype(F)),
+        ("logits", "MatMul", ["flat", "wf"], {"transpose_b": False}),
+    ])
+
+
+def caffe_demo_net() -> bytes:
+    """CaffeImportTrain's binary caffemodel: conv + in-place ReLU, conv + BN +
+    Scale, an Eltwise residual, global average pool and the InnerProduct
+    logits (input (1, 1, 28, 28), NCHW)."""
+    import numpy as np
+
+    from mandheling_tpu_torch.utils.caffe_model import build_caffemodel
+
+    rng = np.random.default_rng(0)
+    F = np.float32
+    layers = [
+        ("conv0", "Convolution", ["data"], ["c0"],
+         {"num_output": 8, "kernel_size": 5, "pad": 2},
+         [rng.normal(0, 0.2, (8, 1, 5, 5)).astype(F)]),
+        ("relu0", "ReLU", ["c0"], ["c0"], {}, []),
+        ("conv1", "Convolution", ["c0"], ["c1"],
+         {"num_output": 8, "kernel_size": 3, "pad": 1},
+         [rng.normal(0, 0.2, (8, 8, 3, 3)).astype(F)]),
+        ("bn1", "BatchNorm", ["c1"], ["c1"], {"use_global_stats": 1},
+         [np.zeros(8, F), np.ones(8, F), np.ones(1, F)]),
+        ("sc1", "Scale", ["c1"], ["c1"], {"axis": 1},
+         [rng.uniform(0.5, 1.5, 8).astype(F)]),
+        ("res", "Eltwise", ["c1", "c0"], ["r"], {"operation": 1}, []),
+        ("relu1", "ReLU", ["r"], ["r"], {}, []),
+        ("gap", "Pooling", ["r"], ["g"], {"pool": 1, "global_pooling": 1}, []),
+        ("fc", "InnerProduct", ["g"], ["logits"], {"num_output": 12},
+         [rng.normal(0, 0.1, (12, 8)).astype(F)]),
+    ]
+    return build_caffemodel(layers, ["data"], [[1, 1, 28, 28]])
+
+
+@demo("OnnxImportTrain")
+def onnx_import_train(args):
+    """turnModelToTrainable from ONNX: build a demo ONNX graph, import it
+    as a trainable NITI model (utils/onnx_model.py), train a few steps."""
+    from mandheling_tpu_torch.utils.onnx_model import niti_model_from_onnx
+
+    model, _ = niti_model_from_onnx(onnx_demo_model(), device=args.device)
+    print(f"imported {len(model.layers)} NITI layers from ONNX")
+    _train_imported(args, model)
+
+
+@demo("TfImportTrain")
+def tf_import_train(args):
+    """turnModelToTrainable from a TensorFlow frozen graph: build a demo
+    GraphDef (residual block included), import it as a trainable NITI
+    model (utils/tf_model.py), train a few steps."""
+    from mandheling_tpu_torch.utils.tf_model import niti_model_from_graphdef
+
+    model, _ = niti_model_from_graphdef(tf_demo_graph(), input_shape=(1, 28, 28, 1),
+                                        device=args.device)
+    print(f"imported {len(model.layers)} NITI layers from the frozen graph "
+          f"({[type(l).__name__ for l in model.layers]})")
+    _train_imported(args, model)
+
+
+@demo("CaffeImportTrain")
+def caffe_import_train(args):
+    """turnModelToTrainable from a binary .caffemodel: build a demo net
+    (conv+BN+Scale with in-place ReLUs, Eltwise residual), import it as a
+    trainable NITI model (utils/caffe_model.py), train a few steps."""
+    from mandheling_tpu_torch.utils.caffe_model import niti_model_from_caffemodel
+
+    model, _ = niti_model_from_caffemodel(caffe_demo_net(), device=args.device)
+    print(f"imported {len(model.layers)} NITI layers from the caffemodel "
+          f"({[type(l).__name__ for l in model.layers]})")
+    _train_imported(args, model)
+
+
+@demo("TFLiteImportTrain")
+def tflite_import_train(args):
+    """turnModelToTrainable from TFLite: export a NITI LeNet (its weights
+    drawn from torch's generator, seed 0) to a .tflite flatbuffer, re-import
+    it as a trainable NITI model (utils/tflite_model.py), train a few steps."""
+    from mandheling_tpu_torch.models import lenet_niti
+    from mandheling_tpu_torch.utils.tflite_model import (niti_model_from_tflite,
+                                                         tflite_from_sequential)
+
+    src = _seeded(lenet_niti(), 0)
+    buf = tflite_from_sequential(src, None, (64, 28, 28, 1))
+    print(f"exported LeNet-NITI as TFLite ({len(buf)} bytes)")
+    model, _ = niti_model_from_tflite(buf, device=args.device)
+    print(f"imported {len(model.layers)} NITI layers from TFLite")
+    _train_imported(args, model)
 
 
 @demo("NnGradTest")
@@ -444,7 +629,7 @@ def main(argv=None):
     parser.add_argument("--epochs", type=int, default=10)
     parser.add_argument("--snapshot", default=None)
     parser.add_argument("--images-txt", default=None,
-                        help="label txt for MobilenetV2Transfer's image dataset (not ported yet)")
+                        help="label txt for MobilenetV2Transfer's ImageDataset")
     parser.add_argument("--device", default=None,
                         help="torch device; default: the GPU (cpu: the plain versions, for tests)")
     args = parser.parse_args(argv)

@@ -128,7 +128,20 @@ raises on failure (the script then exits non-zero and prints no result):
    processes of their own on the card and with --device cpu (the same
    printed lines), and the ONNX, TF and Caffe demo files through
    `import_model_torch.py --check` on both (the same lines and checkpoints);
-16. one JSON line listing every kernel, then the result line.
+16. parallelism (mandheling_tpu_torch/parallel), the ranks gloo processes
+   that share cuda:0 (started by `parallel.distributed.run_local`, each
+   group with its own timeout; a rank that raises or hangs fails the
+   phase): (a) DP LeNet, world 2, global batch 128, 2 train steps and one
+   eval step, byte-equal to one process on the card and to the CPU gloo run
+   of the plain versions; (b) DP full-width MobileNetV2 under the r5 recipe,
+   world 2, global batch 256, 2 steps in "matmul_only" and in "all", equal
+   to one process on the card; (c) the int8 wire on (a), equal to the CPU
+   gloo run; (d) TP `lenet_niti_tp` on a 2x2 mesh, batch 64, equal to the
+   CPU gloo run and to one process; (e) GPipe LeNet, 2 stages, M = 2, equal
+   to the CPU gloo run. Each DP rank's launches are one process's at its
+   local batch (EXPECTED_PER_STEP); one line a run gives each rank's wall ms
+   a step, its collectives a step and their host ms, and its launches;
+17. one JSON line listing every kernel, then the result line.
 
 If a phase fails, the script prints `chip_smoke: failed in phase N (...)`
 on standard output (phase 0 is the imports) and the exception propagates:
@@ -169,6 +182,7 @@ from pathlib import Path
 # The phase the script is in. An exception that ends the script names it on
 # standard output first, then propagates as ever (exit code 1).
 PHASE = "0 (imports)"
+T_START = time.perf_counter()
 
 
 def _name_the_phase(exc_type, exc, tb):
@@ -197,6 +211,8 @@ from mandheling_tpu_torch.ops import kernels
 from mandheling_tpu_torch.ops.conv import use_fused_conv_mode
 from mandheling_tpu_torch.ops.kernels import (build, fused_conv_int8, fused_dwconv_int8,
                                               fused_matmul_int8, matmul_int8)
+from mandheling_tpu_torch.parallel import distributed, quantize_microbatches, tp
+from mandheling_tpu_torch.parallel import runs as runs_mod
 from mandheling_tpu_torch.data.loader import onehot_padded
 from mandheling_tpu_torch.train import make_eval_step, make_train_step
 from mandheling_tpu_torch.train.optim import lr_inv
@@ -213,10 +229,11 @@ ROOT = Path(__file__).resolve().parent
 
 
 def enter(phase: str, what: str) -> None:
-    """Record the phase the script is in and announce it."""
+    """Record the phase the script is in and announce it, with the seconds
+    since the script started."""
     global PHASE
     PHASE = f"{phase} ({what})"
-    print(f"phase {phase}: {what}", flush=True)
+    print(f"phase {phase}: {what} (at {time.perf_counter() - T_START:.1f} s)", flush=True)
 SAME3 = ((1, 1), (1, 1))
 
 # (what, M, K, N, A's layout, B's layout) of every int8 contraction of a
@@ -419,6 +436,11 @@ EXPECTED_PER_STEP = {
                                     {"K1": 23, "K2": 13, "K4": 14}),
     ("mnv2pc", 16, "matmul_only"): ({"K1": 95, "K2": 12, "K4": 31, "K5": 17},
                                     {"K1": 30, "K2": 6, "K4": 14}),
+    # each rank of phase 16's data-parallel recipe run (global batch 256 over 2)
+    ("mnv2pc", 128, "matmul_only"): ({"K1": 65, "K2": 42, "K4": 31, "K5": 17},
+                                     {"K1": 15, "K2": 21, "K4": 14}),
+    ("mnv2pc", 128, "all"): ({"K1": 64, "K2": 42, "K3": 1, "K4": 31, "K5": 17},
+                             {"K1": 14, "K2": 21, "K3": 1, "K4": 14}),
     # ResNet-18 (CIFAR): K2 takes the strided 1x1 projections and their input
     # grads where the accumulator reaches 2 MB (at batch 8 one input grad);
     # under "all" K3 takes the 3x3 forwards but layer4's 512 -> 512 and the
@@ -1782,6 +1804,157 @@ def fused_entries(name_prefix, source, replaces, row, launches, launches_by_run,
     return out
 
 
+# Phase 16: parallel runs as gloo ranks that share cuda:0 (NCCL refuses two
+# ranks on one device). The kernels are built (phase 2) before the ranks start.
+PAR_TIMEOUT_S = 300
+
+
+def run_line(label, results, card):
+    """One line a run: each rank's wall ms a step, the collectives a step
+    with each rank's host ms in them (each timed from an idle card), those
+    of each named site (the residual adds' group max: "add"), and each
+    rank's launches by family."""
+    sites = [[{k: (n, round(t, 3)) for k, (n, t) in st.items()} for st in r["sites"]]
+             for r in results]
+    print(f"  [{label}] ({card}): step ms by rank "
+          f"{[[round(t, 3) for t in r['step_ms']] for r in results]}; collectives/step "
+          f"{results[0]['collectives']} taking, by rank, "
+          f"{[[round(t, 3) for t in r['collective_ms']] for r in results]} ms (host timer)"
+          + (f", of which by site and rank (count, ms) {sites}" if any(map(any, sites)) else "")
+          + f"; launches by rank {[family_counts(r['launches']) for r in results]}", flush=True)
+
+
+def same_run(label, got, want, what):
+    """Byte-identical weights, losses within 1e-5, equal counts."""
+    if not params_equal(got["params"], want["params"]):
+        raise AssertionError(f"{label}: weights differ from {what}")
+    if max(abs(a - b) for a, b in zip(got["losses"], want["losses"])) > 1e-5:
+        raise AssertionError(f"{label}: losses {got['losses']} vs {what} {want['losses']}")
+    if got.get("correct") != want.get("correct"):
+        raise AssertionError(f"{label}: correct {got.get('correct')} vs {what} {want.get('correct')}")
+
+
+def ranks_agree(label, results):
+    for r in results[1:]:
+        if not params_equal(r["params"], results[0]["params"]) or r["losses"] != results[0]["losses"]:
+            raise AssertionError(f"{label}: the ranks' weights or losses differ")
+
+
+def parallel_phase(card, lenet_start, recipe_start):
+    """The five runs of phase 16; returns their summary and per-run
+    launches (summed over the ranks)."""
+    x, y = synthetic_mnist(384, seed=160)
+    lenet_batches = [(x[i:i + 128].astype(np.float32), onehot_padded(y[i:i + 128], 10, 12))
+                     for i in (0, 128)]
+    lenet_eval = (x[256:].astype(np.float32), y[256:].astype(np.int64))
+    dp_a = dict(model=lenet_niti(), params=lenet_start, batches=lenet_batches, eval=lenet_eval)
+    dp_c = dict(dp_a, allreduce="int8")
+    xc, yc = synthetic_cifar(512, seed=161)
+    mnv2_batches = [(xc[i:i + 256].astype(np.float32), onehot_padded(yc[i:i + 256], 10, 12))
+                    for i in (0, 256)]
+    dp_b = {mode: dict(model=mobilenet_v2_niti(dw_per_channel=True), params=recipe_start,
+                       batches=mnv2_batches, margins=(0, 0), mode=mode)
+            for mode in ("matmul_only", "all")}
+    xt, yt = synthetic_mnist(128, seed=162)
+    tp_model = tp.lenet_niti_tp()
+    tp_start = export_jax_params(tp.lenet_niti_tp().reset_parameters(
+        torch.Generator().manual_seed(0)))
+    tp_d = dict(model=tp_model, params=tp_start, n_data=2, n_model=2,
+                batches=[(xt[i:i + 64].astype(np.float32), onehot_padded(yt[i:i + 64], 10, 12))
+                         for i in (0, 64)])
+    xg, yg = synthetic_mnist(128, seed=163)
+    micro = []
+    for i in (0, 64):
+        x_d, x_e = quantize_microbatches(torch.from_numpy(xg[i:i + 64].astype(np.float32)), 2)
+        micro.append((x_d.numpy(), x_e.numpy(), onehot_padded(yg[i:i + 64], 10, 12).reshape(2, 32, 12)))
+    pp_e = dict(model=lenet_niti(), params=lenet_start, mb_shape=(32, 28, 28, 1), n_stages=2,
+                n_microbatches=2, microbatches=micro)
+
+    cuda, cpu = dict(device="cuda"), dict(device="cpu")
+    two = [(runs_mod.dp_steps, dp_a), (runs_mod.dp_steps, dp_c),
+           (runs_mod.dp_steps, dp_b["matmul_only"]), (runs_mod.dp_steps, dp_b["all"]),
+           (runs_mod.gpipe_steps, pp_e)]
+    t0 = time.perf_counter()
+    card2 = distributed.run_local(2, runs_mod.sequence, [(f, dict(sp, **cuda)) for f, sp in two],
+                                  timeout_s=PAR_TIMEOUT_S, threads=2)
+    card4 = distributed.run_local(4, runs_mod.sequence, [(runs_mod.tp_steps, dict(tp_d, **cuda))],
+                                  timeout_s=PAR_TIMEOUT_S, threads=2)
+    print(f"  ranks on cuda:0 done in {time.perf_counter() - t0:.1f} s", flush=True)
+    cpu2 = distributed.run_local(2, runs_mod.sequence,
+                                 [(f, dict(sp, **cpu)) for f, sp in (two[0], two[1], two[4])],
+                                 timeout_s=PAR_TIMEOUT_S, threads=4)
+    cpu4 = distributed.run_local(4, runs_mod.sequence, [(runs_mod.tp_steps, dict(tp_d, **cpu))],
+                                 timeout_s=PAR_TIMEOUT_S, threads=2)
+    res = {k: [r[i] for r in card2] for i, k in enumerate(("a", "c", "b_mo", "b_all", "e"))}
+    res["d"] = [r[0] for r in card4]
+    res_cpu = {k: [r[i] for r in cpu2] for i, k in enumerate(("a", "c", "e"))}
+    res_cpu["d"] = [r[0] for r in cpu4]
+
+    label = "(a) DP LeNet, world 2, global batch 128, 2 train + 1 eval"
+    ranks_agree(label, res["a"])
+    single = runs_mod.dp_steps(dict(dp_a, world=0, **cuda))
+    same_run(label, res["a"][0], single, what="one process on the card")
+    same_run(label, res["a"][0], res_cpu["a"][0], what="the CPU gloo run (plain versions)")
+    want = expected_launches(("lenet", 64, "matmul_only"), 2, 1)
+    label_c = "(c) the int8 wire on (a)"
+    ranks_agree(label_c, res["c"])
+    same_run(label_c, res["c"][0], res_cpu["c"][0], what="the CPU gloo run (plain versions)")
+    if params_equal(res["c"][0]["params"], res["a"][0]["params"]):
+        raise AssertionError("the int8 wire gave the int32 wire's weights")
+    for key, tag in ((label, "a"), (label_c, "c")):
+        for r in res[tag]:
+            if family_counts(r["launches"]) != want:
+                raise AssertionError(f"{key}: a rank launched {family_counts(r['launches'])}, "
+                                     f"expected {want} (one process at b64)")
+    for mode, tag in (("matmul_only", "b_mo"), ("all", "b_all")):
+        lb = f"(b) DP MobileNetV2 r5 recipe full width, world 2, global 256, {mode}"
+        ranks_agree(lb, res[tag])
+        with dw_ops.recipe_margins():
+            one = runs_mod.dp_steps(dict(dp_b[mode], world=0, **cuda))
+        same_run(lb, res[tag][0], one, what="one process on the card at b256")
+        want_b = expected_launches(("mnv2pc", 128, mode), 2, 0)
+        for r in res[tag]:
+            if family_counts(r["launches"]) != want_b:
+                raise AssertionError(f"{lb}: a rank launched {family_counts(r['launches'])}, "
+                                     f"expected {want_b} (one process at b128)")
+        run_line(lb, res[tag], card)
+    run_line(label, res["a"], card)
+    run_line(label_c, res["c"], card)
+    label_d = "(d) TP lenet_niti_tp on a 2x2 mesh, batch 64, 2 steps"
+    full = runs_mod.tp_weights(res["d"], tp_model)
+    full_cpu = runs_mod.tp_weights(res_cpu["d"], tp_model)
+    tp_single = runs_mod.dp_steps(dict(tp_d, world=0, **cpu))
+    for what, other in (("the CPU gloo run", full_cpu), ("one process on the CPU",
+                                                        tp_single["params"])):
+        if not params_equal(full, other):
+            raise AssertionError(f"{label_d}: weights differ from {what}")
+    run_line(label_d, res["d"], card)
+    label_e = "(e) GPipe LeNet, 2 stages, M = 2, 2 steps"
+    if not params_equal(runs_mod.pipeline_weights(res["e"]),
+                        runs_mod.pipeline_weights(res_cpu["e"])):
+        raise AssertionError(f"{label_e}: weights differ from the CPU gloo run")
+    if max(abs(a - b) for a, b in zip(res["e"][0]["losses"], res_cpu["e"][0]["losses"])) > 1e-5:
+        raise AssertionError(f"{label_e}: losses differ from the CPU gloo run")
+    run_line(label_e, res["e"], card)
+    for tag in ("d", "e"):
+        for r in res[tag]:
+            if not r["launches"]["matmul_int8"]:
+                raise AssertionError(f"run ({tag}): a rank launched no K1")
+    launches = {f"parallel_{tag}": {n: sum(r["launches"][n] for r in results)
+                                     for n in results[0]["launches"]}
+                for tag, results in res.items()}
+    summary = {tag: {"ranks": len(results),
+                     "step_ms": [r["step_ms"] for r in results],
+                     "collectives_per_step": results[0]["collectives"],
+                     "collective_ms": [r["collective_ms"] for r in results],
+                     "collective_sites": [r["sites"] for r in results],
+                     "launches_per_rank": [family_counts(r["launches"]) for r in results]}
+               for tag, results in res.items()}
+    print("  phase 16: (a)-(e) byte-equal to their references; every DP rank launched "
+          "K1, K2 (MobileNetV2), K4, K5 and, in 'all', K3", flush=True)
+    return summary, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs the GPU", file=sys.stderr)
@@ -2336,7 +2509,11 @@ def main() -> int:
             runs.update(net_runs)
         import_demos_and_checks(cli, tmp)
 
-    enter("16", "the kernels line")
+    enter("16", "parallelism: DP (int32 and int8 wire), TP and GPipe as gloo ranks on cuda:0")
+    par_summary, par_launches = parallel_phase(card, start, recipe_start)
+    runs.update(par_launches)
+
+    enter("17", "the kernels line")
     names = list(kernels.launch_counts())
     launches = {n: sum(c[n] for c in runs.values()) for n in names}
     by_run = {n: {r: c[n] for r, c in runs.items()} for n in names}
@@ -2539,6 +2716,7 @@ def main() -> int:
     kernels_line["fp32_twins_card_vs_cpu"] = fp32_checks
     kernels_line["test_train_torch_resnet18_b64"] = dict(gate, exit=gate_code)
     kernels_line["imported_tflite_b256"] = imported
+    kernels_line["parallel_phase16"] = par_summary
 
     print(f"done in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card_line())

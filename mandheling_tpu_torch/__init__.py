@@ -13,9 +13,10 @@ training per-tensor and as the r5 recipe (``MobilenetV2Train``), the float
 LeNet baseline, checkpoints and the demo CLI ``tools/run_train_demo_torch.py``,
 and what the package list below names since (ResNets, the zoo, QAT and
 transfer, the TFLite / ONNX / TF / Caffe importers in ``utils``, the image
-datasets in ``data``).
+datasets in ``data``), and data, tensor and pipeline parallelism on
+``torch.distributed`` in ``parallel``.
 """
 
 __version__ = "0.1.0"
 
-from . import data, models, nn, ops, train, utils  # noqa: F401
+from . import data, models, nn, ops, parallel, train, utils  # noqa: F401

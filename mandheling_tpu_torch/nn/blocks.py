@@ -66,13 +66,13 @@ class NITIDepthwiseConv2D(NITILayer):
     def weight_numpy(self) -> Tuple[np.ndarray, np.ndarray]:
         return self.w.cpu().numpy(), self.w_exp.cpu().numpy()
 
-    def fwd(self, q: QTensor):
+    def fwd(self, q: QTensor, group=None):
         y, e = dw_ops.dwconv2d_forward(q.data, q.exp, self.w, self.w_exp, self.stride,
-                                       self.padding, act=self.act)
+                                       self.padding, act=self.act, group=group)
         res = q.data if self.act is None else (q.data, y, e)
         return QTensor(y, e), res
 
-    def bwd(self, res, gy):
+    def bwd(self, res, gy, group=None):
         if self.act is None:
             x = res
         elif self.act == "relu6":
@@ -82,9 +82,9 @@ class NITIDepthwiseConv2D(NITILayer):
             raise ValueError(f"unknown act {self.act!r}")
         w_exp = self.w_exp if self.per_channel else None
         gx = dw_ops.dwconv2d_input_grad(gy, self.w, (x.shape[1], x.shape[2]), self.stride,
-                                        self.padding, w_exp=w_exp)
+                                        self.padding, w_exp=w_exp, group=group)
         gw = dw_ops.dwconv2d_filter_grad(x, gy, self.kernel, self.stride, self.padding,
-                                         w_exp=w_exp)
+                                         w_exp=w_exp, group=group)
         return gx, {"w": QTensor(gw, torch.zeros((), dtype=torch.int32, device=gw.device))}
 
 
@@ -98,12 +98,12 @@ class NITIAvgPool(NITILayer):
         self.stride = tuple(stride) if stride else tuple(window)
         self.pad = int(pad)
 
-    def fwd(self, q: QTensor):
+    def fwd(self, q: QTensor, group=None):
         x = elt_ops.pad_int8(q.data, self.pad) if self.pad else q.data
         y, e = dw_ops.avgpool2d_int8(x, q.exp, self.window, self.stride)
         return QTensor(y, e), x.shape
 
-    def bwd(self, res, gy):
+    def bwd(self, res, gy, group=None):
         gx = dw_ops.avgpool2d_grad(gy, (res[1], res[2]), self.window, self.stride)
         if self.pad:
             p = self.pad
@@ -115,13 +115,13 @@ class GlobalAvgPool(NITILayer):
     """(B, H, W, C) -> (B, 1, 1, C): the int32 sum over H and W divided by
     H*W, truncated toward zero; the grad spreads gy / (H*W) back."""
 
-    def fwd(self, q: QTensor):
+    def fwd(self, q: QTensor, group=None):
         _, h, w, _ = q.data.shape
         acc = q.data.to(torch.int32).sum(dim=(1, 2), keepdim=True, dtype=torch.int32)
         out = torch.div(acc, h * w, rounding_mode="trunc")
         return QTensor(int8_clip(out).to(torch.int8), q.exp), q.data.shape
 
-    def bwd(self, res, gy):
+    def bwd(self, res, gy, group=None):
         b, h, w, c = res
         g = torch.div(gy.to(torch.int32), h * w, rounding_mode="trunc")
         return int8_clip(g.expand(b, h, w, c)).to(torch.int8), ()
@@ -140,18 +140,18 @@ class _Parallel(NITILayer):
         for branch in self.branches:
             branch.reset_parameters(generator)
 
-    def _fwd_branches(self, q: QTensor):
+    def _fwd_branches(self, q: QTensor, group):
         outs, ress = [], []
         for branch in self.branches:
-            out, r = branch.fwd(q)
+            out, r = branch.fwd(q, group)
             outs.append(out)
             ress.append(r)
         return outs, ress
 
-    def _bwd_branches(self, ress, gys):
+    def _bwd_branches(self, ress, gys, group):
         gx, grads = None, []
         for branch, r, g in zip(self.branches, ress, gys):
-            g_in, g_p = branch.bwd(r, g)
+            g_in, g_p = branch.bwd(r, g, group)
             grads.append(g_p)
             gx = g_in if gx is None else _accum_grads(gx, g_in)
         return gx, grads
@@ -163,18 +163,18 @@ class ParallelConcat(_Parallel):
     Fire modules and the Inception modules. Each branch's backward gets its
     own channel slice of gy, a strided view."""
 
-    def fwd(self, q: QTensor):
-        outs, ress = self._fwd_branches(q)
+    def fwd(self, q: QTensor, group=None):
+        outs, ress = self._fwd_branches(q, group)
         y, e = elt_ops.concat_int8([o.data for o in outs], [o.exp for o in outs])
         return QTensor(y, e), (ress, tuple(o.data.shape[-1] for o in outs))
 
-    def bwd(self, res, gy):
+    def bwd(self, res, gy, group=None):
         ress, sizes = res
         gys, off = [], 0
         for c in sizes:
             gys.append(gy[..., off:off + c])
             off += c
-        return self._bwd_branches(ress, gys)
+        return self._bwd_branches(ress, gys, group)
 
 
 class ParallelAdd(_Parallel):
@@ -189,15 +189,15 @@ class ParallelAdd(_Parallel):
             raise ValueError("ParallelAdd needs >= 2 branches")
         super().__init__(branches)
 
-    def fwd(self, q: QTensor):
-        outs, ress = self._fwd_branches(q)
+    def fwd(self, q: QTensor, group=None):
+        outs, ress = self._fwd_branches(q, group)
         y, e = outs[0].data, outs[0].exp
         for o in outs[1:]:
-            y, e = elt_ops.add_int8(y, e, o.data, o.exp)
+            y, e = elt_ops.add_int8(y, e, o.data, o.exp, group=group)
         return QTensor(y, e), ress
 
-    def bwd(self, res, gy):
-        return self._bwd_branches(res, [gy] * len(self.branches))
+    def bwd(self, res, gy, group=None):
+        return self._bwd_branches(res, [gy] * len(self.branches), group)
 
 
 class ResidualBlock(NITILayer):
@@ -211,13 +211,13 @@ class ResidualBlock(NITILayer):
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         self.branch.reset_parameters(generator)
 
-    def fwd(self, q: QTensor):
-        out, res = self.branch.fwd(q)
-        y, e = elt_ops.add_int8(out.data, out.exp, q.data, q.exp)
+    def fwd(self, q: QTensor, group=None):
+        out, res = self.branch.fwd(q, group)
+        y, e = elt_ops.add_int8(out.data, out.exp, q.data, q.exp, group=group)
         return QTensor(y, e), res
 
-    def bwd(self, res, gy):
-        g_branch_in, grads = self.branch.bwd(res, gy)
+    def bwd(self, res, gy, group=None):
+        g_branch_in, grads = self.branch.bwd(res, gy, group)
         return _accum_grads(g_branch_in, gy), grads
 
 
@@ -238,14 +238,14 @@ class ProjectedResidualBlock(NITILayer):
         self.branch.reset_parameters(generator)
         self.proj.reset_parameters(generator)
 
-    def fwd(self, q: QTensor):
-        out, res_b = self.branch.fwd(q)
-        skip, res_p = self.proj.fwd(q)
-        y, e = elt_ops.add_int8(out.data, out.exp, skip.data, skip.exp)
+    def fwd(self, q: QTensor, group=None):
+        out, res_b = self.branch.fwd(q, group)
+        skip, res_p = self.proj.fwd(q, group)
+        y, e = elt_ops.add_int8(out.data, out.exp, skip.data, skip.exp, group=group)
         return QTensor(y, e), (res_b, res_p)
 
-    def bwd(self, res, gy):
+    def bwd(self, res, gy, group=None):
         res_b, res_p = res
-        g_in_b, g_branch = self.branch.bwd(res_b, gy)
-        g_in_p, g_proj = self.proj.bwd(res_p, gy)
+        g_in_b, g_branch = self.branch.bwd(res_b, gy, group)
+        g_in_p, g_proj = self.proj.bwd(res_p, gy, group)
         return _accum_grads(g_in_b, g_in_p), {"branch": g_branch, "proj": g_proj}

@@ -73,10 +73,10 @@ class NITIConv2D(NITILayer):
     def weight_numpy(self) -> Tuple[np.ndarray, np.ndarray]:
         return self.w.cpu().numpy(), self.w_exp.cpu().numpy()
 
-    def fwd(self, q: QTensor):
+    def fwd(self, q: QTensor, group=None):
         y, y_exp = conv_ops.conv2d_forward(
             q.data, q.exp, self.w, self.w_exp, self.stride, self.padding,
-            act=self.act, out_bits=self.out_bits,
+            act=self.act, out_bits=self.out_bits, group=group,
         )
         # residual: the forward input (for the filter grad); with a fused
         # act, also the output and its exponent (for the output mask)
@@ -92,37 +92,56 @@ class NITIConv2D(NITILayer):
             return x, relu_ops.relu6_grad_from_output(y, y_exp, gy)
         raise ValueError(f"unknown act {self.act!r}")
 
-    def _filter_grad(self, x, gy):
-        gw = conv_ops.conv2d_filter_grad(x, gy, self.kernel, self.stride, self.padding)
+    def _filter_grad(self, x, gy, group):
+        gw = conv_ops.conv2d_filter_grad(x, gy, self.kernel, self.stride, self.padding,
+                                         group=group)
         return {"w": QTensor(gw, torch.zeros((), dtype=torch.int32, device=gw.device))}
 
-    def bwd(self, res, gy):
-        x, gy = self._unpack(res, gy)
-        gx = conv_ops.conv2d_input_grad(
-            gy, self.w, (x.shape[1], x.shape[2]), self.stride, self.padding)
-        return gx, self._filter_grad(x, gy)
+    def _input_grad(self, x, gy, group):
+        return conv_ops.conv2d_input_grad(
+            gy, self.w, (x.shape[1], x.shape[2]), self.stride, self.padding, group=group)
 
-    def bwd_params_only(self, res, gy):
+    def bwd(self, res, gy, group=None):
         x, gy = self._unpack(res, gy)
-        return self._filter_grad(x, gy)
+        return self._input_grad(x, gy, group), self._filter_grad(x, gy, group)
+
+    def bwd_params_only(self, res, gy, group=None):
+        x, gy = self._unpack(res, gy)
+        return self._filter_grad(x, gy, group)
+
+    # The int32 accumulator before its requant, for exact gradient sums over
+    # pipeline microbatches (JAX `nn/layers.py:100-125`; the reference's
+    # split-batch gradient contract: one shift over the whole batch).
+    @property
+    def grad_margin(self) -> int:
+        """The filter-grad requant margin of the deferred (pipeline) requant:
+        the global knob, so GPipe matches the single step under a recipe."""
+        return conv_ops.get_fgrad_margin()
+
+    def bwd_acc(self, res, gy, group=None, need_input_grad=True):
+        """(input grad or None, {"w": int32 filter-grad accumulator})."""
+        x, gy = self._unpack(res, gy)
+        gx = self._input_grad(x, gy, group) if need_input_grad else None
+        return gx, {"w": conv_ops.conv2d_filter_grad_acc(x, gy, self.kernel, self.stride,
+                                                          self.padding)}
 
 
 class NITIRelu(NITILayer):
-    def fwd(self, q: QTensor):
+    def fwd(self, q: QTensor, group=None):
         return QTensor(relu_ops.relu(q.data), q.exp), q.data
 
-    def bwd(self, res, gy):
+    def bwd(self, res, gy, group=None):
         return relu_ops.relu_grad(res, gy), ()
 
 
 class NITIRelu6(NITILayer):
     """Exponent-aware int8 ReLU6; its residual is the output."""
 
-    def fwd(self, q: QTensor):
+    def fwd(self, q: QTensor, group=None):
         y = relu_ops.relu6(q.data, q.exp)
         return QTensor(y, q.exp), (y, q.exp)
 
-    def bwd(self, res, gy):
+    def bwd(self, res, gy, group=None):
         y, exp = res
         return relu_ops.relu6_grad_from_output(y, exp, gy), ()
 
@@ -133,11 +152,11 @@ class NITIMaxPool(NITILayer):
         self.window = tuple(window)
         self.stride = tuple(stride)
 
-    def fwd(self, q: QTensor):
+    def fwd(self, q: QTensor, group=None):
         y, e = pool_ops.maxpool2d(q.data, q.exp, self.window, self.stride)
         return QTensor(y, e), (q.data, y)
 
-    def bwd(self, res, gy):
+    def bwd(self, res, gy, group=None):
         x, y = res
         return pool_ops.maxpool2d_grad(x, y, gy, self.window, self.stride), ()
 
@@ -146,20 +165,20 @@ class Flatten(NITILayer):
     """(B, H, W, C) -> (B, 1, 1, H*W*C), NHWC feature order (the JAX
     package's; an NCHW flatten would permute the fc1 inputs)."""
 
-    def fwd(self, q: QTensor):
+    def fwd(self, q: QTensor, group=None):
         b = q.data.shape[0]
         return QTensor(q.data.reshape(b, 1, 1, -1), q.exp), q.data.shape
 
-    def bwd(self, res, gy):
+    def bwd(self, res, gy, group=None):
         return gy.reshape(res), ()
 
 
 class SqueezeLogits(NITILayer):
     """(B, 1, 1, C) -> (B, C) for the loss; the grad restores the shape."""
 
-    def fwd(self, q: QTensor):
+    def fwd(self, q: QTensor, group=None):
         b = q.data.shape[0]
         return QTensor(q.data.reshape(b, -1), q.exp), q.data.shape
 
-    def bwd(self, res, gy):
+    def bwd(self, res, gy, group=None):
         return gy.reshape(res), ()

@@ -10,6 +10,10 @@ and parameter grads), and `Sequential` composes them.
 PyTorch idiom inside: layers are `nn.Module`s that hold their int8 weights
 as buffers, where the JAX package threads a params pytree. The grads keep
 the JAX structure: one entry per layer, {"w": QTensor} or ().
+
+Where the JAX package threads a mesh `axis_name` through `fwd` and `bwd`,
+the port threads a ``torch.distributed`` process group, `group`, with the
+same default (None: one replica); every op below takes it as `group=`.
 """
 
 from __future__ import annotations
@@ -31,16 +35,16 @@ class NITILayer(nn.Module):
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         """Draw the layer's weights (the JAX `init`); none by default."""
 
-    def fwd(self, q: QTensor) -> Tuple[QTensor, Residuals]:
+    def fwd(self, q: QTensor, group=None) -> Tuple[QTensor, Residuals]:
         raise NotImplementedError
 
-    def bwd(self, res: Residuals, gy: torch.Tensor) -> Tuple[torch.Tensor, Grads]:
+    def bwd(self, res: Residuals, gy: torch.Tensor, group=None) -> Tuple[torch.Tensor, Grads]:
         raise NotImplementedError
 
-    def bwd_params_only(self, res: Residuals, gy: torch.Tensor) -> Grads:
+    def bwd_params_only(self, res: Residuals, gy: torch.Tensor, group=None) -> Grads:
         """Parameter gradients without the input gradient (the model's first
         layer never needs one). Default: the full backward."""
-        _, grads = self.bwd(res, gy)
+        _, grads = self.bwd(res, gy, group)
         return grads
 
 
@@ -57,15 +61,15 @@ class Sequential(nn.Module):
             layer.reset_parameters(generator)
         return self
 
-    def fwd(self, q: QTensor) -> Tuple[QTensor, List[Residuals]]:
+    def fwd(self, q: QTensor, group=None) -> Tuple[QTensor, List[Residuals]]:
         residuals = []
         for layer in self.layers:
-            q, r = layer.fwd(q)
+            q, r = layer.fwd(q, group)
             residuals.append(r)
         return q, residuals
 
     def bwd(
-        self, residuals: List[Residuals], gy: torch.Tensor,
+        self, residuals: List[Residuals], gy: torch.Tensor, group=None,
         need_input_grad: bool = True,
     ) -> Tuple[Optional[torch.Tensor], List[Grads]]:
         """Reverse sweep. With need_input_grad=False the first layer's input
@@ -74,7 +78,7 @@ class Sequential(nn.Module):
         grads: List[Grads] = [None] * len(self.layers)
         for i in range(len(self.layers) - 1, -1, -1):
             if i == 0 and not need_input_grad:
-                grads[0] = self.layers[0].bwd_params_only(residuals[0], gy)
+                grads[0] = self.layers[0].bwd_params_only(residuals[0], gy, group)
                 return None, grads
-            gy, grads[i] = self.layers[i].bwd(residuals[i], gy)
+            gy, grads[i] = self.layers[i].bwd(residuals[i], gy, group)
         return gy, grads

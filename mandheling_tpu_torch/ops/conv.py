@@ -14,6 +14,12 @@ accumulator then never reaches device memory): a 1x1 conv through the
 two-phase fused matmul K2 when `fused_matmul_int8.supports` takes it, and,
 in fused mode "all", any other conv through the fused conv K3 when
 `fused_conv_int8.supports` takes it.
+
+With a replica `group` (a ``torch.distributed`` process group, where the
+JAX package passes `axis_name`), every range estimate takes the maximum
+over the group, between the fused kernels' two phases on the fused routes,
+and the filter-grad accumulators are summed over it before their shift
+(ops/allreduce.py), so data-parallel steps give the single replica's bytes.
 """
 
 from __future__ import annotations
@@ -99,12 +105,13 @@ def conv2d_int8_acc(x: torch.Tensor, w: torch.Tensor,
 
 
 def _fused_conv_requant(
-    x: torch.Tensor, w: torch.Tensor, stride: Tuple[int, int], pad: Pads,
+    x: torch.Tensor, w: torch.Tensor, stride: Tuple[int, int], pad: Pads, group=None,
 ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
     """The conv through a two-phase fused kernel, forward requant semantics
     -> (int8 y, eff_shift), or None when no fused kernel takes the shape. In
     the JAX package's order: a 1x1 conv goes to K2; any other conv, in mode
-    "all" only, to K3."""
+    "all" only, to K3. The maximum over `group` sits between the phases
+    (JAX `ops/conv.py:248-294`)."""
     if _FUSED_CONV_MODE == "off":
         return None
     kh, kw, ic, oc = w.shape
@@ -114,7 +121,7 @@ def _fused_conv_requant(
         wp = x.shape[2] + pad[1][0] + pad[1][1]
         if not _fconv.supports(w.shape, wp, stride):
             return None
-        m = _fconv.conv_max(x, w, pad, stride)
+        m = allreduce.maybe_pmax(_fconv.conv_max(x, w, pad, stride), group)
         eff_shift = numerics.forward_shift(numerics.range_estimate_from_max(m))
         return _fconv.conv_requant(x, w, eff_shift, pad, stride, grad=False), eff_shift
     x = pad_hw(x, pad)
@@ -126,7 +133,7 @@ def _fused_conv_requant(
         return None
     a2 = x.reshape(b * h * w_sp, ic)
     w2 = w.reshape(ic, oc)
-    m = _fmm.matmul_max(a2, w2)
+    m = allreduce.maybe_pmax(_fmm.matmul_max(a2, w2), group)
     eff_shift = numerics.forward_shift(numerics.range_estimate_from_max(m))
     y = _fmm.matmul_requant(a2, w2, eff_shift, grad=False)
     return y.reshape(b, h, w_sp, oc), eff_shift
@@ -153,6 +160,7 @@ def conv2d_forward(
     padding="VALID",
     act: Optional[str] = None,
     out_bits: int = 7,
+    group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """NITI int8 conv forward -> (int8 y, int32 exp_out), exp_out = x_exp +
     w_exp + shift from the range estimate of the accumulator
@@ -161,13 +169,13 @@ def conv2d_forward(
     exp_in = x_exp.to(torch.int32) + w_exp.to(torch.int32)
     if _fused_enabled() and out_bits == 7 and x.dtype == torch.int8:
         pad = resolve_padding(padding, w.shape[:2], stride, x.shape[1:3])
-        fused = _fused_conv_requant(x, w, tuple(stride), pad)
+        fused = _fused_conv_requant(x, w, tuple(stride), pad, group)
         if fused is not None:
             y, eff_shift = fused
             e = exp_in + eff_shift
             return _apply_act(y, e, act), e
     acc = conv2d_int8_acc(x, w, stride, padding)
-    bw = numerics.range_estimate_from_max(torch.abs(acc).amax())
+    bw = numerics.range_estimate_from_max(allreduce.maybe_pmax(torch.abs(acc).amax(), group))
     y, e = numerics.requant_forward_from_bw(acc, exp_in, bw, out_bits)
     return _apply_act(y, e, act), e
 
@@ -207,7 +215,7 @@ def conv2d_input_grad_acc(
 
 def conv2d_input_grad(
     gy: torch.Tensor, w: torch.Tensor, x_spatial: Tuple[int, int],
-    stride: Sequence[int] = (1, 1), padding="VALID",
+    stride: Sequence[int] = (1, 1), padding="VALID", group=None,
 ) -> torch.Tensor:
     """int8 input gradient with the forward-style bw-7 requant
     (NITI_DeConv_Int8.cpp:294-318). Under the "cuda" backend a shape a
@@ -217,11 +225,11 @@ def conv2d_input_grad(
         pad = _input_grad_pads(w.shape, x_spatial, gy.shape[1:3], stride, padding)
         if min(pad[0] + pad[1]) >= 0:
             fused = _fused_conv_requant(_dilate_hw(gy, *stride), _rot180_io(w),
-                                        (1, 1), pad)
+                                        (1, 1), pad, group)
             if fused is not None:
                 return fused[0]
     acc = conv2d_input_grad_acc(gy, w, x_spatial, stride, padding)
-    bw = numerics.range_estimate_from_max(torch.abs(acc).amax())
+    bw = numerics.range_estimate_from_max(allreduce.maybe_pmax(torch.abs(acc).amax(), group))
     out, _ = numerics.requant_forward_from_bw(acc, _zero_exp(acc), bw)
     return out
 
@@ -260,8 +268,10 @@ def get_fgrad_margin() -> int:
 
 def conv2d_filter_grad(
     x: torch.Tensor, gy: torch.Tensor, kernel_spatial: Tuple[int, int],
-    stride: Sequence[int] = (1, 1), padding="VALID",
+    stride: Sequence[int] = (1, 1), padding="VALID", group=None,
 ) -> torch.Tensor:
-    """int8 filter gradient with the bw - margin shift; all-zero stays zero."""
+    """int8 filter gradient with the bw - margin shift; all-zero stays zero.
+    With `group`, the accumulators combine over it first, by the selected
+    allreduce mode (ops/allreduce.py)."""
     acc = conv2d_filter_grad_acc(x, gy, kernel_spatial, stride, padding)
-    return allreduce.grad_allreduce_requant(acc, None, margin=_FGRAD_MARGIN)
+    return allreduce.grad_allreduce_requant(acc, group, margin=_FGRAD_MARGIN)

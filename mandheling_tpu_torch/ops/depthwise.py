@@ -30,6 +30,10 @@ bw-7, filter grad at bw - margin, the shared code of ops/numerics.py.
 - A per-channel exponent vector (``nn/init.niti_xavier_int8_dw_per_channel``)
   is aligned to the smallest channel exponent by shifts capped by
   :func:`pc_shift_cap`.
+- With a replica `group` (JAX's `axis_name`), the forward and input-grad
+  range estimates take the maximum over it, between K4's two phases on the
+  fused route, and the filter grad hands K5's int32 accumulator and the
+  per-channel shift to ops/allreduce.py, which sums over the group first.
 """
 
 from __future__ import annotations
@@ -131,14 +135,15 @@ def dwconv2d_int8_acc(x: torch.Tensor, w: torch.Tensor,
 
 def _fused_dw_requant(x: torch.Tensor, w: torch.Tensor, pad: Pads,
                       dilation: Tuple[int, int] = (1, 1),
-                      pc_shift: Optional[torch.Tensor] = None, rot180: bool = False
-                      ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+                      pc_shift: Optional[torch.Tensor] = None, rot180: bool = False,
+                      group=None) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
     """The stride-1 depthwise conv of x, padded by `pad` after zero-dilation
     by `dilation`, with w (rotated by 180 degrees if `rot180`), each channel's
     accumulator shifted left by `pc_shift`, through the two-phase fused
     kernel K4, forward requant -> (int8 y, eff_shift); or None where
     `supports` refuses the padded, dilated shape, as the JAX package's rule
-    does."""
+    does. The maximum over `group` sits between the phases (JAX
+    `ops/depthwise.py:83-108`)."""
     if get_fused_conv_mode() == "off":
         return None
     kh, kw, _, c = w.shape
@@ -149,7 +154,7 @@ def _fused_dw_requant(x: torch.Tensor, w: torch.Tensor, pad: Pads,
     if not _fdw.supports(b, hp, wp, hp - kh + 1, wp - kw + 1, c):
         return None
     k4 = dict(pads=pad, dilation=dilation, pc_shift=pc_shift, rot180=rot180)
-    m = _fdw.dwconv_max(x, w, **k4)
+    m = allreduce.maybe_pmax(_fdw.dwconv_max(x, w, **k4), group)
     eff_shift = numerics.forward_shift(numerics.range_estimate_from_max(m))
     return _fdw.dwconv_requant(x, w, eff_shift, False, **k4), eff_shift
 
@@ -162,13 +167,14 @@ def dwconv2d_forward(
     stride: Sequence[int] = (1, 1),
     padding="SAME",
     act: Optional[str] = None,
+    group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """NITI int8 depthwise forward -> (int8 y, int32 exp_out)."""
     e_base, pc_shift = _per_channel_shifts(w_exp, w.shape[0] * w.shape[1])
     exp_in = x_exp.to(torch.int32) + e_base
     if _fused_enabled() and tuple(stride) == (1, 1):
         pad = resolve_padding(padding, w.shape[:2], stride, x.shape[1:3])
-        fused = _fused_dw_requant(x, w, pad, pc_shift=pc_shift)
+        fused = _fused_dw_requant(x, w, pad, pc_shift=pc_shift, group=group)
         if fused is not None:
             y, eff_shift = fused
             e = exp_in + eff_shift
@@ -176,7 +182,7 @@ def dwconv2d_forward(
     acc = dwconv2d_int8_acc(x, w, stride, padding)
     if pc_shift is not None:
         acc = acc << pc_shift
-    bw = numerics.range_estimate_from_max(numerics.abs_max(acc))
+    bw = numerics.range_estimate_from_max(allreduce.maybe_pmax(numerics.abs_max(acc), group))
     y, e = numerics.requant_forward_from_bw(acc, exp_in, bw)
     return _apply_act(y, e, act), e
 
@@ -188,6 +194,7 @@ def dwconv2d_input_grad(
     stride: Sequence[int] = (1, 1),
     padding="SAME",
     w_exp: Optional[torch.Tensor] = None,
+    group=None,
 ) -> torch.Tensor:
     """Transposed depthwise conv with rot180 weights (no io swap: one in,
     one out per channel) on the zero-dilated gy, bw-7 requant. A
@@ -200,11 +207,11 @@ def dwconv2d_input_grad(
     pad = _input_grad_pads(w.shape, x_spatial, gy.shape[1:3], tuple(stride), padding)
     if _fused_enabled() and min(pad[0] + pad[1]) >= 0:
         fused = _fused_dw_requant(gy, w, pad, dilation=tuple(stride), pc_shift=pc_shift,
-                                  rot180=True)
+                                  rot180=True, group=group)
         if fused is not None:
             return fused[0]
     acc = _fdw.dwconv_shifted_acc_plain(gy, w, pad, tuple(stride), pc_shift, rot180=True)
-    bw = numerics.range_estimate_from_max(numerics.abs_max(acc))
+    bw = numerics.range_estimate_from_max(allreduce.maybe_pmax(numerics.abs_max(acc), group))
     out, _ = numerics.requant_forward_from_bw(acc, torch.zeros_like(bw), bw)
     return out
 
@@ -234,18 +241,20 @@ def dwconv2d_filter_grad(
     stride: Sequence[int] = (1, 1),
     padding="SAME",
     w_exp: Optional[torch.Tensor] = None,
+    group=None,
 ) -> torch.Tensor:
     """int8 depthwise filter grad with the bw - margin shift. A per-channel
     `w_exp` expresses the accumulator (value units, uniform across channels)
     in each channel's own data units by a truncating right shift of
-    exp_c - min exp_c before the per-tensor requant."""
+    exp_c - min exp_c before the per-tensor requant; with `group`, after
+    the accumulators' sum over it (JAX `ops/depthwise.py:341-392`)."""
     kh, kw = kernel_spatial
     acc = dwconv2d_filter_grad_acc(x, gy, kernel_spatial, stride, padding)
     pc_shift = None
     if w_exp is not None and w_exp.dim() > 0:
         _, pc_vec = _per_channel_shifts(w_exp, kh * kw)
         pc_shift = pc_vec.reshape(1, 1, 1, -1)
-    return allreduce.grad_allreduce_requant(acc, None, margin=_DW_FGRAD_MARGIN,
+    return allreduce.grad_allreduce_requant(acc, group, margin=_DW_FGRAD_MARGIN,
                                             pc_shift=pc_shift)
 
 

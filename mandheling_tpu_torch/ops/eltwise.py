@@ -5,6 +5,16 @@ the channel concat (port of ``mandheling_tpu/ops/eltwise.py``; reference
 Operands with different exponents are aligned to the larger one by a
 truncating right shift before the int32 add; the sum is then requantized
 forward-style, so everything stays power-of-two.
+
+With a replica `group`, the add's range estimate is the maximum over the
+group, as every forward requant's is, so a data-parallel residual net gives
+the single process's bytes. This departs from the JAX package on purpose:
+its `add_int8` takes no `axis_name` and estimates on the replica's shard
+alone, so where the shards' bitwidths differ, the port's data-parallel
+residual net is NOT byte-equal to the JAX package's data-parallel step
+(which then also parts from its own single chip; ROADMAP Queue 3). The
+group max costs one collective an add a step, counted under the site
+"add" (`allreduce.collective_sites`).
 """
 
 from __future__ import annotations
@@ -14,12 +24,12 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from . import numerics
+from . import allreduce, numerics
 
 
 def add_int8(
     a: torch.Tensor, a_exp: torch.Tensor, b: torch.Tensor, b_exp: torch.Tensor,
-    out_bits: Optional[int] = None,
+    out_bits: Optional[int] = None, group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exponent-aligned integer residual add -> (intN, exp_out): align to
     max(a_exp, b_exp) by x >> (max_exp - x_exp), add in int32, forward
@@ -30,7 +40,9 @@ def add_int8(
     b_exp = b_exp.to(torch.int32)
     e = torch.maximum(a_exp, b_exp)
     acc = numerics.trunc_shift_div(a, e - a_exp) + numerics.trunc_shift_div(b, e - b_exp)
-    return numerics.requant_forward(acc, e, out_bits)
+    m = allreduce.maybe_pmax(numerics.abs_max(acc), group, "add")
+    bw = numerics.range_estimate_from_max(m)
+    return numerics.requant_forward_from_bw(acc, e, bw, out_bits)
 
 
 def pad_int8(x: torch.Tensor, pad: int) -> torch.Tensor:

@@ -6,12 +6,14 @@ on CUDA tensors), then either the FC-gradient requant (range estimate, psto
 shift by bw - 3, an all-zero accumulator gives zeros) or the forward
 requant (bw - 7 with the forward shift's branch rules). The JAX package
 recomputes the accumulator behind an optimization barrier for large
-outputs, which only schedules memory; the port computes it once.
+outputs, which only schedules memory; the port computes it once. With a
+replica `group`, the gradient sums over it before its shift and the forward
+takes the maximum over it (JAX `ops/matmul.py:29-51`).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 
@@ -24,21 +26,16 @@ def matmul_int8_acc(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return dispatch.matmul_acc(a, b)
 
 
-def matmul_int8_grad(a: torch.Tensor, b: torch.Tensor,
-                     axis_name: Optional[str] = None) -> torch.Tensor:
+def matmul_int8_grad(a: torch.Tensor, b: torch.Tensor, group=None) -> torch.Tensor:
     """int8 GEMM + bw-3 psto requant (NITI_Matmul_Int8.cpp:219-231)."""
-    return allreduce.grad_allreduce_requant(matmul_int8_acc(a, b), axis_name, margin=3)
+    return allreduce.grad_allreduce_requant(matmul_int8_acc(a, b), group, margin=3)
 
 
 def matmul_int8_forward(a: torch.Tensor, a_exp: torch.Tensor, b: torch.Tensor,
-                        b_exp: torch.Tensor,
-                        axis_name: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+                        b_exp: torch.Tensor, group=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward-style requant of an int8 GEMM -> (int8 (M, N), int32 exp_out):
-    the matmul analog of conv2d_forward. Only the single-replica path
-    (`axis_name` None) is ported."""
-    if axis_name is not None:
-        raise NotImplementedError("cross-replica maxima are not ported yet")
+    the matmul analog of conv2d_forward."""
     acc = matmul_int8_acc(a, b)
-    bw = numerics.range_estimate_from_max(numerics.abs_max(acc))
+    bw = numerics.range_estimate_from_max(allreduce.maybe_pmax(numerics.abs_max(acc), group))
     exp_in = a_exp.to(torch.int32) + b_exp.to(torch.int32)
     return numerics.requant_forward_from_bw(acc, exp_in, bw)

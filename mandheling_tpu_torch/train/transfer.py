@@ -15,10 +15,12 @@ from __future__ import annotations
 from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..nn.layers import NITIConv2D, SqueezeLogits
 from ..nn.module import Sequential
+from ..ops import allreduce
 from ..ops.loss import loss_cross_entropy_float, loss_grad_int8
 from ..ops.qtensor import QTensor
 from .optim import niti_sgd_update
@@ -50,14 +52,14 @@ class TransferModel(nn.Module):
         self.head.reset_parameters(generator)
         return self
 
-    def extract(self, q: QTensor) -> QTensor:
+    def extract(self, q: QTensor, group=None) -> QTensor:
         """The frozen forward: each layer's residuals are dropped at once."""
         for layer in self.features.layers:
-            q, _ = layer.fwd(q)
+            q, _ = layer.fwd(q, group)
         return q
 
-    def fwd(self, q: QTensor):
-        return self.head.fwd(self.extract(q))
+    def fwd(self, q: QTensor, group=None):
+        return self.head.fwd(self.extract(q, group), group)
 
 
 def transfer_from(full: Sequential, num_classes: int = 10) -> TransferModel:
@@ -73,19 +75,23 @@ def transfer_from(full: Sequential, num_classes: int = 10) -> TransferModel:
     return TransferModel(Sequential(list(full.layers[:split])), head)
 
 
-def make_transfer_train_step(model: TransferModel):
+def make_transfer_train_step(model: TransferModel, group=None):
     """train_step(x_float, onehot) -> loss (0-d float32), updating the head's
     weights in place (MobilenetV2Utils::train, `demo/MobilenetV2Utils.cpp:78-100`,
     with the NITI integer update). The backward stops at the head, and skips
     the head's input grad, which nothing reads (under jit the JAX package's
-    is dead code that XLA drops): the weights get the same bytes."""
+    is dead code that XLA drops): the weights get the same bytes. With
+    `group`, as make_train_step's, but the loss is the group's mean (JAX's
+    `pmean`, `train/transfer.py:77-78`)."""
 
     def step(x: torch.Tensor, onehot: torch.Tensor) -> torch.Tensor:
-        data, ascale = quantize_batch(x)
-        logits, residuals = model.fwd(QTensor(data, ascale))
+        data, ascale = quantize_batch(x, group)
+        logits, residuals = model.fwd(QTensor(data, ascale), group)
         loss = loss_cross_entropy_float(logits.data, logits.exp, onehot)
+        if group is not None:
+            loss = allreduce.psum(loss, group) / float(dist.get_world_size(group))
         g = loss_grad_int8(logits.data, logits.exp, onehot)
-        _, grads = model.head.bwd(residuals, g, need_input_grad=False)
+        _, grads = model.head.bwd(residuals, g, group, need_input_grad=False)
         niti_sgd_update(model.head, grads)
         return loss
 

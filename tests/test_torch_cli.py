@@ -29,7 +29,7 @@ PORTED = {"MnistTrain", "NITIInt8Train", "NITIDSPInt8Train", "MnistTrainSnapshot
           "MobilenetV2Train", "MobilenetV1Train", "DataLoaderDemo", "NnGradTest",
           "LinearRegression", "MnistInt8Train", "DistillTrainQuant", "MobilenetV2Transfer",
           "QuanByMSE", "OnnxImportTrain", "TfImportTrain", "CaffeImportTrain",
-          "TFLiteImportTrain"}
+          "TFLiteImportTrain", "DistributedNITITrain", "PipelineNITITrain", "GPipeLeNetTrain"}
 
 
 @pytest.fixture(autouse=True)

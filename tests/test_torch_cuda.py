@@ -728,3 +728,119 @@ def test_imported_resnet18_step_matches_plain(gen):
         assert all(np.array_equal(a, b) for a, b in zip(runs[0][0], other[0]))
         assert runs[0][1:3] == other[1:3]
     assert runs[0][3] == runs[2][3] > 0 and runs[1][3] == 0
+
+
+def _ranks_ready():
+    """The kernels built in this process, before ranks that share the card
+    start and load them."""
+    from mandheling_tpu_torch.ops.kernels import build
+
+    build.build_all()
+
+
+def _lenet_start():
+    from mandheling_tpu_torch.models import lenet_niti
+    from mandheling_tpu_torch.utils.jax_params import export_jax_params
+
+    return export_jax_params(lenet_niti().reset_parameters(torch.Generator().manual_seed(0)))
+
+
+def _same_weights(a, b):
+    import numpy as np
+
+    from mandheling_tpu_torch.utils.jax_params import flat_weights
+
+    fa, fb = flat_weights(a), flat_weights(b)
+    return len(fa) == len(fb) and all(np.array_equal(x, y) for x, y in zip(fa, fb))
+
+
+def test_dp_lenet_two_ranks_on_the_card_match_one_process(gen):
+    """Two gloo ranks on cuda:0, each with half of a global batch of 128, two
+    train steps and one eval step through the kernels: the single process's
+    weights, losses and count, and each rank launches K1 as one process at
+    batch 64 does (11 a train step, 4 an eval step)."""
+    import numpy as np
+
+    from mandheling_tpu_torch.data import onehot_padded, synthetic_mnist
+    from mandheling_tpu_torch.models import lenet_niti
+    from mandheling_tpu_torch.parallel import distributed, runs
+
+    _ranks_ready()
+    x, y = synthetic_mnist(384, seed=3)
+    spec = dict(model=lenet_niti(), params=_lenet_start(), device="cuda",
+                batches=[(x[i:i + 128].astype(np.float32), onehot_padded(y[i:i + 128], 10, 12))
+                         for i in (0, 128)],
+                eval=(x[256:].astype(np.float32), y[256:].astype(np.int64)))
+    ranks = distributed.run_local(2, runs.dp_steps, spec, timeout_s=300)
+    one = runs.dp_steps(dict(spec, world=0))
+    for r in ranks:
+        assert _same_weights(r["params"], one["params"])
+        assert max(abs(a - b) for a, b in zip(r["losses"], one["losses"])) < 1e-5
+        assert r["correct"] == one["correct"]
+        assert r["launches"]["matmul_int8"] == 2 * 11 + 4
+
+
+@pytest.mark.parametrize("op,x_shape,w_shape,per_channel", [
+    ("conv", (64, 12, 12, 20), (5, 5, 20, 52), False),   # LeNet conv2: K3
+    ("conv", (128, 32, 32, 3), (3, 3, 3, 32), False),    # MobileNetV2 stem: K3
+    ("dw", (128, 32, 32, 32), (3, 3, 1, 32), False),     # MobileNetV2 depthwise: K4
+    ("dw", (128, 16, 16, 96), (3, 3, 1, 96), True),      # the recipe's per-channel form
+])
+def test_group_max_between_fused_phases_matches_plain(gen, op, x_shape, w_shape, per_channel):
+    """A forward in fused mode "all" over two gloo ranks on cuda:0, each with
+    half of the batch: the fused kernel's phase 1, the maximum over the
+    group, phase 2; against the plain versions under the same group and
+    against one process on the whole batch."""
+    import numpy as np
+
+    from mandheling_tpu_torch.ops import conv as conv_ops
+    from mandheling_tpu_torch.ops import depthwise as dw_ops
+    from mandheling_tpu_torch.parallel import distributed
+    from torch_rank_workers import op_rows
+
+    _ranks_ready()
+    rng = np.random.default_rng(sum(x_shape))
+    x = rng.integers(-128, 128, x_shape).astype(np.int8)
+    x[:x_shape[0] // 2] //= 32  # the first rank's rows alone would take a smaller shift
+    w = rng.integers(-128, 128, w_shape).astype(np.int8)
+    w_exp = (rng.integers(-9, -5, w_shape[-1]) if per_channel else np.int64(-7)).astype(np.int32)
+    x_exp = np.int32(-3)
+    fn = conv_ops.conv2d_forward if op == "conv" else dw_ops.dwconv2d_forward
+    spec = dict(op=fn, args=[x, x_exp, w, w_exp], kwargs=dict(padding="SAME"), device="cuda",
+                mode="all")
+    got = {b: distributed.run_local(2, op_rows, dict(spec, backend=b), timeout_s=300)
+           for b in ("cuda", "torch")}
+    fused = "fused_conv_max" if op == "conv" else "fused_dwconv_max"
+    assert all(r["launches"][fused] == 1 for r in got["cuda"])
+    assert all(not any(r["launches"].values()) for r in got["torch"])
+    one = fn(*(torch.as_tensor(a).cuda() for a in (x, x_exp, w, w_exp)), padding="SAME")
+    for b in ("cuda", "torch"):
+        y = np.concatenate([r["out"][0] for r in got[b]])
+        assert np.array_equal(y, one[0].cpu().numpy()), b
+        assert all(int(r["out"][1]) == int(one[1]) for r in got[b]), b
+
+
+def test_gpipe_two_stages_on_the_card_match_one_process(gen):
+    """GPipe LeNet over two gloo ranks on cuda:0 at one microbatch (the
+    stage boundary crosses as host copies by send / recv): the single
+    process's train step on the same batch, byte for byte; each stage
+    launches K1."""
+    import numpy as np
+
+    from mandheling_tpu_torch.data import onehot_padded, synthetic_mnist
+    from mandheling_tpu_torch.models import lenet_niti
+    from mandheling_tpu_torch.parallel import distributed, quantize_microbatches, runs
+
+    _ranks_ready()
+    x, y = synthetic_mnist(64, seed=5)
+    xf, oh = x.astype(np.float32), onehot_padded(y, 10, 12)
+    x_d, x_e = quantize_microbatches(torch.from_numpy(xf), 1)
+    spec = dict(model=lenet_niti(), params=_lenet_start(), device="cuda", mb_shape=(64, 28, 28, 1),
+                n_stages=2, n_microbatches=1, microbatches=[(x_d.numpy(), x_e.numpy(), oh[None])])
+    stages = distributed.run_local(2, runs.gpipe_steps, spec, timeout_s=300)
+    one = runs.dp_steps(dict(model=lenet_niti(), params=_lenet_start(), device="cuda",
+                             batches=[(xf, oh)], world=0))
+    got = [p for r in sorted(stages, key=lambda r: r["coords"]["pipe"]) for p in r["params"]]
+    assert _same_weights(got, one["params"])
+    assert all(abs(r["losses"][0] - one["losses"][0]) < 1e-5 for r in stages)
+    assert all(r["launches"]["matmul_int8"] > 0 for r in stages)

@@ -109,11 +109,27 @@ def test_matmul_ops_byte_equal(m, k, n, backend):
 
 
 def test_matmul_grad_all_zero_and_cross_replica():
+    """An all-zero grad stays zero; the forward over a group of two gloo
+    ranks, each with its rows, takes the maximum over both: the single
+    process's bytes (JAX `ops/matmul.py:50-51`)."""
+    from mandheling_tpu_torch.parallel import distributed
+    from torch_rank_workers import op_rows
+
     a = torch.zeros((4, 8), dtype=torch.int8)
     b = torch.ones((8, 3), dtype=torch.int8)
     assert not tmatmul.matmul_int8_grad(a, b).any()
-    with pytest.raises(NotImplementedError):
-        tmatmul.matmul_int8_forward(a, torch.tensor(0), b, torch.tensor(0), axis_name="data")
+    rng = np.random.default_rng(6)
+    a = rng.integers(-128, 128, (8, 40)).astype(np.int8)
+    b = rng.integers(-128, 128, (40, 6)).astype(np.int8)
+    a[5], b[:, 0] = -128, -128  # the largest |acc|, on rank 1 only
+    e = np.int32(-3)
+    got = distributed.run_local(2, op_rows, dict(op=tmatmul.matmul_int8_forward,
+                                               args=[a, e, b, e]), timeout_s=60, threads=1)
+    y, ye = tmatmul.matmul_int8_forward(*(torch.as_tensor(v) for v in (a, e, b, e)))
+    np.testing.assert_array_equal(np.concatenate([r["out"][0] for r in got]), y.numpy())
+    assert [int(r["out"][1]) for r in got] == [int(ye)] * 2
+    alone = tmatmul.matmul_int8_forward(*(torch.as_tensor(v) for v in (a[:4], e, b, e)))
+    assert int(alone[1]) != int(ye)  # rank 0 alone would shift less
 
 
 def test_losses_match_jax_in_float64():

@@ -2,9 +2,9 @@
 chip_smoke.py, tools/profile_torch_step.py, the demo CLI
 tools/run_train_demo_torch.py, the training gate tools/test_train_torch.py,
 the importer and converter CLIs tools/import_model_torch.py and
-tools/convert_torch.py and the probe tools/probes/dot_probe_torch.py,
-imports jax or anything of the JAX package (not even a module there that
-uses no jax)."""
+tools/convert_torch.py, the probe tools/probes/dot_probe_torch.py and the
+parallel tests' rank workers tests/torch_rank_workers.py, imports jax or
+anything of the JAX package (not even a module there that uses no jax)."""
 
 import ast
 from pathlib import Path
@@ -16,7 +16,7 @@ FILES = sorted((ROOT / "mandheling_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_step.py",
     ROOT / "tools" / "run_train_demo_torch.py", ROOT / "tools" / "test_train_torch.py",
     ROOT / "tools" / "import_model_torch.py", ROOT / "tools" / "convert_torch.py",
-    ROOT / "tools" / "probes" / "dot_probe_torch.py"]
+    ROOT / "tools" / "probes" / "dot_probe_torch.py", ROOT / "tests" / "torch_rank_workers.py"]
 FORBIDDEN = ("jax", "jaxlib", "mandheling_tpu")
 
 
@@ -55,7 +55,9 @@ def test_guard_sees_the_package():
                    "utils/onnx_io.py", "utils/onnx_proto/onnx_subset_pb2.py",
                    "utils/tf_graphdef.py", "utils/graph_import.py", "utils/tflite_model.py",
                    "utils/onnx_model.py", "utils/tf_model.py", "utils/caffe_model.py",
-                   "utils/convert.py"):
+                   "utils/convert.py", "parallel/mesh.py", "parallel/sharded_step.py",
+                   "parallel/distributed.py", "parallel/tp.py", "parallel/pp.py",
+                   "parallel/pp_general.py", "parallel/runs.py"):
         assert module in names
 
 

@@ -18,6 +18,9 @@ The same demo names, arguments and printed lines as tools/run_train_demo.py
     python tools/run_train_demo_torch.py TFLiteImportTrain  [mnist_root] [--epochs N]
     python tools/run_train_demo_torch.py MobilenetV2Train   [cifar_root] [--epochs N]
     python tools/run_train_demo_torch.py MobilenetV1Train   [cifar_root] [--epochs N]
+    python -m torch.distributed.run --nproc-per-node N tools/run_train_demo_torch.py \
+        DistributedNITITrain | PipelineNITITrain | GPipeLeNetTrain [mnist_root] [--epochs N] \
+        [--params F]
     python tools/run_train_demo_torch.py NnGradTest
     python tools/run_train_demo_torch.py DataLoaderDemo     [mnist_root]
     python tools/run_train_demo_torch.py LinearRegression
@@ -31,6 +34,13 @@ QuanByMSE (a root of image files) read images with PIL or the native
 decoder, on the host. The four import demos build a model file in memory,
 import it as a trainable NITI model and train it a few steps. It imports
 nothing of JAX or of the JAX package.
+
+The three parallel demos run one rank a process of a `torchrun` launch
+(`torch.distributed.run`, gloo; on one GPU every rank shares the card), or
+as one process without it, as the JAX demos run on one device; rank 0
+prints. `--params F` starts them from a JAX-layout checkpoint (the JAX
+demos' `jax.random` draw, which torch cannot repeat); without it the
+weights come from torch's generator at seed 0.
 """
 
 import argparse
@@ -56,7 +66,7 @@ def _data(root, synth_n=8192):
     train = load_or_synthesize(root, train=True, synth_n=synth_n)
     test = load_or_synthesize(root, train=False, synth_n=synth_n)
     if not train[2]:
-        print("(no MNIST idx files found — using synthetic dataset)")
+        _say("(no MNIST idx files found — using synthetic dataset)")
     return (train[0], train[1]), (test[0], test[1])
 
 
@@ -542,6 +552,137 @@ def tflite_import_train(args):
     _train_imported(args, model)
 
 
+def _say(*args):
+    """print, on rank 0 only."""
+    from mandheling_tpu_torch.parallel import distributed
+
+    if distributed.process_index() == 0:
+        print(*args, flush=True)
+
+
+def _start(args, model):
+    """`model` on the run's device, from --params or torch's seed 0."""
+    from mandheling_tpu_torch.device import resolve_device
+    from mandheling_tpu_torch.utils.checkpoint import load_checkpoint
+    from mandheling_tpu_torch.utils.jax_params import export_jax_params, load_jax_params
+
+    if args.params:
+        load_jax_params(model, load_checkpoint(args.params, export_jax_params(model))[0])
+    else:
+        _seeded(model, 0)
+    device = resolve_device(args.device)
+    return model.to(device), device
+
+
+@demo("DistributedNITITrain")
+def distributed_niti_train(args):
+    """Data-parallel NITI training over the processes of the launch (JAX:
+    over all devices): the global batch is 64 a process."""
+    import numpy as np
+    import torch
+
+    from mandheling_tpu_torch.data import DataLoader, onehot_padded
+    from mandheling_tpu_torch.models import NITI_LOGIT_CHANNELS, lenet_niti
+    from mandheling_tpu_torch.parallel import (data_mesh, distributed, make_dp_eval_step,
+                                               make_dp_train_step, replicate, shard_batch)
+
+    distributed.initialize()
+    n = distributed.process_count()
+    mesh = data_mesh(n)
+    _say(f"mesh: {n} devices, data-parallel")
+    (x, y), (xt, yt) = _data(args.root)
+    model, device = _start(args, lenet_niti())
+    replicate(mesh, model)
+    step = make_dp_train_step(model, mesh)
+    evals = make_dp_eval_step(model, mesh)
+    batch = 64 * n
+    dl = DataLoader(x, y, batch, seed=0)
+    for epoch in range(args.epochs):
+        loss = None
+        for bx, by in dl.epoch():
+            oh = onehot_padded(by, 10, NITI_LOGIT_CHANNELS)
+            loss = step(*(t.to(device) for t in shard_batch(mesh, bx, oh)))
+        nt = (len(xt) // batch) * batch
+        correct = 0
+        for i in range(0, nt, batch):
+            xs, ys = shard_batch(mesh, xt[i:i + batch].astype(np.float32),
+                                 yt[i:i + batch].astype(np.int64))
+            correct += int(evals(xs.to(device), ys.to(device)))
+        _say(f"epoch {epoch}: loss {float(loss):.4f} test_acc {correct / max(nt, 1):.4f}")
+
+
+def _pipe_stages(n: int) -> int:
+    stages = 4 if n >= 4 else (2 if n >= 2 else 1)
+    if stages != n:
+        raise SystemExit(f"the pipeline demos run on 1, 2 or 4 processes, not {n}")
+    return stages
+
+
+@demo("PipelineNITITrain")
+def pipeline_niti_train(args):
+    """GPipe NITI training over the processes of the launch (stages 4, 2 or
+    1): the homogeneous block stack, 4 microbatches x 64."""
+    import numpy as np
+    import torch
+
+    from mandheling_tpu_torch.data import onehot_padded
+    from mandheling_tpu_torch.parallel import (GPipePlan, distributed, homogeneous_blocks,
+                                               make_gpipe_train_step, pipe_mesh,
+                                               quantize_microbatches)
+
+    distributed.initialize()
+    stages = _pipe_stages(distributed.process_count())
+    channels, blocks, micro, mb = 32, 2 * max(stages, 1), 4, 64
+    mesh = pipe_mesh(n_stages=stages)
+    _say(f"mesh: {stages} pipeline stages, {blocks} blocks, {micro} microbatches x {mb}")
+    model, device = _start(args, homogeneous_blocks(blocks, channels))
+    plan = GPipePlan(model, (mb, 1, 1, channels), n_stages=stages)
+    step = make_gpipe_train_step(plan, mesh, n_microbatches=micro)
+    rng = np.random.default_rng(0)
+    wstar = rng.normal(0, 1, (channels, 10))
+    for it in range(args.epochs * 8):
+        xf = rng.normal(0, 1, (micro * mb, 1, 1, channels)).astype(np.float32)
+        labels = np.argmax(xf.reshape(-1, channels) @ wstar, axis=1)
+        oh = onehot_padded(labels, 10, channels).reshape(micro, mb, channels)
+        x_d, x_e = quantize_microbatches(torch.from_numpy(xf).to(device), micro)
+        loss = step(x_d, x_e, torch.from_numpy(oh).to(device))
+        if it % 8 == 0:
+            _say(f"iter {it}: loss {float(loss):.4f}")
+    _say(f"final loss: {float(loss):.4f}")
+
+
+@demo("GPipeLeNetTrain")
+def gpipe_lenet_train(args):
+    """General pipeline parallelism: the NITI LeNet staged over the
+    processes of the launch (heterogeneous stages), 2 microbatches x 32."""
+    import numpy as np
+    import torch
+
+    from mandheling_tpu_torch.data import onehot_padded
+    from mandheling_tpu_torch.models import NITI_LOGIT_CHANNELS, lenet_niti
+    from mandheling_tpu_torch.parallel import (GPipePlan, distributed, make_gpipe_train_step,
+                                               pipe_mesh, quantize_microbatches)
+
+    distributed.initialize()
+    stages = _pipe_stages(distributed.process_count())
+    micro, mb = 2, 32
+    mesh = pipe_mesh(n_stages=stages)
+    model, device = _start(args, lenet_niti())
+    plan = GPipePlan(model, (mb, 28, 28, 1), n_stages=stages)
+    _say(f"mesh: {stages} stages, layer bounds {plan.bounds}, {micro} microbatches x {mb}")
+    step = make_gpipe_train_step(plan, mesh, n_microbatches=micro)
+    (x, y), _ = _data(args.root)
+    for it in range(args.epochs * 8):
+        i0 = (it * micro * mb) % (len(x) - micro * mb)
+        xf = torch.from_numpy(x[i0:i0 + micro * mb].astype(np.float32)).to(device)
+        oh = onehot_padded(y[i0:i0 + micro * mb], 10, NITI_LOGIT_CHANNELS)
+        x_d, x_e = quantize_microbatches(xf, micro)
+        loss = step(x_d, x_e, torch.from_numpy(oh).to(device).reshape(micro, mb, -1))
+        if it % 8 == 0:
+            _say(f"iter {it}: loss {float(loss):.4f}")
+    _say(f"final loss: {float(loss):.4f}")
+
+
 @demo("NnGradTest")
 def nn_grad_test(args):
     """Gradient correctness check (reference nnGradTest.cpp / DEBUG_GRAD
@@ -632,13 +773,21 @@ def main(argv=None):
                         help="label txt for MobilenetV2Transfer's ImageDataset")
     parser.add_argument("--device", default=None,
                         help="torch device; default: the GPU (cpu: the plain versions, for tests)")
+    parser.add_argument("--params", default=None,
+                        help="the parallel demos' start: a JAX-layout checkpoint")
     args = parser.parse_args(argv)
     if not args.demo:
         print("available demos:")
         for name in sorted(DEMOS):
             print(" ", name)
         return
-    DEMOS[args.demo](args)
+    try:
+        DEMOS[args.demo](args)
+    finally:
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

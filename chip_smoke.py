@@ -141,7 +141,23 @@ raises on failure (the script then exits non-zero and prints no result):
    to the CPU gloo run. Each DP rank's launches are one process's at its
    local batch (EXPECTED_PER_STEP); one line a run gives each rank's wall ms
    a step, its collectives a step and their host ms, and its launches;
-17. one JSON line listing every kernel, then the result line.
+17. the compiled step (train/step_graph.py): `jit_train_step` /
+   `jit_eval_step` (the transfer steps through `compile_step`), each step a
+   CUDA graph captured at its first call and replayed, against the eager
+   steps at full width: NITI LeNet b64 and b2048, MobileNetV2 b256
+   per-tensor and the r5 recipe, ResNet-18 b256 in "matmul_only" and "all",
+   Inception-v3 b32 at 299 (1000 classes) in both modes, MobilenetV2Transfer
+   b256: 20 train steps and 2 eval steps each way from the same params on
+   the same batches, params, losses and counts byte-identical, 2 compiled
+   steps byte-identical to 2 of the plain versions on the card, every
+   replayed step's launches the EXPECTED_PER_STEP rows, ms per step eager
+   and replayed in turns (A B B A); ResNet18FP32 b256 through
+   `train_fp32_bn`'s float step (its lr a 0-d tensor), bitwise or within
+   1e-5 (printed which); `train_niti` for 2 epochs of LeNet through the
+   graphs against the eager loop (its jit steps swapped for the eager
+   ones), the same log lines and params. One line a configuration; each one's graphs are freed before the
+   next;
+18. one JSON line listing every kernel, then the result line.
 
 If a phase fails, the script prints `chip_smoke: failed in phase N (...)`
 on standard output (phase 0 is the imports) and the exception propagates:
@@ -170,6 +186,7 @@ import copy
 import functools
 import importlib.util
 import io
+import itertools
 import json
 import re
 import statistics
@@ -214,11 +231,14 @@ from mandheling_tpu_torch.ops.kernels import (build, fused_conv_int8, fused_dwco
 from mandheling_tpu_torch.parallel import distributed, quantize_microbatches, tp
 from mandheling_tpu_torch.parallel import runs as runs_mod
 from mandheling_tpu_torch.data.loader import onehot_padded
-from mandheling_tpu_torch.train import make_eval_step, make_train_step
-from mandheling_tpu_torch.train.optim import lr_inv
+from mandheling_tpu_torch.train import (jit_eval_step, jit_train_step, make_eval_step,
+                                        make_train_step, step_graph)
+from mandheling_tpu_torch.train.optim import lr_inv, sgd_init
 from mandheling_tpu_torch.train.qat_train import (make_distill_step, make_qat_train_step,
                                                   make_teacher_step)
-from mandheling_tpu_torch.train.trainer import train_fp32_bn, train_niti
+from mandheling_tpu_torch.train import trainer as trainer_mod
+from mandheling_tpu_torch.train.trainer import (full_float32, make_float_eval_step,
+                                                make_float_step, train_fp32_bn, train_niti)
 from mandheling_tpu_torch.train.transfer import (TransferModel, make_transfer_eval_step,
                                                  make_transfer_train_step, transfer_from)
 from mandheling_tpu_torch.utils.checkpoint import load_checkpoint
@@ -580,10 +600,33 @@ RECORD_K4 = {"K4": (fused_dwconv_int8, "dwconv_max_cuda", k4_key)}
 RECORD_K5 = {"K5": (fused_dwconv_int8, "dwconv_fgrad_acc_cuda", k5_key)}
 
 
+class RecordingHook:
+    """The replay hook (train/step_graph.py) of a recording: a capture's
+    calls are taken back, and added again at every replay of its graph."""
+
+    def __init__(self, seen):
+        self.seen = seen
+
+    def begin(self):
+        return {label: collections.Counter(c) for label, c in self.seen.items()}
+
+    def end(self, before):
+        made = {label: self.seen[label] - before[label] for label in self.seen}
+        for label, c in self.seen.items():
+            c.clear()
+            c.update(before[label])
+        return made
+
+    def replay(self, made):
+        for label, c in made.items():
+            self.seen[label].update(c)
+
+
 @contextlib.contextmanager
 def recording(spec):
     """Count the calls of each function of `spec` ({label: (module, name,
-    key)}) while inside, by key(*args), into one Counter per label."""
+    key)}) while inside, by key(*args), into one Counter per label; a
+    compiled step's replays count the calls of its capture."""
     seen = {label: collections.Counter() for label in spec}
     reals = {label: getattr(mod, name) for label, (mod, name, _) in spec.items()}
     for label, (mod, name, key) in spec.items():
@@ -592,7 +635,8 @@ def recording(spec):
             return _real(*args, **kwargs)
         setattr(mod, name, counted)
     try:
-        yield seen
+        with step_graph.replay_hook(RecordingHook(seen)):
+            yield seen
     finally:
         for label, (mod, name, _) in spec.items():
             setattr(mod, name, reals[label])
@@ -1955,6 +1999,277 @@ def parallel_phase(card, lenet_start, recipe_start):
     return summary, launches
 
 
+GRAPH_STEPS = 20
+
+
+def graph_data(batch, side, channels, classes, logits, seed, n=GRAPH_STEPS):
+    """n seeded batches of integer pixels at (batch, side, side, channels),
+    made on the card, their one-hot labels (`classes` in `logits`
+    channels), and one more batch and its labels for the eval steps."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    xs = [torch.randint(0, 256, (batch, side, side, channels), generator=gen, device="cuda")
+          .to(torch.float32) for _ in range(n + 1)]
+    ys = np.random.default_rng(seed).integers(0, classes, (n + 1, batch))
+    ohs = [torch.from_numpy(onehot_padded(y, classes, logits)).cuda() for y in ys[:n]]
+    return xs[:n], ohs, xs[n], torch.from_numpy(ys[n].astype(np.int64)).cuda()
+
+
+def snapshot(model):
+    return [t.detach().clone() for t in itertools.chain(model.parameters(), model.buffers())]
+
+
+def same_bytes(a, b) -> bool:
+    return len(a) == len(b) and all(x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a, b))
+
+
+def in_turns(calls, steps, args):
+    """ms per step of each (name, step) of `calls`, in turns A B B A: the
+    step called `steps` times back to back on `args` (cycled), synchronised
+    at both ends, on the host clock."""
+    out = collections.defaultdict(list)
+    for name, step in calls + calls[::-1]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(steps):
+            step(*args[i % len(args)])
+        torch.cuda.synchronize()
+        out[name].append((time.perf_counter() - t0) * 1e3 / steps)
+    return dict(out)
+
+
+def niti_steps(model, classes, compiled, kind):
+    """(train step, eval step) of a NITI model or a TransferModel, eager or
+    compiled (jit_train_step / jit_eval_step; the transfer steps through
+    compile_step, as the JAX demo jits them)."""
+    if kind == "transfer":
+        steps = (make_transfer_train_step(model), make_transfer_eval_step(model, classes))
+        return tuple(step_graph.compile_step(s, "cuda") for s in steps) if compiled else steps
+    if compiled:
+        return jit_train_step(model), jit_eval_step(model, classes)
+    return make_train_step(model), make_eval_step(model, classes)
+
+
+def compiled_niti(label, key, make_model, data, classes=NUM_CLASSES, kind="niti",
+                  recipe=False, timing_steps=10):
+    """Phase 17 for one NITI configuration: GRAPH_STEPS train steps and two
+    eval steps eager and compiled (the first call of each the warm-up and
+    capture, the rest replays) from the same params on the same batches:
+    params (all of the model's tensors), losses and correct counts
+    byte-identical; the compiled run after 2 steps (one replay) byte-
+    identical to 2 steps of the plain versions on the card; every replayed
+    step's launches, by family, the EXPECTED_PER_STEP rows; then ms per
+    step in turns. -> (the line's dict, the replays' launches)."""
+    _, batch, mode = key
+    xs, ohs, xe, ye = data
+    margins = dw_ops.recipe_margins() if recipe else contextlib.nullcontext()
+    with use_fused_conv_mode(mode), margins:
+        eager = make_model().to("cuda")
+        step_e, eval_e = niti_steps(eager, classes, False, kind)
+        losses_e = [float(step_e(x, oh)) for x, oh in zip(xs, ohs)]
+        correct_e = [int(eval_e(xe, ye)) for _ in range(2)]
+
+        model = make_model().to("cuda")
+        step, evals = niti_steps(model, classes, True, kind)
+        kernels.reset_launch_counts()
+        losses = []
+        for i, (x, oh) in enumerate(zip(xs, ohs)):
+            if i == 1:  # the replays from here on
+                torch.cuda.synchronize()
+                kernels.reset_launch_counts()
+            losses.append(step(x, oh))
+            if i == 1:
+                after_two = snapshot(model)
+        torch.cuda.synchronize()
+        replays = kernels.launch_counts()
+        train_launches = family_counts(replays)
+        correct = [int(evals(xe, ye))]
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        correct.append(int(evals(xe, ye)))
+        torch.cuda.synchronize()
+        eval_counts = kernels.launch_counts()
+        eval_launches = family_counts(eval_counts)
+        kernels.reset_launch_counts()
+        losses = [float(v) for v in losses]
+
+        plain = make_model().to("cuda")
+        step_p, _ = niti_steps(plain, classes, False, kind)
+        with kernels.use_backend("torch"):
+            for x, oh in zip(xs[:2], ohs[:2]):
+                step_p(x, oh)
+        if any(kernels.launch_counts().values()):
+            raise AssertionError(f"{label}: the plain versions launched kernels")
+        if not same_bytes(snapshot(model), snapshot(eager)) or losses != losses_e \
+                or correct != correct_e:
+            raise AssertionError(f"{label}: the replayed steps differ from the eager ones "
+                                 f"(losses {losses} vs {losses_e}, correct {correct} vs "
+                                 f"{correct_e})")
+        if not same_bytes(after_two, snapshot(plain)):
+            raise AssertionError(f"{label}: 2 compiled steps differ from the plain versions'")
+        if not all(np.isfinite(losses)) or same_bytes(snapshot(model),
+                                                      snapshot(make_model().to("cuda"))):
+            raise AssertionError(f"{label}: losses {losses}, or the params did not move")
+        per_train, per_eval = EXPECTED_PER_STEP[key]
+        want = {f: (GRAPH_STEPS - 1) * n for f, n in per_train.items()}
+        if train_launches != want or eval_launches != per_eval:
+            raise AssertionError(f"{label}: launches of {GRAPH_STEPS - 1} replayed train steps "
+                                 f"{train_launches} (want {want}), of a replayed eval step "
+                                 f"{eval_launches} (want {per_eval})")
+        if step.graphs != 1 or evals.graphs != 1:
+            raise AssertionError(f"{label}: {step.graphs} train and {evals.graphs} eval graphs")
+        ms = in_turns([("eager", step_e), ("replayed", step)], timing_steps,
+                      list(zip(xs, ohs)))
+    line = dict(config=label, key=list(key), steps=GRAPH_STEPS, byte_identical=True,
+                plain_two_steps_byte_identical=True, losses_first_last=[losses[0], losses[-1]],
+                correct=correct, launches_per_replayed_train_step={
+                    f: n // (GRAPH_STEPS - 1) for f, n in train_launches.items()},
+                launches_per_replayed_eval_step=eval_launches,
+                ms_per_step_in_turns=ms, timing_steps=timing_steps)
+    print(f"  [phase 17] {json.dumps(line)}", flush=True)
+    del eager, model, plain, step_e, eval_e, step, evals
+    torch.cuda.empty_cache()
+    return line, {k: replays[k] + eval_counts[k] for k in replays}
+
+
+def float_run(cls, data, compiled):
+    """GRAPH_STEPS steps of `train_fp32_bn`'s float step (its lr a 0-d
+    tensor) and two eval steps of a float twin drawn from seed 0, eager or
+    compiled -> (its tensors, losses, correct counts, the train step)."""
+    xs, ohs, lrs, xe, ye = data
+    model = cls().reset_parameters(torch.Generator().manual_seed(0)).to("cuda")
+    params = list(model.parameters())
+    step = make_float_step(model, params, sgd_init(params), training=True)
+    evals = make_float_eval_step(model)
+    if compiled:
+        step, evals = (step_graph.compile_step(f, "cuda") for f in (step, evals))
+    losses = [float(step(x, oh, lr)) for x, oh, lr in zip(xs, ohs, lrs)]
+    return snapshot(model), losses, [int(evals(xe, ye)) for _ in range(2)], step
+
+
+def max_rel_diff(a, b) -> float:
+    """The largest difference of two lists of tensors, each relative to the
+    largest magnitude of b's tensor."""
+    return max(float((x - y).abs().max() / max(float(y.abs().max()), 1e-30))
+               for x, y in zip(a, b))
+
+
+def compiled_float(label, cls, batch, timing_steps=10):
+    """Phase 17 for a float twin, TF32 off: GRAPH_STEPS train steps and two
+    eval steps of `train_fp32_bn`'s float step, eager and compiled, from the
+    same params on the same batches. With cuDNN's default (heuristic)
+    algorithms two eager runs already differ where an algorithm adds in an
+    order that varies (reported beside the compiled run's difference); with
+    `cudnn.deterministic` the compiled run must equal the eager one bitwise,
+    or within 1e-5 of each tensor's largest magnitude (reported which), with
+    equal correct counts. Then ms per step in turns, default algorithms."""
+    xs, ohs, xe, ye = graph_data(batch, 32, 3, NUM_CLASSES, NUM_CLASSES, seed=batch + 1)
+    data = ([x / 127.5 - 1 for x in xs], [oh.to(torch.float32) for oh in ohs],
+            [torch.full((), lr_inv(0.01, it), device="cuda") for it in range(GRAPH_STEPS)],
+            xe / 127.5 - 1, ye)
+    with full_float32():
+        eager, again, graph = (float_run(cls, data, c) for c in (False, False, True))
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            det_eager, det_graph = (float_run(cls, data, c)[:3] for c in (False, True))
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        bitwise = same_bytes(det_eager[0], det_graph[0]) and det_eager[1] == det_graph[1]
+        worst = max_rel_diff(det_graph[0], det_eager[0])
+        if not (bitwise or worst <= 1e-5) or det_eager[2] != det_graph[2] \
+                or not all(np.isfinite(det_graph[1])):
+            raise AssertionError(f"{label}: compiled {worst} from eager under deterministic "
+                                 f"cuDNN (losses {det_graph[1]} vs {det_eager[1]}, correct "
+                                 f"{det_graph[2]} vs {det_eager[2]})")
+        ms = in_turns([("eager", eager[3]), ("replayed", graph[3])], timing_steps,
+                      list(zip(*data[:3])))
+    line = dict(config=label, steps=GRAPH_STEPS, deterministic_cudnn_bitwise_equal=bitwise,
+                deterministic_cudnn_max_rel_diff=worst,
+                default_cudnn_eager_vs_eager_max_rel_diff=max_rel_diff(again[0], eager[0]),
+                default_cudnn_compiled_vs_eager_max_rel_diff=max_rel_diff(graph[0], eager[0]),
+                losses_first_last=[det_graph[1][0], det_graph[1][-1]], correct=det_graph[2],
+                ms_per_step_in_turns=ms, timing_steps=timing_steps)
+    print(f"  [phase 17] {json.dumps(line)}", flush=True)
+    del eager, again, graph
+    torch.cuda.empty_cache()
+    return line
+
+
+def compiled_train_niti():
+    """`train_niti` for 2 epochs of the NITI LeNet at batch 64 through its
+    compiled steps and, its jit steps swapped for the eager ones, through
+    the eager loop, from the same params: the same log lines (but for the
+    timer) and byte-identical params."""
+    train, test = synthetic_mnist(64 * 16, seed=170), synthetic_mnist(64 * 4, seed=171)
+    runs = []
+    for graphs in (True, False):
+        lines = []
+        with contextlib.ExitStack() as stack:
+            if not graphs:
+                stack.enter_context(swapped(trainer_mod, "jit_train_step", make_train_step))
+                stack.enter_context(swapped(trainer_mod, "jit_eval_step", make_eval_step))
+            model, acc = train_niti(train, test, epochs=2, batch=64, seed=3, log=lines.append,
+                                    device="cuda")
+        runs.append((snapshot(model), [ln.split(" [")[0] for ln in lines], acc, lines))
+    if not same_bytes(runs[0][0], runs[1][0]) or runs[0][1:3] != runs[1][1:3]:
+        raise AssertionError(f"train_niti through the graphs {runs[0][3]} != eager {runs[1][3]}")
+    for ln, eager_ln in zip(runs[0][3], runs[1][3]):
+        print(f"  [phase 17, train_niti LeNet b64] graphs: {ln}\n"
+              f"  [phase 17, train_niti LeNet b64] eager:  {eager_ln}", flush=True)
+    return dict(config="train_niti lenet b64 2 epochs", log_lines_equal=True,
+                params_byte_identical=True, graphs=runs[0][3], eager=runs[1][3])
+
+
+@contextlib.contextmanager
+def swapped(module, name, value):
+    """module.name is `value` while inside."""
+    real = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def compiled_phase():
+    """Phase 17: the compiled step (train/step_graph.py) at every
+    configuration, each one's graphs freed before the next -> (the lines,
+    the replays' launches by configuration)."""
+    def seeded(build, **kw):
+        return lambda: build(**kw).reset_parameters(torch.Generator().manual_seed(0))
+
+    configs = [
+        ("lenet b64", ("lenet", 64, "matmul_only"), seeded(lenet_niti), (28, 1), {}),
+        ("lenet b2048", ("lenet", 2048, "matmul_only"), seeded(lenet_niti), (28, 1), {}),
+        ("mnv2 b256", ("mnv2", 256, "matmul_only"), seeded(mobilenet_v2_niti), (32, 3), {}),
+        ("mnv2 recipe b256", ("mnv2pc", 256, "matmul_only"),
+         seeded(mobilenet_v2_niti, dw_per_channel=True), (32, 3), dict(recipe=True)),
+        ("resnet18 b256 matmul_only", ("resnet18", 256, "matmul_only"), seeded(resnet18_niti),
+         (32, 3), {}),
+        ("resnet18 b256 all", ("resnet18", 256, "all"), seeded(resnet18_niti), (32, 3), {}),
+        ("inceptionv3 b32 299 matmul_only", ("inceptionv3", 32, "matmul_only"),
+         seeded(inceptionv3_niti, num_classes=1000), (299, 3),
+         dict(classes=1000, timing_steps=5)),
+        ("inceptionv3 b32 299 all", ("inceptionv3", 32, "all"),
+         seeded(inceptionv3_niti, num_classes=1000), (299, 3),
+         dict(classes=1000, timing_steps=5)),
+        ("mnv2_transfer b256", ("mnv2_transfer", 256, "matmul_only"), mnv2_transfer_model,
+         (32, 3), dict(kind="transfer")),
+    ]
+    lines, launches = [], {}
+    for label, key, make_model, (side, channels), kw in configs:
+        classes = kw.get("classes", NUM_CLASSES)
+        logits = NITI_LOGIT_CHANNELS if classes == NUM_CLASSES else classes
+        data = graph_data(key[1], side, channels, classes, logits, seed=len(lines) + 17)
+        line, launches[f"graph_{label.replace(' ', '_')}"] = compiled_niti(
+            label, key, make_model, data, **kw)
+        lines.append(line)
+        del data
+    lines.append(compiled_float("ResNet18FP32 b256 (train_fp32_bn's step)", ResNet18FP32, 256))
+    lines.append(compiled_train_niti())
+    return lines, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs the GPU", file=sys.stderr)
@@ -2513,7 +2828,12 @@ def main() -> int:
     par_summary, par_launches = parallel_phase(card, start, recipe_start)
     runs.update(par_launches)
 
-    enter("17", "the kernels line")
+    enter("17", "the compiled step: jit_train_step / jit_eval_step (CUDA graphs of the whole "
+          "step, replayed) against the eager steps")
+    graph_lines, graph_launches = compiled_phase()
+    runs.update(graph_launches)
+
+    enter("18", "the kernels line")
     names = list(kernels.launch_counts())
     launches = {n: sum(c[n] for c in runs.values()) for n in names}
     by_run = {n: {r: c[n] for r, c in runs.items()} for n in names}
@@ -2717,6 +3037,7 @@ def main() -> int:
     kernels_line["test_train_torch_resnet18_b64"] = dict(gate, exit=gate_code)
     kernels_line["imported_tflite_b256"] = imported
     kernels_line["parallel_phase16"] = par_summary
+    kernels_line["compiled_step_phase17"] = graph_lines
 
     print(f"done in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card_line())

@@ -1,7 +1,7 @@
 from . import cifar, image, loader, mnist, native
 from .cifar import load_cifar10, load_or_synthesize_cifar, synthetic_cifar
 from .image import ImageConfig, ImageDataset, ImageNoLabelDataset
-from .loader import DataLoader, make_loader, onehot_padded
+from .loader import DataLoader, make_loader, onehot_padded, to_device
 from .mnist import load_mnist, load_or_synthesize, read_idx, synthetic_mnist
 
 __all__ = [
@@ -23,4 +23,5 @@ __all__ = [
     "read_idx",
     "synthetic_cifar",
     "synthetic_mnist",
+    "to_device",
 ]

@@ -1,16 +1,17 @@
 """Batched, shuffled, prefetching data loader (copy of
 ``mandheling_tpu/data/loader.py``): the Python `DataLoader`, and
 `make_loader`, which prefers the native C++ loader of ``data/native.py``
-as the JAX package's does. Batches are host numpy arrays; the trainer moves
-them to the device."""
+as the JAX package's does. Batches are host numpy arrays; `to_device`
+moves them to the device."""
 
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Iterator, Tuple
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
+import torch
 
 
 class DataLoader:
@@ -98,3 +99,19 @@ def onehot_padded(labels: np.ndarray, num_classes: int, width: int) -> np.ndarra
     out = np.zeros((len(labels), width), np.int32)
     out[np.arange(len(labels)), labels] = 1
     return out
+
+
+def to_device(a: np.ndarray, device: torch.device,
+              dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """A host batch as a tensor on `device`, cast to `dtype` on the host.
+    On a CUDA device it is staged in pinned host memory and copied
+    non-blocking, so the copy overlaps the host's next work. The pinned
+    block is not overwritten before its copy has run: torch's host
+    allocator records the copy's event on it and hands the block out again
+    only once that event has passed. On the CPU: the array's tensor."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if dtype is not None:
+        t = t.to(dtype)
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)

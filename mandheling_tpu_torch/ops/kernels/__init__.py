@@ -18,7 +18,7 @@ PyTorch versions, and the backend selector.
 from typing import Dict
 
 from . import (conv_int8, dispatch, fused_conv_int8, fused_dwconv_int8, fused_matmul_int8,
-               matmul_int8)
+               matmul_int8, stream_state)
 from .dispatch import get_backend, set_backend, use_backend
 
 # kernel name -> (module, name of its launch counter)
@@ -46,6 +46,15 @@ def reset_launch_counts() -> None:
         setattr(mod, attr, 0)
 
 
+def add_launch_counts(delta: Dict[str, int]) -> None:
+    """Add `delta` ({kernel name: launches}) to the counts: a replayed CUDA
+    graph adds the launches its capture recorded (train/step_graph.py), so
+    that the counts stay launches executed."""
+    for name, n in delta.items():
+        mod, attr = _COUNTERS[name]
+        setattr(mod, attr, getattr(mod, attr) + n)
+
+
 __all__ = [
     "conv_int8",
     "dispatch",
@@ -53,9 +62,11 @@ __all__ = [
     "fused_dwconv_int8",
     "fused_matmul_int8",
     "matmul_int8",
+    "stream_state",
     "get_backend",
     "set_backend",
     "use_backend",
     "launch_counts",
     "reset_launch_counts",
+    "add_launch_counts",
 ]

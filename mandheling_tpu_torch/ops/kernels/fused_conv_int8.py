@@ -38,6 +38,7 @@ from .. import numerics
 from . import build
 from .conv_int8 import conv_acc
 from .matmul_int8 import matmul_acc_plain
+from .stream_state import per_stream
 
 # Launches of the two CUDA kernels (plain integers; counted where they launch).
 MAX_LAUNCHES = 0
@@ -126,22 +127,30 @@ def kmajor_weight(w: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.
     return out.reshape(oc, kh * r)
 
 
-@functools.lru_cache(maxsize=None)
 def _kmajor_buffer(device: torch.device, stream: int, w_shape) -> torch.Tensor:
     """A zeroed (OC, KH, R) int8 buffer for `kmajor_weight`, one per CUDA
-    stream and weight shape: each call rewrites the same bytes before its
-    launch on that stream, so the run tails stay zero and one copy a call
-    is all the weight costs (a fresh allocation is 16-byte aligned)."""
+    stream and weight shape (stream_state.py): each call rewrites the same
+    bytes before its launch on that stream, so the run tails stay zero and
+    one copy a call is all the weight costs (a fresh allocation is 16-byte
+    aligned)."""
     kh, _, _, oc = w_shape
-    return torch.zeros((oc, kh, run_bytes(w_shape)), dtype=torch.int8, device=device)
+    return per_stream(("fused_conv_kmajor", device, stream, tuple(w_shape)),
+                      lambda: torch.zeros((oc, kh, run_bytes(w_shape)), dtype=torch.int8,
+                                          device=device))
 
 
-@functools.lru_cache(maxsize=None)
+def _make_state(device: torch.device) -> torch.Tensor:
+    state = torch.zeros(2, dtype=torch.int32, device=device)
+    state[0].fill_(-(2**31))
+    return state
+
+
 def _state(device: torch.device, stream: int) -> torch.Tensor:
     """Phase 1's two ints {INT32_MIN, 0} (the running max, the block ticket)
-    for the CUDA stream `stream` of `device`: set once, while that stream is
-    current; every call leaves them so."""
-    return torch.tensor([-(2**31), 0], dtype=torch.int32, device=device)
+    for the CUDA stream `stream` of `device` (stream_state.py): filled on
+    the device once, while that stream is current; every call leaves them
+    so."""
+    return per_stream(("fused_conv_state", device, stream), lambda: _make_state(device))
 
 
 def _geometry(x: torch.Tensor, w: torch.Tensor, pad: Pads, stride):

@@ -62,6 +62,7 @@ import torch
 from .. import numerics
 from . import build
 from .conv_int8 import _dilate_hw, pad_hw
+from .stream_state import per_stream
 
 Pads = Tuple[Tuple[int, int], Tuple[int, int]]
 _NO_PADS: Pads = ((0, 0), (0, 0))
@@ -221,11 +222,12 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-@functools.lru_cache(maxsize=None)
 def _ticket(device: torch.device, stream: int) -> torch.Tensor:
-    """Phase 1's block counter for the CUDA stream `stream` of `device`:
-    zeroed once, while that stream is current; the kernel leaves it at 0."""
-    return torch.zeros((1,), dtype=torch.int32, device=device)
+    """Phase 1's block counter for the CUDA stream `stream` of `device`
+    (stream_state.py): zeroed once, while that stream is current; the
+    kernel leaves it at 0."""
+    return per_stream(("fused_dwconv_ticket", device, stream),
+                      lambda: torch.zeros((1,), dtype=torch.int32, device=device))
 
 
 def dwconv_max_cuda(x: torch.Tensor, w: torch.Tensor, *, pads: Pads = _NO_PADS,
@@ -298,12 +300,12 @@ def _fgrad_lib() -> ctypes.CDLL:
     return lib
 
 
-@functools.lru_cache(maxsize=None)
 def _fgrad_state(device: torch.device, stream: int, taps_c: int, columns: int) -> torch.Tensor:
     """K5's scratch accumulator (taps_c words) and column tickets for the
-    CUDA stream `stream` of `device`: zeroed once, while that stream is
-    current; every call leaves them at 0."""
-    return torch.zeros((taps_c + columns,), dtype=torch.int32, device=device)
+    CUDA stream `stream` of `device` (stream_state.py): zeroed once, while
+    that stream is current; every call leaves them at 0."""
+    return per_stream(("fused_dwconv_fgrad_state", device, stream, taps_c, columns),
+                      lambda: torch.zeros((taps_c + columns,), dtype=torch.int32, device=device))
 
 
 def dwconv_fgrad_acc_cuda(x: torch.Tensor, gy: torch.Tensor, kernel, stride=(1, 1), *,

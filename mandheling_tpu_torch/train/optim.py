@@ -7,7 +7,7 @@ precision; the JAX package computes them in float32."""
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import Dict, List, Sequence, Union
 
 import torch
 
@@ -50,10 +50,16 @@ def sgd_init(params: Sequence[torch.Tensor]) -> List[torch.Tensor]:
 
 @torch.no_grad()
 def sgd_update(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
-               velocity: List[torch.Tensor], lr: float, momentum: float = 0.9,
-               weight_decay: float = 5e-4) -> None:
+               velocity: List[torch.Tensor], lr: Union[float, torch.Tensor],
+               momentum: float = 0.9, weight_decay: float = 5e-4) -> None:
     """Reference float SGD (optimizer/SGD.cpp:79-100): v <- m*v + lr*(g +
-    wd*w); w <- w - v. Updates the parameters and velocities in place."""
+    wd*w); w <- w - v. Updates the parameters and velocities in place.
+
+    `lr` is a Python float or a 0-d tensor of the parameters' dtype on
+    their device: a captured step (step_graph.py) takes it as a tensor, so
+    that its value can change at every replay, as the JAX float step takes
+    it as a traced float32 argument. Both give the same bytes: the float is
+    rounded to the parameters' dtype before it multiplies."""
     for w, g, v in zip(params, grads, velocity):
         v.copy_(momentum * v + lr * (g + weight_decay * w))
         w.sub_(v)

@@ -1,0 +1,183 @@
+"""The compiled step: a whole step function captured as CUDA graphs and
+replayed (the port of `jax.jit` over a step: `jit_train_step` /
+`jit_eval_step`, ``mandheling_tpu/train/train_step.py:118-125``, and the
+trainer's jitted float steps; the reference's `NITIDSPInt8Train` runs one
+prepared DSP graph per iteration).
+
+:func:`compile_step` returns the step itself on the CPU, where it runs
+eagerly (the kernels' plain versions), and a :class:`CompiledStep` on a
+CUDA device:
+
+- One graph per signature: the shapes and dtypes of the arguments, and the
+  dispatch settings a step reads while it is captured (:func:`settings`).
+  A change of any of them captures a new graph; a stale one is never
+  replayed.
+- The first call of a signature is the warm-up: it copies its arguments
+  into new static inputs, runs the step eagerly on the capture stream (the
+  kernels build at first use, and their per-stream state and caches are
+  made there, ``ops/kernels/stream_state.py``), then captures it on that
+  stream, and returns the eager call's result. Every later call copies its
+  arguments into the static inputs and replays the graph on the current
+  stream, and returns a clone of the outputs, which the next replay does
+  not overwrite (as a jitted call returns fresh arrays). Replays run in the
+  order of the stream they are issued on.
+- A graph reads and writes the step's state where it lies: params,
+  optimizer state and running stats are written in place (the JAX step's
+  donated params). A step that replaced them could not be replayed.
+- A capture that fails raises. A CUDA device has no eager fallback.
+- The kernels count their launches in Python (``ops/kernels.launch_counts``),
+  which a replay does not run. The replay hooks (:func:`replay_hook`) make
+  up for it: the launches a capture counted are taken back, and added again
+  at every replay, so the counts stay launches executed.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Any, Callable, Dict, List, Tuple
+
+import torch
+
+from ..ops import conv as conv_ops
+from ..ops import depthwise as dw_ops
+from ..ops import kernels
+
+
+def settings() -> Tuple:
+    """The dispatch settings a step reads at capture time: the kernel
+    backend, the fused conv mode, the dense and depthwise filter-grad
+    margins, and for the float steps TF32 in cuDNN and cuBLAS and cuDNN's
+    deterministic algorithms."""
+    return (kernels.get_backend(), conv_ops.get_fused_conv_mode(), conv_ops.get_fgrad_margin(),
+            dw_ops.get_dw_fgrad_margin(), torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.deterministic)
+
+
+class LaunchCounts:
+    """The replay hook of the kernels' launch counters."""
+
+    def begin(self) -> Dict[str, int]:
+        return kernels.launch_counts()
+
+    def end(self, before: Dict[str, int]) -> Dict[str, int]:
+        after = kernels.launch_counts()
+        delta = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        kernels.add_launch_counts({k: -n for k, n in delta.items()})
+        return delta
+
+    def replay(self, delta: Dict[str, int]) -> None:
+        kernels.add_launch_counts(delta)
+
+
+_HOOKS: List[Any] = [LaunchCounts()]
+
+
+@contextlib.contextmanager
+def replay_hook(hook):
+    """While inside, `hook` sees every capture and replay: hook.begin()
+    before a capture returns a token; hook.end(token) after it takes back
+    what the capture counted on the host and returns it; hook.replay(that)
+    runs at every replay of that graph while the hook is in place."""
+    _HOOKS.append(hook)
+    try:
+        yield hook
+    finally:
+        _HOOKS.remove(hook)
+
+
+_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+
+def _streams(device: torch.device):
+    """(the current stream, the capture stream) of `device`: one capture
+    stream a device, so the kernels' per-stream state of every graph is
+    made once."""
+    if device not in _STREAMS:
+        _STREAMS[device] = torch.cuda.Stream(device)
+    return torch.cuda.current_stream(device), _STREAMS[device]
+
+
+def _warm_up(stream, fn: Callable, args: Tuple):
+    with torch.cuda.stream(stream):
+        return fn(*args)
+
+
+def _new_graph():
+    return torch.cuda.CUDAGraph()
+
+
+def _capture(graph, stream, fn: Callable, args: Tuple):
+    with torch.cuda.graph(graph, stream=stream):
+        return fn(*args)
+
+
+def _clone(out):
+    if isinstance(out, torch.Tensor):
+        return out.clone()
+    if isinstance(out, (tuple, list)):
+        return type(out)(_clone(o) for o in out)
+    return out
+
+
+class _Graph:
+    """One captured signature: static inputs, the graph, its outputs and
+    what the hooks recorded at its capture."""
+
+    def __init__(self, fn: Callable, args: Tuple, device: torch.device):
+        current, stream = _streams(device)
+        self.inputs = tuple(torch.empty(a.shape, dtype=a.dtype, device=device) for a in args)
+        self._copy_in(args)
+        stream.wait_stream(current)
+        first = _warm_up(stream, fn, self.inputs)
+        tokens = [(hook, hook.begin()) for hook in _HOOKS]
+        self.graph = _new_graph()
+        try:
+            self.outputs = _capture(self.graph, stream, fn, self.inputs)
+        finally:
+            self.recorded = [(hook, hook.end(token)) for hook, token in tokens]
+        current.wait_stream(stream)
+        self.first = _clone(first)
+
+    def _copy_in(self, args: Tuple) -> None:
+        for dst, src in zip(self.inputs, args):
+            dst.copy_(src, non_blocking=True)
+
+    def replay(self, args: Tuple):
+        self._copy_in(args)
+        self.graph.replay()
+        for hook, recorded in self.recorded:
+            if any(h is hook for h in _HOOKS):
+                hook.replay(recorded)
+        return _clone(self.outputs)
+
+
+class CompiledStep:
+    """`fn` captured once per signature on `device` and replayed (see the
+    module docstring). Its arguments are tensors (on the host or the
+    device); it returns what `fn` returns, a tensor or a tuple of them."""
+
+    def __init__(self, fn: Callable, device):
+        self.fn = fn
+        self.device = torch.device(device)
+        self._graphs: Dict[Tuple, _Graph] = {}
+
+    def __call__(self, *args: torch.Tensor):
+        key = tuple((tuple(a.shape), a.dtype) for a in args) + settings()
+        graph = self._graphs.get(key)
+        if graph is None:
+            graph = self._graphs[key] = _Graph(self.fn, args, self.device)
+            out, graph.first = graph.first, None
+            return out
+        return graph.replay(args)
+
+    @property
+    def graphs(self) -> int:
+        """The signatures captured so far."""
+        return len(self._graphs)
+
+
+def compile_step(fn: Callable, device):
+    """`fn` as one device program per signature: a :class:`CompiledStep`
+    on a CUDA device; on the CPU `fn` itself, run eagerly."""
+    device = torch.device(device)
+    return CompiledStep(fn, device) if device.type == "cuda" else fn

@@ -1,7 +1,9 @@
 """The NITI training and eval steps (port of
 ``mandheling_tpu/train/train_step.py``): input quantization, forward,
-explicit backward, integer update. PyTorch runs them eagerly; nothing in a
-step reads a device value on the host.
+explicit backward, integer update. `make_train_step` / `make_eval_step`
+run eagerly; nothing in a step reads a device value on the host, so
+`jit_train_step` / `jit_eval_step` capture the whole step as a CUDA graph
+and replay it (step_graph.py), as the JAX package jits it.
 
 With a replica `group` (a ``torch.distributed`` process group; JAX's
 `axis_name`), the batch statistics, every range estimate, the loss and the
@@ -11,6 +13,7 @@ single process's bytes (JAX `train/train_step.py:31-115`).
 
 from __future__ import annotations
 
+import itertools
 from typing import Tuple
 
 import torch
@@ -21,6 +24,7 @@ from ..ops import allreduce
 from ..ops.loss import loss_cross_entropy_float, loss_grad_int8
 from ..ops.qtensor import QTensor
 from .optim import niti_sgd_update
+from .step_graph import compile_step
 
 
 def det_psum(v: torch.Tensor, group) -> torch.Tensor:
@@ -100,3 +104,34 @@ def make_eval_step(model: Sequential, num_classes: int = 10, group=None):
         return correct if group is None else allreduce.psum(correct, group)
 
     return eval_step
+
+
+def model_device(model: torch.nn.Module) -> torch.device:
+    """The device of the model's weights (the CPU for a model without any)."""
+    for t in itertools.chain(model.buffers(), model.parameters()):
+        return t.device
+    return torch.device("cpu")
+
+
+def _single_chip(name: str, group) -> None:
+    if group is not None:
+        raise ValueError(f"{name} is the single-chip step, as the JAX package's; a step over "
+                         "a replica group runs eagerly (make_train_step / make_eval_step)")
+
+
+def jit_train_step(model: Sequential, group=None):
+    """The compiled train step (JAX `jit_train_step`,
+    `train/train_step.py:118-121`): make_train_step(model) captured as a
+    CUDA graph per input signature on the model's device and replayed, the
+    weights written in place (the JAX step's donated params); on the CPU the
+    eager step itself. Called as the eager step: step(x_float, onehot) ->
+    loss. Single-chip: a `group` raises."""
+    _single_chip("jit_train_step", group)
+    return compile_step(make_train_step(model), model_device(model))
+
+
+def jit_eval_step(model: Sequential, num_classes: int = 10, group=None):
+    """The compiled eval step (JAX `jit_eval_step`): make_eval_step(model,
+    num_classes) as `jit_train_step` compiles the train step."""
+    _single_chip("jit_eval_step", group)
+    return compile_step(make_eval_step(model, num_classes), model_device(model))

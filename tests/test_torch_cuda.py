@@ -7,6 +7,8 @@ port is installed, without the JAX test configuration:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import contextlib
+
 import pytest
 import torch
 
@@ -844,3 +846,155 @@ def test_gpipe_two_stages_on_the_card_match_one_process(gen):
     assert _same_weights(got, one["params"])
     assert all(abs(r["losses"][0] - one["losses"][0]) < 1e-5 for r in stages)
     assert all(r["launches"]["matmul_int8"] > 0 for r in stages)
+
+
+# The compiled step (train/step_graph.py): (model, batch, side, channels, the r5 recipe)
+GRAPH_NETS = {
+    "lenet_b64": ("lenet_niti", 64, 28, 1, False),
+    "mnv2_recipe_b32": ("mobilenet_v2_niti", 32, 32, 3, True),
+    "resnet18_b8": ("resnet18_niti", 8, 32, 3, False),
+}
+
+
+def _graph_batches(batch, side, channels, n, seed=0):
+    """n seeded integer-pixel batches on the card and their padded one-hot
+    labels (10 classes in 12 channels), and eval labels."""
+    import numpy as np
+
+    from mandheling_tpu_torch.data import onehot_padded
+
+    rng = np.random.default_rng(seed)
+    xs = [torch.from_numpy(rng.integers(0, 256, (batch, side, side, channels))
+                           .astype(np.float32)).cuda() for _ in range(n)]
+    ys = rng.integers(0, 10, (n, batch))
+    ohs = [torch.from_numpy(onehot_padded(y, 10, 12)).cuda() for y in ys]
+    return xs, ohs, torch.from_numpy(ys[0]).cuda()
+
+
+def _graph_model(name, recipe):
+    import mandheling_tpu_torch.models as models
+
+    kw = {"dw_per_channel": True} if recipe else {}
+    model = getattr(models, name)(**kw)
+    return model.reset_parameters(torch.Generator().manual_seed(0)).to("cuda")
+
+
+def _run_steps(name, recipe, mode, compiled, xs, ohs, labels):
+    """Train steps on (xs, ohs), then two eval steps, eager or compiled ->
+    (params, losses, correct counts, family launches of each call)."""
+    from mandheling_tpu_torch.ops.conv import use_fused_conv_mode
+    from mandheling_tpu_torch.ops.depthwise import recipe_margins
+    from mandheling_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from mandheling_tpu_torch.train import (jit_eval_step, jit_train_step, make_eval_step,
+                                            make_train_step)
+
+    model = _graph_model(name, recipe)
+    step, evals = ((jit_train_step(model), jit_eval_step(model)) if compiled else
+                   (make_train_step(model), make_eval_step(model)))
+    losses, correct, launches = [], [], []
+    margins = recipe_margins() if recipe else contextlib.nullcontext()
+    with use_fused_conv_mode(mode), margins:
+        for x, oh in zip(xs, ohs):
+            reset_launch_counts()
+            losses.append(step(x, oh))
+            torch.cuda.synchronize()
+            launches.append(launch_counts())
+        for _ in range(2):
+            correct.append(evals(xs[0], labels))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    return ([t.clone() for t in model.buffers()], [float(v) for v in losses],
+            [int(c) for c in correct], launches, step)
+
+
+@pytest.mark.parametrize("mode", ["matmul_only", "all"])
+@pytest.mark.parametrize("net", list(GRAPH_NETS))
+def test_compiled_step_replays_the_eager_bytes(gen, net, mode):
+    """4 train steps (the first the warm-up and capture, then 3 replays) and
+    2 eval steps through jit_train_step / jit_eval_step against the eager
+    steps from the same params on the same batches: params, losses and
+    correct counts byte-identical; every replayed step counts the eager
+    step's launches; the kernels' per-stream state is back at its initial
+    value after the replays."""
+    from mandheling_tpu_torch.ops.kernels import stream_state
+
+    name, batch, side, channels, recipe = GRAPH_NETS[net]
+    xs, ohs, labels = _graph_batches(batch, side, channels, 4)
+    eager = _run_steps(name, recipe, mode, False, xs, ohs, labels)
+    graph = _run_steps(name, recipe, mode, True, xs, ohs, labels)
+    assert all(torch.equal(a, b) for a, b in zip(eager[0], graph[0]))
+    assert eager[1:3] == graph[1:3]
+    assert all(g == eager[3][0] for g in graph[3]) and sum(eager[3][0].values()) > 0
+    assert graph[4].graphs == 1
+    for key, t in stream_state._STATE.items():
+        if key[0] == "fused_conv_state":
+            assert t.tolist() == [-(2**31), 0], key
+        elif key[0] in ("fused_dwconv_ticket", "fused_dwconv_fgrad_state"):
+            assert not bool(t.any()), key
+
+
+def test_compiled_step_captures_a_graph_per_batch_shape(gen):
+    """A second batch shape captures a second graph; each replays its own
+    shape's bytes, as the eager step gives them."""
+    from mandheling_tpu_torch.train import jit_train_step, make_train_step
+
+    runs = []
+    for compiled in (False, True):
+        model = _graph_model("lenet_niti", False)
+        step = jit_train_step(model) if compiled else make_train_step(model)
+        losses = []
+        for batch in (64, 32, 64, 32):
+            xs, ohs, _ = _graph_batches(batch, 28, 1, 1, seed=batch)
+            losses.append(float(step(xs[0], ohs[0])))
+        runs.append(([t.clone() for t in model.buffers()], losses))
+        if compiled:
+            assert step.graphs == 2
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][0], runs[1][0]))
+    assert runs[0][1] == runs[1][1]
+
+
+def test_compiled_step_does_not_replay_a_stale_mode(gen):
+    """Captured under fused mode "matmul_only", then called under "all": a
+    new graph, which launches K3 (the old one launches none), with the eager
+    "all" step's bytes."""
+    from mandheling_tpu_torch.ops.conv import use_fused_conv_mode
+    from mandheling_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from mandheling_tpu_torch.train import jit_train_step, make_train_step
+
+    xs, ohs, _ = _graph_batches(64, 28, 1, 3, seed=1)
+    runs = []
+    for compiled in (False, True):
+        model = _graph_model("lenet_niti", False)
+        step = jit_train_step(model) if compiled else make_train_step(model)
+        k3 = []
+        for x, oh, mode in zip(xs, ohs, ("matmul_only", "all", "all")):
+            reset_launch_counts()
+            with use_fused_conv_mode(mode):
+                step(x, oh)
+            torch.cuda.synchronize()
+            k3.append(launch_counts()["fused_conv_max"])
+        runs.append(([t.clone() for t in model.buffers()], k3))
+        if compiled:
+            assert step.graphs == 2
+    reset_launch_counts()
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][0], runs[1][0]))
+    assert runs[0][1] == runs[1][1] and runs[1][1][0] == 0 and runs[1][1][1] > 0
+
+
+def test_compiled_step_capture_failure_raises(gen):
+    """A step that reads a device value on the host cannot be captured: the
+    call raises, and so does the next, which runs nothing eagerly in its
+    place. The capture stream is usable again afterwards."""
+    from mandheling_tpu_torch.train.step_graph import compile_step
+
+    def step(x):
+        return x * int(x.sum().item())
+
+    compiled = compile_step(step, "cuda")
+    x = torch.ones(4, device="cuda")
+    for _ in range(2):
+        with pytest.raises(RuntimeError):
+            compiled(x)
+    assert compiled.graphs == 0
+    doubled = compile_step(lambda t: 2 * t, "cuda")
+    assert [float(doubled(x + i).sum()) for i in range(3)] == [8.0, 16.0, 24.0]

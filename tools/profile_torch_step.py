@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Where the time of one training step of the PyTorch/CUDA port goes, on the GPU.
 
-    python3 tools/profile_torch_step.py [--model lenet|mnv2|mnv2_transfer|resnet18|squeezenet|inceptionv3]
+    python3 tools/profile_torch_step.py [--model lenet|mnv2|mnv2_transfer|resnet18|resnet18_fp32|squeezenet|inceptionv3]
                                         [--mode matmul_only|all] [--recipe] [--batch 64 2048]
-                                        [--steps 20] [--out PATH]
+                                        [--graph] [--steps 20] [--out PATH]
 
 For each batch size: the NITI train step of mandheling_tpu_torch with the
 hand-written kernels (the step `train_niti` runs, host-to-device copies
@@ -13,10 +13,15 @@ included) for the NITI LeNet on synthetic MNIST (default batches 64 and
 filter-grad margins 0/0, as `MobilenetV2Train` trains it; `mnv2_transfer`:
 the MobilenetV2Transfer step at full width, MobileNetV2 frozen up to its
 global pool and a trained 1280 -> 12 head), the NITI
-ResNet-18 on synthetic CIFAR (default batch 256), or the zoo's NITI
+ResNet-18 on synthetic CIFAR (default batch 256; `resnet18_fp32`: its float
+twin ResNet18FP32 through `train_fp32_bn`'s float step, TF32 off), or the zoo's NITI
 SqueezeNet v1.0 (224x224, default batch 128) and Inception-v3 (299x299,
 default batch 32) with 1000 classes on seeded integer pixels, in fused mode
-`--mode`, timed without tracing, then traced with torch.profiler. Prints
+`--mode`, timed without tracing, then traced with torch.profiler. The
+batches come from pinned host memory, as the trainer's (`to_device`). With
+`--graph` the step is the compiled one (`jit_train_step`, or the transfer
+step through `compile_step`: one CUDA graph, captured at the first step
+and replayed), which `train_niti` runs; without it, the eager step. Prints
 wall ms/step (back to back, and synchronised after each step as the
 trainer's StepTimer does), device busy ms/step (the union of the CUDA activity
 intervals), the device's idle share, CUDA activities and top-level host ops
@@ -45,14 +50,19 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from mandheling_tpu_torch.data import onehot_padded, synthetic_cifar, synthetic_mnist  # noqa: E402
+from mandheling_tpu_torch.data import (onehot_padded, synthetic_cifar, synthetic_mnist,  # noqa: E402
+                                       to_device)
 from mandheling_tpu_torch.models import (NITI_LOGIT_CHANNELS, NUM_CLASSES,  # noqa: E402
-                                         inceptionv3_niti, lenet_niti, mobilenet_v2_niti,
-                                         resnet18_niti, squeezenet_niti)
+                                         ResNet18FP32, inceptionv3_niti, lenet_niti,
+                                         mobilenet_v2_niti, resnet18_niti, squeezenet_niti)
 from mandheling_tpu_torch.ops.conv import use_fused_conv_mode  # noqa: E402
 from mandheling_tpu_torch.ops.depthwise import recipe_margins  # noqa: E402
 from mandheling_tpu_torch.ops.kernels import build  # noqa: E402
 from mandheling_tpu_torch.train import make_train_step  # noqa: E402
+from mandheling_tpu_torch.train.optim import sgd_init  # noqa: E402
+from mandheling_tpu_torch.train.step_graph import compile_step  # noqa: E402
+from mandheling_tpu_torch.train.trainer import (_normalize, full_float32,  # noqa: E402
+                                                make_float_step)
 from mandheling_tpu_torch.train.transfer import make_transfer_train_step, transfer_from  # noqa: E402
 
 def imagenet_like(side: int):
@@ -76,6 +86,7 @@ MODELS = {
     "mnv2": (mobilenet_v2_niti, synthetic_cifar, [256], NUM_CLASSES, NITI_LOGIT_CHANNELS),
     "mnv2_transfer": (mnv2_transfer, synthetic_cifar, [256], NUM_CLASSES, NITI_LOGIT_CHANNELS),
     "resnet18": (resnet18_niti, synthetic_cifar, [256], NUM_CLASSES, NITI_LOGIT_CHANNELS),
+    "resnet18_fp32": (ResNet18FP32, synthetic_cifar, [256], NUM_CLASSES, NUM_CLASSES),
     "squeezenet": (functools.partial(squeezenet_niti, num_classes=1000), imagenet_like(224),
                    [128], 1000, 1000),
     "inceptionv3": (functools.partial(inceptionv3_niti, num_classes=1000), imagenet_like(299),
@@ -95,20 +106,32 @@ def union_us(intervals):
     return total
 
 
-def profile_batch(model_name: str, batch: int, steps: int, recipe: bool = False):
+def profile_batch(model_name: str, batch: int, steps: int, recipe: bool = False,
+                  graph: bool = False):
     build_model, data, _, classes, logits = MODELS[model_name]
     if recipe:
         build_model = functools.partial(build_model, dw_per_channel=True)
     model = build_model().reset_parameters(torch.Generator().manual_seed(0)).to("cuda")
-    step = (make_transfer_train_step if model_name == "mnv2_transfer" else make_train_step)(model)
+    device = torch.device("cuda")
     x, y = data(batch * steps, seed=5)
     xs = [x[i * batch:(i + 1) * batch].astype(np.float32) for i in range(steps)]
     ohs = [onehot_padded(y[i * batch:(i + 1) * batch], classes, logits) for i in range(steps)]
+    extra = ()
+    if model_name == "resnet18_fp32":  # the float loop's step, its lr a 0-d tensor
+        params = list(model.parameters())
+        step = make_float_step(model, params, sgd_init(params), training=True)
+        xs, ohs = [_normalize(x) for x in xs], [oh.astype(np.float32) for oh in ohs]
+        extra = (torch.full((), 0.01, device=device),)
+    else:
+        step = (make_transfer_train_step if model_name == "mnv2_transfer"
+                else make_train_step)(model)
+    if graph:
+        step = compile_step(step, device)
 
     def run(step_times=None):
         for xb, oh in zip(xs, ohs):
             t0 = time.perf_counter()
-            step(torch.from_numpy(xb).to("cuda"), torch.from_numpy(oh).to("cuda"))
+            step(to_device(xb, device), to_device(oh, device), *extra)
             if step_times is not None:  # as train_niti's StepTimer times a step
                 torch.cuda.synchronize()
                 step_times.append((time.perf_counter() - t0) * 1e3)
@@ -144,7 +167,8 @@ def profile_batch(model_name: str, batch: int, steps: int, recipe: bool = False)
     busy_ms = union_us([(e.time_range.start, e.time_range.end) for e in dev]) / 1e3 / steps
     wall_ms = float(np.median(walls))
     res = {
-        "model": model_name, "recipe": recipe, "batch": batch, "steps": steps, "wall_ms_per_step": wall_ms,
+        "model": model_name, "recipe": recipe, "graph": graph, "batch": batch, "steps": steps,
+        "wall_ms_per_step": wall_ms,
         "wall_ms_per_step_runs": walls, "traced_ms_per_step": traced_ms,
         "synced_step_ms_median": float(np.median(synced)),
         "synced_step_ms_quartiles": [float(np.percentile(synced, 25)),
@@ -171,11 +195,13 @@ def main() -> int:
     ap.add_argument("--mode", choices=["matmul_only", "all"], default="matmul_only",
                     help="fused conv mode")
     ap.add_argument("--batch", type=int, nargs="+",
-                    help="batch sizes (default: 64 2048 for lenet, 256 for mnv2, mnv2_transfer and "
-                         "resnet18, "
+                    help="batch sizes (default: 64 2048 for lenet, 256 for mnv2, mnv2_transfer, "
+                         "resnet18 and resnet18_fp32, "
                          "128 for squeezenet, 32 for inceptionv3)")
     ap.add_argument("--recipe", action="store_true",
                     help="mnv2 only: per-channel depthwise exponents and margins 0/0")
+    ap.add_argument("--graph", action="store_true",
+                    help="profile the compiled step (a CUDA graph replayed), as train_niti runs it")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--out", help="write the full table here as JSON")
     args = ap.parse_args()
@@ -187,13 +213,15 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     print(f"card: {card}; torch {torch.__version__}; model {args.model}"
-          f"{' (r5 recipe)' if args.recipe else ''}, fused mode {args.mode}", flush=True)
+          f"{' (r5 recipe)' if args.recipe else ''}, fused mode {args.mode}, "
+          f"{'compiled (CUDA graph)' if args.graph else 'eager'} step", flush=True)
     build.build_all()
     results = []
     for batch in args.batch or MODELS[args.model][2]:
         margins = recipe_margins() if args.recipe else contextlib.nullcontext()
-        with use_fused_conv_mode(args.mode), margins:
-            r = profile_batch(args.model, batch, args.steps, args.recipe)
+        fp32 = full_float32() if args.model == "resnet18_fp32" else contextlib.nullcontext()
+        with use_fused_conv_mode(args.mode), margins, fp32:
+            r = profile_batch(args.model, batch, args.steps, args.recipe, args.graph)
         results.append(r)
         busy = r["device_busy_ms_per_step"]
         print(f"batch {batch}: wall {r['wall_ms_per_step']:.3f} ms/step "
@@ -215,7 +243,7 @@ def main() -> int:
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "torch": torch.__version__, "mode": args.mode,
-                       "recipe": args.recipe,
+                       "recipe": args.recipe, "graph": args.graph,
                        "results": results}, f, indent=1)
     return 0
 

@@ -262,9 +262,10 @@ def mobilenet_v2_transfer(args):
     import numpy as np
     import torch
 
-    from mandheling_tpu_torch.data import DataLoader, onehot_padded
+    from mandheling_tpu_torch.data import DataLoader, onehot_padded, to_device
     from mandheling_tpu_torch.device import resolve_device
     from mandheling_tpu_torch.models import mobilenet_v2_niti
+    from mandheling_tpu_torch.train.step_graph import compile_step
     from mandheling_tpu_torch.train.transfer import (make_transfer_eval_step,
                                                      make_transfer_train_step, transfer_from)
     from mandheling_tpu_torch.utils.checkpoint import load_checkpoint
@@ -300,18 +301,19 @@ def mobilenet_v2_transfer(args):
         y = (rng.integers(0, num_classes, 512)).astype(np.int32)
         print("(no image folder/txt — synthetic data)")
 
-    step = make_transfer_train_step(model)
-    evals = make_transfer_eval_step(model, num_classes)
+    # compiled as the JAX demo jits them (step_graph.py; the head's weights
+    # are written in place, the JAX step's donated params)
+    step = compile_step(make_transfer_train_step(model), device)
+    evals = compile_step(make_transfer_eval_step(model, num_classes), device)
     dl = DataLoader(x, y, 64, seed=0)
     for epoch in range(args.epochs):
         loss = None
         for bx, by in dl.epoch():
             oh = onehot_padded(by, num_classes, logit_width)
-            loss = step(torch.from_numpy(bx).to(device), torch.from_numpy(oh).to(device))
+            loss = step(to_device(bx, device), to_device(oh, device))
         n = (len(x) // 64) * 64
         correct = sum(
-            int(evals(torch.from_numpy(x[i:i + 64]).to(device),
-                      torch.from_numpy(y[i:i + 64]).to(device)))
+            int(evals(to_device(x[i:i + 64], device), to_device(y[i:i + 64], device)))
             for i in range(0, n, 64)
         )
         print(f"epoch {epoch}: loss {float(loss):.4f} "
@@ -389,22 +391,22 @@ def _seeded(model, seed):
 
 def _train_imported(args, model):
     """The import demos' loop: 16 steps an epoch at batch 64 over the MNIST
-    (or synthetic) images in order, the loss printed every 16 steps."""
+    (or synthetic) images in order, the loss printed every 16 steps; the
+    step compiled as the JAX demos jit it (step_graph.py)."""
     import numpy as np
-    import torch
 
-    from mandheling_tpu_torch.data import onehot_padded
+    from mandheling_tpu_torch.data import onehot_padded, to_device
     from mandheling_tpu_torch.device import resolve_device
     from mandheling_tpu_torch.train import make_train_step
+    from mandheling_tpu_torch.train.step_graph import compile_step
 
     device = resolve_device(args.device)
-    step = make_train_step(model)
+    step = compile_step(make_train_step(model), device)
     (x, y), _ = _data(args.root)
     for it in range(args.epochs * 16):
         i0 = (it * 64) % (len(x) - 64)
-        xf = torch.from_numpy(x[i0 : i0 + 64].astype(np.float32)).to(device)
-        oh = torch.from_numpy(onehot_padded(y[i0 : i0 + 64], 10, 12)).to(device)
-        loss = step(xf, oh)
+        loss = step(to_device(x[i0 : i0 + 64].astype(np.float32), device),
+                    to_device(onehot_padded(y[i0 : i0 + 64], 10, 12), device))
         if it % 16 == 0:
             print(f"iter {it}: loss {float(loss):.4f}")
     print(f"final loss: {float(loss):.4f}")

@@ -26,9 +26,11 @@ Config schema (all fields optional), as tools/test_train.py's:
   "dw_fgrad_margin": null        # depthwise filter-grad requant margin
 }
 
-It runs on the GPU; `--device cpu` runs it on the CPU with the kernels'
-plain versions (for tests). The weights are drawn from `seed` by torch's
-generator, which is not jax.random's stream; `--params FILE` starts a NITI
+It runs on the GPU, its step compiled (a CUDA graph replayed,
+train/step_graph.py) as tools/test_train.py jits it; `--device cpu` runs
+it on the CPU with the kernels' plain versions, eagerly (for tests). The
+weights are drawn from `seed` by torch's generator, which is not
+jax.random's stream; `--params FILE` starts a NITI
 model from a checkpoint in the JAX layout instead (either package's
 `save_checkpoint`), so that a run can repeat tools/test_train.py's from the
 JAX package's initial params. The margins are restored after the run. It
@@ -107,21 +109,22 @@ def train_fp32_lenet(cfg, x, y, device):
     import numpy as np
     import torch
 
-    from mandheling_tpu_torch.data import DataLoader, onehot_padded
+    from mandheling_tpu_torch.data import DataLoader, onehot_padded, to_device
     from mandheling_tpu_torch.models import LeNetFP32
-    from mandheling_tpu_torch.train.losses import cross_entropy_with_logits
-    from mandheling_tpu_torch.train.optim import sgd_init, sgd_update
+    from mandheling_tpu_torch.train.optim import sgd_init
+    from mandheling_tpu_torch.train.step_graph import compile_step
+    from mandheling_tpu_torch.train.trainer import make_float_step
 
     model = LeNetFP32().reset_parameters(torch.Generator().manual_seed(cfg["seed"])).to(device)
     params = list(model.parameters())
-    vel = sgd_init(params)
+    # compiled, as the JAX tool jits its step
+    step = compile_step(make_float_step(model, params, sgd_init(params)), device)
+    lr = torch.full((), cfg["lr"], dtype=torch.float32, device=device)
     losses = []
     for bx, by in DataLoader(x, y, cfg["batch"], seed=cfg["seed"]).epoch():
-        oh = torch.from_numpy(onehot_padded(by, 10, 10).astype(np.float32)).to(device)
-        logits = model(torch.from_numpy(bx).to(device))
-        loss = cross_entropy_with_logits(logits, oh)
-        sgd_update(params, torch.autograd.grad(loss, params), vel, cfg["lr"])
-        losses.append(float(loss.detach()))
+        loss = step(to_device(bx, device),
+                    to_device(onehot_padded(by, 10, 10).astype(np.float32), device), lr)
+        losses.append(float(loss))
     return losses
 
 
@@ -130,11 +133,11 @@ def train_niti_model(cfg, x, y, device, params_path):
 
     import torch
 
-    from mandheling_tpu_torch.data import DataLoader, onehot_padded
+    from mandheling_tpu_torch.data import DataLoader, onehot_padded, to_device
     from mandheling_tpu_torch.ops.conv import get_fgrad_margin
     from mandheling_tpu_torch.ops.depthwise import get_dw_fgrad_margin, recipe_margins
     from mandheling_tpu_torch.ops.kernels import use_backend
-    from mandheling_tpu_torch.train import make_train_step
+    from mandheling_tpu_torch.train import jit_train_step
     from mandheling_tpu_torch.utils.checkpoint import load_checkpoint
     from mandheling_tpu_torch.utils.jax_params import export_jax_params, load_jax_params
 
@@ -146,7 +149,7 @@ def train_niti_model(cfg, x, y, device, params_path):
     else:
         model.reset_parameters(torch.Generator().manual_seed(cfg["seed"]))
     model.to(device)
-    step = make_train_step(model)
+    step = jit_train_step(model)  # as tools/test_train.py's
     losses = []
     dense, dw = cfg["fgrad_margin"], cfg["dw_fgrad_margin"]
     with use_backend(BACKENDS[cfg["backend"]]), recipe_margins(
@@ -154,7 +157,7 @@ def train_niti_model(cfg, x, y, device, params_path):
             get_dw_fgrad_margin() if dw is None else int(dw)):
         for bx, by in DataLoader(x, y, cfg["batch"], seed=cfg["seed"]).epoch():
             oh = onehot_padded(by, 10, logits_w)
-            loss = step(torch.from_numpy(bx).to(device), torch.from_numpy(oh).to(device))
+            loss = step(to_device(bx, device), to_device(oh, device))
             losses.append(float(loss))
     return losses
 

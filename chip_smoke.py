@@ -110,8 +110,9 @@ raises on failure (the script then exits non-zero and prints no result):
    (the shapes of K1, K2 and K4 recorded); K1, K2 and K4 over one transfer
    step with their bounds; samples/s of the transfer step and the full
    MobileNetV2 train step in turns; the demos MnistInt8Train,
-   DistillTrainQuant, MobilenetV2Transfer and QuanByMSE as processes of
-   their own. Phase 12 also times torch._int_mm at the row-major K1 shapes
+   DistillTrainQuant, MobilenetV2Transfer, QuanByMSE and LinearRegression
+   as processes of their own (the first two and the last step through
+   compile_step). Phase 12 also times torch._int_mm at the row-major K1 shapes
    of the zoo's steps, beside K1;
 15. imported models: full-width NITI ResNet-18 and MobileNetV2 built from
    seeded params, exported by the port's `tflite_from_sequential` at
@@ -157,7 +158,21 @@ raises on failure (the script then exits non-zero and prints no result):
    graphs against the eager loop (its jit steps swapped for the eager
    ones), the same log lines and params. One line a configuration; each one's graphs are freed before the
    next;
-18. one JSON line listing every kernel, then the result line.
+18. the rest of the JAX package: (A) MnistInt8Train's step,
+   DistillTrainQuant's teacher and student steps, MnistInt8Train's predict
+   and LinearRegression's step, 20 calls each through `compile_step`
+   (dropout on, its CUDA generator registered with the graph) against 20
+   eager calls from the same seeds under `cudnn.deterministic`: outputs and
+   state bitwise equal, one graph; ms per step in turns; (B) the per-op profile
+   (`utils/profiler.trace_device_events`, `utils/device_trace`) of 3
+   replays of the compiled LeNet b64 and MNv2 b256 steps: each launch
+   counter's kernels `EXPECTED_PER_STEP` x 3, the rows' device time within
+   5% of the traced busy time; `flops_per_step` of the step's eager form
+   on the card equal to the meta device's in both fused modes; (C) DP
+   LeNet over `make_global_mesh` as 2 hosts x 2 gloo ranks on cuda:0, equal to one process, each rank's step ms;
+   (D) `build_native()`, and where it built, its loader's batches against
+   the Python DataLoader's (where it did not, printed, no failure);
+19. one JSON line listing every kernel, then the result line.
 
 If a phase fails, the script prints `chip_smoke: failed in phase N (...)`
 on standard output (phase 0 is the imports) and the exception propagates:
@@ -213,7 +228,9 @@ if __name__ == "__main__":
 import numpy as np
 import torch
 
-from mandheling_tpu_torch.data import load_or_synthesize_cifar, synthetic_cifar, synthetic_mnist
+from mandheling_tpu_torch.data import (DataLoader, load_or_synthesize_cifar, synthetic_cifar,
+                                       synthetic_mnist)
+from mandheling_tpu_torch.data import native as native_mod
 from mandheling_tpu_torch.models import (NITI_LOGIT_CHANNELS, NUM_CLASSES, LeNetFP32,
                                          MobileNetV2FP32, ResNet18FP32, inceptionv3_niti,
                                          lenet_niti, mobilenet_v2_niti, resnet18_niti,
@@ -234,13 +251,14 @@ from mandheling_tpu_torch.data.loader import onehot_padded
 from mandheling_tpu_torch.train import (jit_eval_step, jit_train_step, make_eval_step,
                                         make_train_step, step_graph)
 from mandheling_tpu_torch.train.optim import lr_inv, sgd_init
-from mandheling_tpu_torch.train.qat_train import (make_distill_step, make_qat_train_step,
-                                                  make_teacher_step)
+from mandheling_tpu_torch.train.qat_train import (make_distill_step, make_predict_step,
+                                                  make_qat_train_step, make_teacher_step)
 from mandheling_tpu_torch.train import trainer as trainer_mod
 from mandheling_tpu_torch.train.trainer import (full_float32, make_float_eval_step,
                                                 make_float_step, train_fp32_bn, train_niti)
 from mandheling_tpu_torch.train.transfer import (TransferModel, make_transfer_eval_step,
                                                  make_transfer_train_step, transfer_from)
+from mandheling_tpu_torch.utils import device_trace, profiler
 from mandheling_tpu_torch.utils.checkpoint import load_checkpoint
 from mandheling_tpu_torch.utils.jax_params import export_jax_params, flat_weights, load_jax_params
 from mandheling_tpu_torch.utils.tflite_model import niti_model_from_tflite, tflite_from_sequential
@@ -1677,13 +1695,12 @@ def mnist_int8_steps(device, steps=3, batch=64):
     generator (so the card and the CPU draw one mask)."""
     x, y = synthetic_mnist(batch * steps, seed=21)
     model = LeNetQAT().reset_parameters(torch.Generator().manual_seed(0)).double().to(device)
-    step = make_qat_train_step(model)
-    gen = torch.Generator().manual_seed(1)
+    step = make_qat_train_step(model, torch.Generator().manual_seed(1))
     for i in range(steps):
         xb = (x[i * batch:(i + 1) * batch].astype(np.float64) / 255.0 - 0.5) * 2.0
         oh = onehot_padded(y[i * batch:(i + 1) * batch], NUM_CLASSES, NUM_CLASSES)
         step(torch.from_numpy(xb).to(device), torch.from_numpy(oh).to(device, torch.float64),
-             lr_inv(0.01, i), gen)
+             lr_inv(0.01, i))
     return qat_state(model)
 
 
@@ -1700,10 +1717,9 @@ def distill_steps(device, steps=3, batch=64):
     teacher = LeNetFP32().reset_parameters(torch.Generator().manual_seed(0)).double().to(device)
     make_teacher_step(teacher)(xs[0], ohs[0])
     student = LeNetQAT().reset_parameters(torch.Generator().manual_seed(1)).double().to(device)
-    sstep = make_distill_step(student, teacher)
-    gen = torch.Generator().manual_seed(2)
+    sstep = make_distill_step(student, teacher, torch.Generator().manual_seed(2))
     for xb, oh in zip(xs[1:], ohs[1:]):
-        sstep(xb, oh, gen)
+        sstep(xb, oh)
     return {**{f"teacher.{k}": v for k, v in qat_state(teacher).items()},
             **{f"student.{k}": v for k, v in qat_state(student).items()}}
 
@@ -2270,6 +2286,231 @@ def compiled_phase():
     return lines, launches
 
 
+# Phase 18: the rest of the JAX package. The fine-tuning steps' batch and
+# calls, the per-op profile's traced calls and its configurations.
+TUNE_BATCH, TUNE_STEPS, PROFILE_ITERS = 64, 20, 3
+PROFILED = (("lenet b64", ("lenet", 64, "matmul_only"), lenet_niti, (28, 1)),
+            ("mnv2 b256", ("mnv2", 256, "matmul_only"), mobilenet_v2_niti, (32, 3)))
+
+
+def tune_runs(cli):
+    """(name, make) of the fine-tuning and sanity steps: make(compiled)
+    -> (step, [args of each call], the state the steps write), each from
+    its seeds; the dropout generators on the card. The LeNets take
+    TUNE_BATCH samples a call; LinearRegression its 256 points."""
+    x, y = synthetic_mnist(TUNE_BATCH * TUNE_STEPS, seed=180)
+    raw = [torch.from_numpy(x[i * TUNE_BATCH:(i + 1) * TUNE_BATCH].astype(np.float32)).cuda()
+           for i in range(TUNE_STEPS)]
+    normed = [(r / 255.0 - 0.5) * 2.0 for r in raw]
+    ohs = [torch.from_numpy(onehot_padded(y[i * TUNE_BATCH:(i + 1) * TUNE_BATCH], NUM_CLASSES,
+                                          NUM_CLASSES).astype(np.float32)).cuda()
+           for i in range(TUNE_STEPS)]
+    lrs = [torch.full((), lr_inv(0.01, i), device="cuda") for i in range(TUNE_STEPS)]
+    teacher = LeNetFP32().reset_parameters(torch.Generator().manual_seed(0)).cuda()
+
+    def gen(seed):
+        return torch.Generator(device="cuda").manual_seed(seed)
+
+    def compiled(step, on):
+        return step_graph.compile_step(step, "cuda") if on else step
+
+    def qat(on):
+        model = LeNetQAT().reset_parameters(torch.Generator().manual_seed(0)).cuda()
+        return (compiled(make_qat_train_step(model, gen(1)), on), list(zip(normed, ohs, lrs)),
+                model)
+
+    def teacher_step(on):
+        model = LeNetFP32().reset_parameters(torch.Generator().manual_seed(0)).cuda()
+        return compiled(make_teacher_step(model), on), list(zip(raw, ohs)), model
+
+    def distill(on):
+        model = LeNetQAT().reset_parameters(torch.Generator().manual_seed(1)).cuda()
+        return (compiled(make_distill_step(model, teacher, gen(2)), on), list(zip(raw, ohs)),
+                model)
+
+    def linear_regression(on):
+        xs, ys, w, b = cli.linear_regression_data("cuda")
+        return (compiled(cli.make_linear_regression_step(w, b), on), [(xs, ys)] * TUNE_STEPS,
+                [w, b])
+
+    def predict(on):
+        model = LeNetQAT().reset_parameters(torch.Generator().manual_seed(0)).cuda()
+        make_qat_train_step(model)(normed[0], ohs[0], lrs[0])  # observers set, as in training
+        step = compiled(make_predict_step(model), on)
+        return step, [(n,) for n in normed], model
+
+    return (("MnistInt8Train step (LeNetQAT, dropout)", qat),
+            ("DistillTrainQuant teacher step (LeNetFP32)", teacher_step),
+            ("DistillTrainQuant student step (LeNetQAT, dropout)", distill),
+            ("LinearRegression step", linear_regression),
+            ("MnistInt8Train predict", predict))
+
+
+def state_of(state):
+    return snapshot(state) if isinstance(state, torch.nn.Module) else [t.clone() for t in state]
+
+
+def compiled_tuning(cli):
+    """(A): each fine-tuning step TUNE_STEPS times eagerly and through
+    compile_step (the first call the warm-up and capture, then replays)
+    from the same seeds, dropout on, under cudnn.deterministic: outputs and
+    state bitwise equal, one graph; then ms per step in turns (A B B A,
+    default cuDNN algorithms, whose graph is captured before the timing)
+    -> one line each."""
+    lines = []
+    for label, build_run in tune_runs(cli):
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            outs = {}
+            for on in (False, True):
+                step, args, state = build_run(on)
+                outs[on] = ([step(*a).clone() for a in args], state_of(state), step, args)
+            torch.cuda.synchronize()
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        (eager_out, eager_state, eager, _), (graph_out, graph_state, graph, args) = \
+            outs[False], outs[True]
+        if not same_bytes(eager_out, graph_out) or not same_bytes(eager_state, graph_state):
+            raise AssertionError(f"{label}: {TUNE_STEPS} replayed steps differ from the eager ones")
+        if graph.graphs != 1:
+            raise AssertionError(f"{label}: {graph.graphs} graphs for one signature")
+        graph(*args[0])  # the default algorithms' signature captured before the timing
+        ms = in_turns([("eager", eager), ("replayed", graph)], TUNE_STEPS, args)
+        line = dict(step=label, steps=TUNE_STEPS, bitwise_equal=True, graphs=1,
+                    first_last=[float(graph_out[0].float().mean()),
+                                float(graph_out[-1].float().mean())],
+                    ms_per_step_in_turns=ms)
+        print(f"  [phase 18 (A)] {json.dumps(line)}", flush=True)
+        lines.append(line)
+    return lines
+
+
+def profiled_steps(card):
+    """(B): per_op_profile's tables (profiler.trace_device_events, then
+    device_trace.per_op_rows / by_category) of PROFILE_ITERS replays of the
+    compiled LeNet b64 and MNv2 b256 steps: every launch counter's
+    occurrences EXPECTED_PER_STEP's row times PROFILE_ITERS; the rows' device
+    time within 5% of the traced busy time (on one stream the rows sum to
+    the busy union by construction); flops_per_step of the step's eager
+    form on the card equal to the meta device's figure in both fused modes
+    -> (lines, launches by run)."""
+    lines, launches = [], {}
+    for label, key, build_model, (side, channels) in PROFILED:
+        xs, ohs, _, _ = graph_data(key[1], side, channels, NUM_CLASSES, NITI_LOGIT_CHANNELS,
+                                   seed=181, n=1)
+        model = build_model().reset_parameters(torch.Generator().manual_seed(0)).cuda()
+        step = jit_train_step(model)
+        kernels.reset_launch_counts()
+        events = profiler.trace_device_events(step, xs[0], ohs[0], iters=PROFILE_ITERS)
+        torch.cuda.synchronize()
+        launches[f"profiled_{label.replace(' ', '_')}"] = kernels.launch_counts()
+        rows = device_trace.per_op_rows(events)
+        cats = {c["category"]: c for c in device_trace.by_category(rows)}
+        per_train = EXPECTED_PER_STEP[key][0]
+        for fam, names in FAMILIES.items():
+            for counter in names:
+                got = cats.get(counter, {}).get("occurrences", 0)
+                if got != per_train.get(fam, 0) * PROFILE_ITERS:
+                    raise AssertionError(f"{label}: {got} {counter} kernels in {PROFILE_ITERS} "
+                                         f"traced replays, want {per_train.get(fam, 0)} each")
+        busy = device_trace.overlap_report(events)["busy_us"]
+        summed = sum(r["total_us"] for r in rows)
+        if not busy or abs(summed - busy) > 0.05 * busy:
+            raise AssertionError(f"{label}: rows sum to {summed} us, the trace was busy {busy} us")
+        # the count comes from shapes at each op's entry, so it cannot differ
+        # by device or fused mode by construction: one eager step on the
+        # card (the compiled step's eager form), the two modes on the meta
+        # device
+        figure = profiler.flops_per_step(step, xs[0], ohs[0])
+        for mode in ("matmul_only", "all"):
+            with use_fused_conv_mode(mode):
+                m = build_model().reset_parameters(torch.Generator().manual_seed(0)).to("meta")
+                n = profiler.flops_per_step(make_train_step(m), xs[0].to("meta"),
+                                            ohs[0].to("meta"))
+            if n != figure:
+                raise AssertionError(f"{label}: flops_per_step {n} on the meta device under "
+                                     f"{mode}, {figure} on the card")
+        k_flops = sum(c["flops"] for c in cats.values()) / PROFILE_ITERS
+        line = dict(config=f"{label} compiled", iters=PROFILE_ITERS, card=card,
+                    flops_per_step=figure, host_figure_on="meta",
+                    busy_us_per_step=busy / PROFILE_ITERS,
+                    rows_us_per_step=summed / PROFILE_ITERS,
+                    kernel_row_flops_per_step=k_flops,
+                    by_category_per_step={c: (v["occurrences"] / PROFILE_ITERS,
+                                              v["total_us"] / PROFILE_ITERS)
+                                          for c, v in cats.items()})
+        print(f"  [phase 18 (B)] {json.dumps(line)}", flush=True)
+        print(device_trace.format_table(device_trace.by_category(rows)), flush=True)
+        lines.append(line)
+        del model, step
+        torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    return lines, launches
+
+
+def two_hosts_dp(card, lenet_start):
+    """(C): DP LeNet over make_global_mesh as 2 hosts x 2 gloo ranks on
+    cuda:0 (run_local's local_world), global batch 128, 2 train steps and
+    one eval step, each rank feeding its local_batch_slice: equal to one
+    process on the card; each rank's step ms (a cost of record)."""
+    x, y = synthetic_mnist(384, seed=182)
+    spec = dict(model=lenet_niti(), params=lenet_start, device="cuda", global_mesh=True,
+                batches=[(x[i:i + 128].astype(np.float32), onehot_padded(y[i:i + 128], 10, 12))
+                         for i in (0, 128)],
+                eval=(x[256:].astype(np.float32), y[256:].astype(np.int64)))
+    label = "(C) DP LeNet over make_global_mesh, 2 hosts x 2 ranks, global batch 128"
+    res = [r[0] for r in distributed.run_local(4, runs_mod.sequence, [(runs_mod.dp_steps, spec)],
+                                               timeout_s=PAR_TIMEOUT_S, threads=2,
+                                               local_world=2)]
+    ranks_agree(label, res)
+    if [(r["host"], r["local_world"]) for r in res] != [(0, 2), (0, 2), (1, 2), (1, 2)]:
+        raise AssertionError(f"{label}: hosts {[(r['host'], r['local_world']) for r in res]}")
+    same_run(label, res[0], runs_mod.dp_steps(dict(spec, world=0, global_mesh=False)),
+             what="one process on the card")
+    run_line(label, res, card)
+    return ({"step_ms": [r["step_ms"] for r in res], "hosts": [r["host"] for r in res],
+             "launches_per_rank": [family_counts(r["launches"]) for r in res]},
+            {"global_mesh_dp": {n: sum(r["launches"][n] for r in res) for n in res[0]["launches"]}})
+
+
+def native_build():
+    """(D): build_native() on this machine; where it built, the built
+    library's loader gives the Python DataLoader's batches (unshuffled).
+    Where it did not (no compiler or libjpeg), that is printed and is no
+    failure, as in the JAX package."""
+    print("  build_native (the compiler's output follows):", flush=True)
+    built = native_mod.build_native(quiet=False)
+    out = {"built": built}
+    if built:
+        lib = native_mod.load_native(auto_build=False)
+        x, y = synthetic_mnist(256, seed=183)
+        got = list(native_mod.NativeLoader(x, y, 64, shuffle=False).epoch())
+        want = list(DataLoader(x, y, 64, shuffle=False).epoch())
+        if len(got) != len(want) or not all(a.tobytes() == c.tobytes() and np.array_equal(b, d)
+                                            for (a, b), (c, d) in zip(got, want)):
+            raise AssertionError("the built native loader's batches differ from the Python "
+                                 "DataLoader's")
+        out.update(library=getattr(lib, "_name", None), batches_equal=len(got))
+    print(f"  [phase 18 (D)] {json.dumps(out)}", flush=True)
+    return out
+
+
+def rest_phase(card, lenet_start):
+    """Phase 18 -> (its summary, its launches by run)."""
+    t0 = time.perf_counter()
+    cli = load_tool("tools/run_train_demo_torch.py")
+    kernels.reset_launch_counts()
+    tuning = compiled_tuning(cli)
+    profiled, launches = profiled_steps(card)
+    dp_summary, dp_launches = two_hosts_dp(card, lenet_start)
+    launches.update(dp_launches)
+    native = native_build()
+    print(f"  phase 18 done in {time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(compiled_fine_tuning=tuning, per_op_profile=profiled, global_mesh_dp=dp_summary,
+                native_build=native), launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs the GPU", file=sys.stderr)
@@ -2729,9 +2970,9 @@ def main() -> int:
     qx, qy = synthetic_mnist(64, seed=23)
     qat_args = (torch.from_numpy((qx.astype(np.float32) / 255.0 - 0.5) * 2.0).cuda(),
                 torch.from_numpy(onehot_padded(qy, NUM_CLASSES, NUM_CLASSES)
-                                 .astype(np.float32)).cuda(), 0.01,
-                torch.Generator(device="cuda").manual_seed(1))
-    qat_rate = steps_per_s(make_qat_train_step(qat_model), qat_args, 64, 30)
+                                 .astype(np.float32)).cuda(), 0.01)
+    qat_rate = steps_per_s(make_qat_train_step(qat_model, torch.Generator(device="cuda")
+                                               .manual_seed(1)), qat_args, 64, 30)
     print(f"  throughput on {name} ({card}): MnistInt8Train LeNetQAT b64 float32 (TF32 off) "
           f"{qat_rate:.1f} samples/s (30 steps back to back)", flush=True)
 
@@ -2793,8 +3034,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
         outs = cli_subprocesses({demo: [demo, "--epochs", "1"] for demo in (
-            "MnistInt8Train", "DistillTrainQuant", "MobilenetV2Transfer", "QuanByMSE")}, tmp)
+            "MnistInt8Train", "DistillTrainQuant", "MobilenetV2Transfer", "QuanByMSE",
+            "LinearRegression")}, tmp)
     demo_lines = {
+        "LinearRegression": [r"fit: a=-?\d+\.\d{3} b=-?\d+\.\d{3} loss=\d+\.\d{6}"],
         "MnistInt8Train": [r"epoch 0: loss \d+\.\d{4} test_acc \d\.\d{4}"],
         "DistillTrainQuant": [r"teacher pre-trained \(1 epoch\)",
                               r"epoch 0: distill_loss \d+\.\d{4} student_test_acc \d\.\d{4}"],
@@ -2811,7 +3054,7 @@ def main() -> int:
         if len(got) != len(patterns) or not all(re.fullmatch(p_, ln)
                                                 for p_, ln in zip(patterns, got)):
             raise AssertionError(f"{demo} printed {got}")
-    print("  the four demos exited 0 and printed the JAX CLI's lines", flush=True)
+    print("  the five demos exited 0 and printed the JAX CLI's lines", flush=True)
 
     enter("15", "imported models: full-width ResNet-18 and MobileNetV2 exported to TFLite, "
           "imported by tools/import_model_torch.py and trained through the kernels; the "
@@ -2833,7 +3076,12 @@ def main() -> int:
     graph_lines, graph_launches = compiled_phase()
     runs.update(graph_launches)
 
-    enter("18", "the kernels line")
+    enter("18", "the rest of the JAX package: the fine-tuning steps compiled, the per-op "
+          "profile and flop count, DP over the multi-host mesh, the native build")
+    rest_summary, rest_launches = rest_phase(card, start)
+    runs.update(rest_launches)
+
+    enter("19", "the kernels line")
     names = list(kernels.launch_counts())
     launches = {n: sum(c[n] for c in runs.values()) for n in names}
     by_run = {n: {r: c[n] for r, c in runs.items()} for n in names}
@@ -3038,6 +3286,7 @@ def main() -> int:
     kernels_line["imported_tflite_b256"] = imported
     kernels_line["parallel_phase16"] = par_summary
     kernels_line["compiled_step_phase17"] = graph_lines
+    kernels_line["rest_phase18"] = rest_summary
 
     print(f"done in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card_line())

@@ -1,7 +1,7 @@
 from . import cifar, image, loader, mnist, native
 from .cifar import load_cifar10, load_or_synthesize_cifar, synthetic_cifar
 from .image import ImageConfig, ImageDataset, ImageNoLabelDataset
-from .loader import DataLoader, make_loader, onehot_padded, to_device
+from .loader import DataLoader, make_loader, onehot_padded, shard_for_host, to_device
 from .mnist import load_mnist, load_or_synthesize, read_idx, synthetic_mnist
 
 __all__ = [
@@ -21,6 +21,7 @@ __all__ = [
     "load_or_synthesize_cifar",
     "make_loader",
     "read_idx",
+    "shard_for_host",
     "synthetic_cifar",
     "synthetic_mnist",
     "to_device",

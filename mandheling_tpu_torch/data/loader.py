@@ -93,6 +93,15 @@ def make_loader(
     return DataLoader(images, labels, batch_size, shuffle, seed)
 
 
+def shard_for_host(images: np.ndarray, labels: np.ndarray, host_id: int,
+                   num_hosts: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Static per-host shard of the dataset for multi-host data
+    parallelism: every num_hosts-th sample from host_id on (JAX
+    `data/loader.py:110-117`; parallel/distributed.host_index and
+    host_count give a rank its host)."""
+    return images[host_id::num_hosts], labels[host_id::num_hosts]
+
+
 def onehot_padded(labels: np.ndarray, num_classes: int, width: int) -> np.ndarray:
     """One-hot with zero padding out to the model's logit width (10 classes
     in 12 NITI logit channels)."""

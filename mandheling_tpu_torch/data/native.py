@@ -1,17 +1,23 @@
 """ctypes binding to the native C++ data pipeline (native/dataloader.cpp,
 native/imagedec.cpp): the port's own copy of ``mandheling_tpu/data/native.py``.
 
-It loads the library committed at ``native/libmandheling_native.so``
-read-only and never builds it (`make -C native` would write a file of the
-repository). When the library is absent or does not load (it links
-libjpeg), `load_native()` returns None and the callers take the Python
-loader and PIL, as the JAX package's do.
+`load_native()` takes the library committed at
+``native/libmandheling_native.so`` (read-only) where it loads. Where it does
+not (it links libjpeg.so.62, which a machine may lack), it takes the one
+`build_native()` compiled from the same sources into
+``mandheling_tpu_torch/_build/native/`` (never into native/, a directory of
+the repository), and builds that one first if there is none. When neither
+loads, `load_native()` returns None and the callers take the Python loader
+and PIL, as the JAX package's do.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+import shlex
+import subprocess
+import tempfile
 from typing import Optional
 
 import numpy as np
@@ -21,24 +27,69 @@ _NATIVE_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
     "native",
 )
+BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                         "_build", "native")
+_SOURCES = ("dataloader.cpp", "imagedec.cpp")
+# native/Makefile's defaults; $CXX and $CXXFLAGS replace them, as in make
+_CXXFLAGS = "-O3 -std=c++17 -fPIC -pthread -Wall"
 _lib = None
 _lib_tried = False
 
 
-def load_native():
-    """Returns the loaded CDLL or None."""
+def build_native(quiet: bool = True) -> bool:
+    """Compile native/'s sources into BUILD_DIR/libmandheling_native.so
+    as native/Makefile does ($CXX, default g++; then
+    $CXXFLAGS, -shared and -ljpeg). Returns True on success and False when
+    the compiler or libjpeg is missing or the build fails; `quiet` False
+    shows the compiler's output on standard output. The library appears
+    whole or not at all, and a `load_native` that found none tries again."""
+    global _lib_tried
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = (shlex.split(os.environ.get("CXX", "g++"))
+           + shlex.split(os.environ.get("CXXFLAGS", _CXXFLAGS))
+           + ["-shared", "-o", tmp] + [os.path.join(_NATIVE_DIR, f) for f in _SOURCES]
+           + ["-ljpeg"])
+    out = subprocess.DEVNULL if quiet else None
+    try:
+        subprocess.run(cmd, check=True, stdout=out, stderr=out if quiet else subprocess.STDOUT,
+                       timeout=600)
+        os.replace(tmp, os.path.join(BUILD_DIR, _LIB_NAME))
+        _lib_tried = _lib is not None
+        return True
+    except (OSError, subprocess.SubprocessError):
+        return False
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
+def _open(path: str):
+    try:
+        return ctypes.CDLL(path)
+    except OSError:  # a dependency (libjpeg) is missing on this machine
+        return None
+
+
+def load_native(auto_build: bool = True):
+    """Returns the loaded CDLL or None: the committed library where it
+    loads, else the built one, built first (with `auto_build`) when there
+    is none."""
     global _lib, _lib_tried
     if _lib is not None:
         return _lib
     if _lib_tried:
         return None
     _lib_tried = True
-    path = os.path.join(_NATIVE_DIR, _LIB_NAME)
-    if not os.path.exists(path):
-        return None
-    try:
-        lib = ctypes.CDLL(path)
-    except OSError:  # a dependency (libjpeg) is missing on this machine
+    committed = os.path.join(_NATIVE_DIR, _LIB_NAME)
+    built = os.path.join(BUILD_DIR, _LIB_NAME)
+    lib = _open(committed) if os.path.exists(committed) else None
+    if lib is None and not os.path.exists(built) and auto_build:
+        build_native()
+    if lib is None and os.path.exists(built):
+        lib = _open(built)
+    if lib is None:
         return None
     lib.mdl_create.restype = ctypes.c_void_p
     lib.mdl_create.argtypes = [

@@ -20,6 +20,8 @@ JAX package passes `axis_name`), every range estimate takes the maximum
 over the group, between the fused kernels' two phases on the fused routes,
 and the filter-grad accumulators are summed over it before their shift
 (ops/allreduce.py), so data-parallel steps give the single replica's bytes.
+
+Every public contraction op counts its work from its shapes (ops/flops.py).
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from . import allreduce, numerics
+from . import allreduce, flops, numerics
 from . import relu as relu_ops
 from .kernels import dispatch as _dispatch
 from .kernels import fused_conv_int8 as _fconv
@@ -97,6 +99,30 @@ def _zero_exp(like: torch.Tensor) -> torch.Tensor:
     return torch.zeros((), dtype=torch.int32, device=like.device)
 
 
+def _work(args, out_size: int) -> Tuple[int, int]:
+    """(multiply-adds, bytes) of the conv of args["x"] by args["w"]: both read
+    once, the output written once (`out_size` bytes an element)."""
+    x, w = args["x"], args["w"]
+    b, h, wd, _ = x.shape
+    kh, kw, ic, oc = w.shape
+    pads = resolve_padding(args["padding"], (kh, kw), args["stride"], (h, wd))
+    oh, ow = flops.conv_out((h, wd), (kh, kw), args["stride"], pads)
+    return b * oh * ow * kh * kw * ic * oc, flops.nbytes(x, w) + b * oh * ow * oc * out_size
+
+
+def _input_grad_work(args, out_size: int) -> Tuple[int, int]:
+    gy, w = args["gy"], args["w"]
+    kh, kw, ic, _ = w.shape
+    return flops.grad_work(gy, w, kh * kw, ic, (gy.shape[0], *args["x_spatial"], ic), out_size)
+
+
+def _filter_grad_work(args, out_size: int) -> Tuple[int, int]:
+    x, gy = args["x"], args["gy"]
+    (kh, kw), ic = args["kernel_spatial"], x.shape[-1]
+    return flops.grad_work(gy, x, kh * kw, ic, (kh, kw, ic, gy.shape[-1]), out_size)
+
+
+@flops.counted(lambda args: _work(args, 4))
 def conv2d_int8_acc(x: torch.Tensor, w: torch.Tensor,
                     stride: Sequence[int] = (1, 1), padding="VALID") -> torch.Tensor:
     """int8 or int16 NHWC x * int8 HWIO w -> int32 accumulator."""
@@ -151,6 +177,7 @@ def _apply_act(y: torch.Tensor, exp_out: torch.Tensor, act: Optional[str]):
     raise ValueError(f"unknown act {act!r}")
 
 
+@flops.counted(lambda args: _work(args, 2 if args["out_bits"] > 7 else 1))
 def conv2d_forward(
     x: torch.Tensor,
     x_exp: torch.Tensor,
@@ -202,6 +229,7 @@ def _input_grad_pads(w_shape, x_spatial, gy_spatial, stride, padding):
     return ((pad_top, pad_bottom), (pad_left, pad_right))
 
 
+@flops.counted(lambda args: _input_grad_work(args, 4))
 def conv2d_input_grad_acc(
     gy: torch.Tensor, w: torch.Tensor, x_spatial: Tuple[int, int],
     stride: Sequence[int] = (1, 1), padding="VALID",
@@ -213,6 +241,7 @@ def conv2d_input_grad_acc(
                               lhs_dilation=tuple(stride))
 
 
+@flops.counted(lambda args: _input_grad_work(args, 1))
 def conv2d_input_grad(
     gy: torch.Tensor, w: torch.Tensor, x_spatial: Tuple[int, int],
     stride: Sequence[int] = (1, 1), padding="VALID", group=None,
@@ -234,6 +263,7 @@ def conv2d_input_grad(
     return out
 
 
+@flops.counted(lambda args: _filter_grad_work(args, 4))
 def conv2d_filter_grad_acc(
     x: torch.Tensor, gy: torch.Tensor, kernel_spatial: Tuple[int, int],
     stride: Sequence[int] = (1, 1), padding="VALID",
@@ -266,6 +296,7 @@ def get_fgrad_margin() -> int:
     return _FGRAD_MARGIN
 
 
+@flops.counted(lambda args: _filter_grad_work(args, 1))
 def conv2d_filter_grad(
     x: torch.Tensor, gy: torch.Tensor, kernel_spatial: Tuple[int, int],
     stride: Sequence[int] = (1, 1), padding="VALID", group=None,

@@ -34,6 +34,8 @@ bw-7, filter grad at bw - margin, the shared code of ops/numerics.py.
   range estimates take the maximum over it, between K4's two phases on the
   fused route, and the filter grad hands K5's int32 accumulator and the
   per-channel shift to ops/allreduce.py, which sums over the group first.
+- Every public contraction op counts its work from its shapes
+  (ops/flops.py).
 """
 
 from __future__ import annotations
@@ -44,7 +46,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from . import allreduce, numerics
+from . import allreduce, flops, numerics
 from .conv import (_apply_act, _fused_enabled, _input_grad_pads, get_fgrad_margin,
                    get_fused_conv_mode, resolve_padding, set_fgrad_margin)
 from .kernels import fused_dwconv_int8 as _fdw
@@ -126,6 +128,31 @@ def recipe_margins(dense: int = 0, dw: int = 0):
         set_dw_fgrad_margin(saved[1])
 
 
+def _work(args, out_size: int) -> Tuple[int, int]:
+    """(multiply-adds, bytes) of the depthwise conv of args["x"] by
+    args["w"]: both read once, the output written once (`out_size` bytes an
+    element)."""
+    x, w = args["x"], args["w"]
+    b, h, wd, c = x.shape
+    kh, kw = w.shape[:2]
+    pads = resolve_padding(args["padding"], (kh, kw), args["stride"], (h, wd))
+    oh, ow = flops.conv_out((h, wd), (kh, kw), args["stride"], pads)
+    return b * oh * ow * kh * kw * c, flops.nbytes(x, w) + b * oh * ow * c * out_size
+
+
+def _input_grad_work(args) -> Tuple[int, int]:
+    gy, w = args["gy"], args["w"]
+    return flops.grad_work(gy, w, w.shape[0] * w.shape[1], 1,
+                           (gy.shape[0], *args["x_spatial"], gy.shape[-1]), 1)
+
+
+def _filter_grad_work(args, out_size: int) -> Tuple[int, int]:
+    x, gy = args["x"], args["gy"]
+    (kh, kw), c = args["kernel_spatial"], x.shape[-1]
+    return flops.grad_work(gy, x, kh * kw, 1, (kh, kw, 1, c), out_size)
+
+
+@flops.counted(lambda args: _work(args, 4))
 def dwconv2d_int8_acc(x: torch.Tensor, w: torch.Tensor,
                       stride: Sequence[int] = (1, 1), padding="SAME") -> torch.Tensor:
     """int8 NHWC x, (KH, KW, 1, C) w -> int32 depthwise accumulator."""
@@ -159,6 +186,7 @@ def _fused_dw_requant(x: torch.Tensor, w: torch.Tensor, pad: Pads,
     return _fdw.dwconv_requant(x, w, eff_shift, False, **k4), eff_shift
 
 
+@flops.counted(lambda args: _work(args, 1))
 def dwconv2d_forward(
     x: torch.Tensor,
     x_exp: torch.Tensor,
@@ -187,6 +215,7 @@ def dwconv2d_forward(
     return _apply_act(y, e, act), e
 
 
+@flops.counted(_input_grad_work)
 def dwconv2d_input_grad(
     gy: torch.Tensor,
     w: torch.Tensor,
@@ -216,6 +245,7 @@ def dwconv2d_input_grad(
     return out
 
 
+@flops.counted(lambda args: _filter_grad_work(args, 4))
 def dwconv2d_filter_grad_acc(
     x: torch.Tensor, gy: torch.Tensor, kernel_spatial: Tuple[int, int],
     stride: Sequence[int] = (1, 1), padding="SAME",
@@ -234,6 +264,7 @@ def dwconv2d_filter_grad_acc(
     return _fdw.dwconv_fgrad_acc_plain(x, gy, (kh, kw), stride, pads=pads)
 
 
+@flops.counted(lambda args: _filter_grad_work(args, 1))
 def dwconv2d_filter_grad(
     x: torch.Tensor,
     gy: torch.Tensor,

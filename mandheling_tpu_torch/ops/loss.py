@@ -10,6 +10,8 @@ truncate toward zero (`rounding_mode="trunc"`, never `//`, which floors).
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
 from . import numerics
@@ -60,3 +62,12 @@ def loss_grad_int8(logits: torch.Tensor, ascale: torch.Tensor,
     g = p - psum * target_onehot.to(torch.int32)
     return numerics.psto_shift_int8(g, 4)
 
+
+
+def loss_and_grad(logits: torch.Tensor, ascale: torch.Tensor,
+                  target_onehot: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(float loss for logging, int8 gradient) in one call: the reference's
+    `_NITI_LOSS_SUM` forward and `NITI_LOSS_Grad_Int8` backward pair
+    (grad/NITI_SoftmaxGrad.cpp:41-67)."""
+    return (loss_cross_entropy_float(logits, ascale, target_onehot),
+            loss_grad_int8(logits, ascale, target_onehot))

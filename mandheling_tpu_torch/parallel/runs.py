@@ -32,6 +32,8 @@ from ..train.train_step import make_eval_step, make_train_step
 from ..train.transfer import make_transfer_train_step
 from ..utils.jax_params import export_jax_params, load_jax_params
 from . import tp as tp_mod
+from .distributed import (host_index, local_batch_slice, local_world_size, make_global_mesh,
+                          shard_host_batch)
 from .mesh import data_mesh, make_mesh
 from .pp import pipe_mesh
 from .pp_general import GPipePlan, make_gpipe_train_step
@@ -94,14 +96,29 @@ def _to_numpy(v):
     return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v
 
 
+def _rows(mesh, global_mesh: bool, *arrays):
+    """This rank's rows of global batch arrays: its data rank's
+    (shard_batch), or on the global mesh its process's local slice, as the
+    JAX multi-host worker feeds them (local_batch_slice,
+    shard_host_batch)."""
+    if not global_mesh:
+        return shard_batch(mesh, *arrays)
+    lo, hi = local_batch_slice(len(arrays[0]))
+    return shard_host_batch(mesh, *(np.asarray(a)[lo:hi] for a in arrays))
+
+
 def dp_steps(spec) -> Dict[str, Any]:
     """Data parallel over every rank of the world (`world` 0: one process,
     no group): the train steps, then an eval step on `eval` (x, labels) if
     given. With `transfer` True the model is a TransferModel, `params` its
-    head's, and the step its transfer step."""
+    head's, and the step its transfer step. With `global_mesh` True the mesh
+    is the multi-host one (distributed.make_global_mesh) and each rank feeds
+    its process's rows; the result then has the rank's `host` and the ranks
+    of a host, `local_world`."""
     device = _device(spec)
     single = spec.get("world", 1) == 0
-    mesh = None if single else data_mesh()
+    global_mesh = spec.get("global_mesh", False)
+    mesh = None if single else make_global_mesh() if global_mesh else data_mesh()
     group = None if single else mesh.group("data")
     with _settings(spec):
         model = _model(spec, device)
@@ -114,13 +131,13 @@ def dp_steps(spec) -> Dict[str, Any]:
         batches = []
         for x, oh in spec["batches"]:
             if not single:
-                x, oh = shard_batch(mesh, x, oh)
+                x, oh = _rows(mesh, global_mesh, x, oh)
             batches.append((torch.as_tensor(x).to(device), torch.as_tensor(oh).to(device)))
         fns = [lambda b=b: step(*b) for b in batches]
         if spec.get("eval") is not None:
             xe, ye = spec["eval"]
             if not single:
-                xe, ye = shard_batch(mesh, xe, ye)
+                xe, ye = _rows(mesh, global_mesh, xe, ye)
             evals = make_eval_step(model, spec.get("num_classes", 10), group)
             xe, ye = torch.as_tensor(xe).to(device), torch.as_tensor(ye).to(device)
             fns.append(lambda: evals(xe, ye))
@@ -131,6 +148,8 @@ def dp_steps(spec) -> Dict[str, Any]:
     n_train = len(batches)
     run["losses"] = [float(v) for v in results[:n_train]]
     run["correct"] = int(results[n_train]) if len(results) > n_train else None
+    if global_mesh:
+        run["host"], run["local_world"] = host_index(), local_world_size()
     return run
 
 

@@ -25,10 +25,17 @@ CUDA device:
   optimizer state and running stats are written in place (the JAX step's
   donated params). A step that replaced them could not be replayed.
 - A capture that fails raises. A CUDA device has no eager fallback.
+- A step that draws random numbers (dropout) names its generators in
+  `fn.generators`: CUDA generators of the step's device, registered with
+  every graph (`CUDAGraph.register_generator_state`). A capture draws
+  nothing from them; each replay draws from the generator's offset at that
+  moment and advances it as the eager call would, so replay i draws what
+  eager call i would have drawn from the same seed.
 - The kernels count their launches in Python (``ops/kernels.launch_counts``),
   which a replay does not run. The replay hooks (:func:`replay_hook`) make
   up for it: the launches a capture counted are taken back, and added again
-  at every replay, so the counts stay launches executed.
+  at every replay, so the counts stay launches executed. So are the launch
+  notes the profiler reads (ops/flops.py), in the same hook.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ import torch
 
 from ..ops import conv as conv_ops
 from ..ops import depthwise as dw_ops
+from ..ops import flops
 from ..ops import kernels
 
 
@@ -54,19 +62,23 @@ def settings() -> Tuple:
 
 
 class LaunchCounts:
-    """The replay hook of the kernels' launch counters."""
+    """The replay hook of the kernels' launch counters and of the launch
+    notes of ops/flops.py."""
 
-    def begin(self) -> Dict[str, int]:
-        return kernels.launch_counts()
+    def begin(self):
+        return kernels.launch_counts(), flops.hold_launches()
 
-    def end(self, before: Dict[str, int]) -> Dict[str, int]:
+    def end(self, token) -> Tuple[Dict[str, int], List[flops.Launch]]:
+        before, held = token
         after = kernels.launch_counts()
         delta = {k: after[k] - before[k] for k in after if after[k] != before[k]}
         kernels.add_launch_counts({k: -n for k, n in delta.items()})
-        return delta
+        return delta, flops.take_launches(held)
 
-    def replay(self, delta: Dict[str, int]) -> None:
+    def replay(self, made: Tuple[Dict[str, int], List[flops.Launch]]) -> None:
+        delta, notes = made
         kernels.add_launch_counts(delta)
+        flops.add_launches(notes)
 
 
 _HOOKS: List[Any] = [LaunchCounts()]
@@ -119,11 +131,23 @@ def _clone(out):
     return out
 
 
+def _generators(fn: Callable, device: torch.device) -> Tuple[torch.Generator, ...]:
+    """The generators `fn` draws from (`fn.generators`), each on `device`."""
+    gens = tuple(getattr(fn, "generators", ()))
+    for g in gens:
+        at = g.device
+        if at.type != device.type or (None not in (at.index, device.index)
+                                      and at.index != device.index):
+            raise ValueError(f"a step captured on {device} cannot draw from a generator on {at}")
+    return gens
+
+
 class _Graph:
     """One captured signature: static inputs, the graph, its outputs and
     what the hooks recorded at its capture."""
 
     def __init__(self, fn: Callable, args: Tuple, device: torch.device):
+        gens = _generators(fn, device)
         current, stream = _streams(device)
         self.inputs = tuple(torch.empty(a.shape, dtype=a.dtype, device=device) for a in args)
         self._copy_in(args)
@@ -131,6 +155,8 @@ class _Graph:
         first = _warm_up(stream, fn, self.inputs)
         tokens = [(hook, hook.begin()) for hook in _HOOKS]
         self.graph = _new_graph()
+        for g in gens:
+            self.graph.register_generator_state(g)
         try:
             self.outputs = _capture(self.graph, stream, fn, self.inputs)
         finally:

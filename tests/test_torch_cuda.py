@@ -684,8 +684,8 @@ def test_lenet_qat_step_card_matches_cpu(gen):
     states = []
     for device in ("cuda", "cpu"):
         model = LeNetQAT().reset_parameters(torch.Generator().manual_seed(0)).double().to(device)
-        make_qat_train_step(model)(x.to(device), oh.to(device), 0.01,
-                                   torch.Generator().manual_seed(3))
+        make_qat_train_step(model, torch.Generator().manual_seed(3))(
+            x.to(device), oh.to(device), 0.01)
         states.append({k: v.detach().cpu() for k, v in
                        [*model.named_parameters(), *model.named_buffers()]})
     for name, want in states[1].items():
@@ -998,3 +998,76 @@ def test_compiled_step_capture_failure_raises(gen):
     assert compiled.graphs == 0
     doubled = compile_step(lambda t: 2 * t, "cuda")
     assert [float(doubled(x + i).sum()) for i in range(3)] == [8.0, 16.0, 24.0]
+
+
+def _qat_batches(n, batch=64):
+    import numpy as np
+
+    rng = np.random.default_rng(11)
+    xs = [torch.from_numpy(((rng.integers(0, 256, (batch, 28, 28, 1)) / 255.0 - 0.5) * 2.0)
+                           .astype(np.float32)).cuda() for _ in range(n)]
+    ohs = [torch.eye(10, device="cuda")[torch.from_numpy(rng.integers(0, 10, batch)).cuda()]
+           for _ in range(n)]
+    return xs, ohs
+
+
+def test_compiled_qat_steps_replay_the_eager_dropout(gen):
+    """MnistInt8Train's and DistillTrainQuant's steps through compile_step,
+    dropout drawn from a CUDA generator registered with the graph: 6 steps
+    (the first the capture, then replays) bitwise the 6 eager steps from the
+    same seeds, under cudnn.deterministic; one graph each."""
+    from mandheling_tpu_torch.models import LeNetFP32
+    from mandheling_tpu_torch.models.lenet_qat import LeNetQAT
+    from mandheling_tpu_torch.train.qat_train import make_distill_step, make_qat_train_step
+    from mandheling_tpu_torch.train.step_graph import compile_step
+
+    xs, ohs = _qat_batches(6)
+    lrs = [torch.full((), 0.01 / (i + 1), device="cuda") for i in range(6)]
+    teacher = LeNetFP32().reset_parameters(torch.Generator().manual_seed(0)).cuda()
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for kind in ("qat", "distill"):
+            runs = []
+            for compiled in (False, True):
+                model = LeNetQAT().reset_parameters(torch.Generator().manual_seed(0)).cuda()
+                g = torch.Generator(device="cuda").manual_seed(5)
+                step = (make_qat_train_step(model, g) if kind == "qat"
+                        else make_distill_step(model, teacher, g))
+                step = compile_step(step, "cuda") if compiled else step
+                args = [(x, oh, lr) if kind == "qat" else (x, oh) for x, oh, lr in
+                        zip(xs, ohs, lrs)]
+                losses = [step(*a).clone() for a in args]
+                torch.cuda.synchronize()
+                runs.append((losses, [t.clone() for t in model.state_dict().values()], step))
+            (le, se, _), (lc, sc, step) = runs
+            assert all(torch.equal(a, b) for a, b in zip(le, lc)), kind
+            assert all(torch.equal(a, b) for a, b in zip(se, sc)), kind
+            assert step.graphs == 1
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+def test_per_op_profile_of_the_compiled_lenet_step(gen):
+    """per_op_profile of 2 replays of the compiled LeNet b64 step: K1's
+    category holds 2 x 11 launches with their flops; flops_per_step on the
+    card equals the CPU's in both fused modes."""
+    from mandheling_tpu_torch.models import lenet_niti
+    from mandheling_tpu_torch.ops.conv import use_fused_conv_mode
+    from mandheling_tpu_torch.train import jit_train_step, make_train_step
+    from mandheling_tpu_torch.utils import profiler
+
+    x = torch.randint(0, 256, (64, 28, 28, 1), generator=gen, device="cuda").float()
+    oh = torch.zeros((64, 12), dtype=torch.int32, device="cuda")
+    oh[:, 3] = 1
+    model = lenet_niti().reset_parameters(torch.Generator().manual_seed(0)).cuda()
+    rows, cats = profiler.per_op_profile(jit_train_step(model), x, oh, iters=2)
+    k1 = {c["category"]: c for c in cats}["matmul_int8"]
+    assert k1["occurrences"] == 22 and k1["flops"] > 0
+    counts = set()
+    for mode in ("matmul_only", "all"):
+        with use_fused_conv_mode(mode):
+            for dev in ("cpu", "cuda"):
+                m = lenet_niti().reset_parameters(torch.Generator().manual_seed(0)).to(dev)
+                counts.add(profiler.flops_per_step(make_train_step(m), x.to(dev), oh.to(dev)))
+    assert len(counts) == 1 and 2 * counts.pop() == sum(c["flops"] for c in cats)

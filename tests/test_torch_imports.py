@@ -2,8 +2,9 @@
 chip_smoke.py, tools/profile_torch_step.py, the demo CLI
 tools/run_train_demo_torch.py, the training gate tools/test_train_torch.py,
 the importer and converter CLIs tools/import_model_torch.py and
-tools/convert_torch.py, the probe tools/probes/dot_probe_torch.py and the
-parallel tests' rank workers tests/torch_rank_workers.py, imports jax or
+tools/convert_torch.py, the probe tools/probes/dot_probe_torch.py, the flop
+table tools/flops_torch.py and the parallel tests' rank workers
+tests/torch_rank_workers.py, imports jax or
 anything of the JAX package (not even a module there that uses no jax)."""
 
 import ast
@@ -16,7 +17,8 @@ FILES = sorted((ROOT / "mandheling_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_step.py",
     ROOT / "tools" / "run_train_demo_torch.py", ROOT / "tools" / "test_train_torch.py",
     ROOT / "tools" / "import_model_torch.py", ROOT / "tools" / "convert_torch.py",
-    ROOT / "tools" / "probes" / "dot_probe_torch.py", ROOT / "tests" / "torch_rank_workers.py"]
+    ROOT / "tools" / "probes" / "dot_probe_torch.py", ROOT / "tests" / "torch_rank_workers.py",
+    ROOT / "tools" / "flops_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "mandheling_tpu")
 
 
@@ -57,7 +59,8 @@ def test_guard_sees_the_package():
                    "utils/onnx_model.py", "utils/tf_model.py", "utils/caffe_model.py",
                    "utils/convert.py", "parallel/mesh.py", "parallel/sharded_step.py",
                    "parallel/distributed.py", "parallel/tp.py", "parallel/pp.py",
-                   "parallel/pp_general.py", "parallel/runs.py"):
+                   "parallel/pp_general.py", "parallel/runs.py", "utils/device_trace.py",
+                   "utils/profiler.py", "ops/flops.py", "ops/loss.py"):
         assert module in names
 
 
@@ -79,7 +82,9 @@ def test_guard_sees_the_package():
     "mandheling_tpu_torch.utils.onnx_io", "mandheling_tpu_torch.utils.tf_graphdef",
     "mandheling_tpu_torch.utils.graph_import", "mandheling_tpu_torch.utils.tflite_model",
     "mandheling_tpu_torch.utils.onnx_model", "mandheling_tpu_torch.utils.tf_model",
-    "mandheling_tpu_torch.utils.caffe_model", "mandheling_tpu_torch.utils.convert"])
+    "mandheling_tpu_torch.utils.caffe_model", "mandheling_tpu_torch.utils.convert",
+    "mandheling_tpu_torch.utils.device_trace", "mandheling_tpu_torch.utils.profiler",
+    "mandheling_tpu_torch.ops.flops"])
 def test_new_modules_import_without_building(module):
     """Importing a kernel module builds nothing: the build happens at the
     first launch, on the card."""

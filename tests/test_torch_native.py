@@ -1,6 +1,6 @@
 """The port's binding of the native C++ data pipeline (data/native.py) and
 `make_loader` (data/loader.py) against the JAX package's: the committed
-library loads read-only and is never built; its loader gives the JAX
+library loads read-only, and nothing is built while it loads; its loader gives the JAX
 binding's batches byte for byte, shuffled, in order and augmented; its idx
 parser and JPEG decoder give the JAX binding's arrays; `make_loader` takes
 the native loader when the library loads and the Python loader otherwise,
@@ -39,9 +39,15 @@ def _batches_equal(a, b):
             assert ya.dtype == yb.dtype == np.int32 and np.array_equal(ya, yb)
 
 
-def test_loads_read_only_and_never_builds(lib):
-    assert not hasattr(tnative, "build_native")
+def test_loads_read_only_and_never_builds(lib, monkeypatch, tmp_path):
     assert tnative.load_native() is lib
+    monkeypatch.setattr(tnative, "_lib", None)
+    monkeypatch.setattr(tnative, "_lib_tried", False)
+    monkeypatch.setattr(tnative, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(tnative, "build_native", lambda *a, **k: pytest.fail("built"))
+    again = tnative.load_native()
+    assert again is not None and again._name == lib._name
+    assert not (tmp_path / "build").exists()
 
 
 @pytest.mark.parametrize("shuffle,seed", [(True, 3), (False, 0)])
@@ -110,6 +116,7 @@ def test_make_loader_takes_the_native_loader_when_it_loads(lib):
 
 def test_without_the_library_the_python_loader_runs(monkeypatch, tmp_path):
     monkeypatch.setattr(tnative, "_NATIVE_DIR", str(tmp_path))
+    monkeypatch.setattr(tnative, "BUILD_DIR", str(tmp_path / "build"))
     monkeypatch.setattr(tnative, "_lib", None)
     monkeypatch.setattr(tnative, "_lib_tried", False)
     assert tnative.load_native() is None
@@ -124,6 +131,7 @@ def test_a_library_that_does_not_load_is_absent(monkeypatch, tmp_path):
     port takes it as absent."""
     (tmp_path / tnative._LIB_NAME).write_bytes(b"not an ELF file")
     monkeypatch.setattr(tnative, "_NATIVE_DIR", str(tmp_path))
+    monkeypatch.setattr(tnative, "BUILD_DIR", str(tmp_path / "build"))
     monkeypatch.setattr(tnative, "_lib", None)
     monkeypatch.setattr(tnative, "_lib_tried", False)
     assert tnative.load_native() is None

@@ -273,8 +273,8 @@ def test_lenet_qat_float32_forward(seed):
 
 def test_mnist_int8_train_steps_match_jax():
     """MnistInt8Train's step (the JAX CLI's inline step, without dropout)
-    for STEPS steps at its lr_inv(0.01, step): params, observers and
-    losses within 1e-9."""
+    for STEPS steps at its lr_inv(0.01, step), the lr a 0-d tensor: params,
+    observers and losses within 1e-9."""
     params, obs = jax_init()
     xs, ohs = mnist_batches(5, STEPS)
     lrs = [float(j_lr_inv(0.01, i)) for i in range(STEPS)]
@@ -301,7 +301,9 @@ def test_mnist_int8_train_steps_match_jax():
 
     model = load_qat_params(LeNetQAT().double(), params)
     tstep = qat_train.make_qat_train_step(model)
-    losses = [float(tstep(t(x), t(oh), lr)) for x, oh, lr in zip(xs, ohs, lrs)]
+    # the lr a 0-d tensor of the params' dtype, as the compiled step takes it
+    losses = [float(tstep(t(x), t(oh), torch.tensor(lr, dtype=torch.float64)))
+              for x, oh, lr in zip(xs, ohs, lrs)]
     got_p, got_o = export_qat_params(model)
     tree_close(got_p, p_j)
     tree_close(got_o, o_j)

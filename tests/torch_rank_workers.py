@@ -54,3 +54,15 @@ def join_from_env(env, results) -> None:
                      distributed.local_batch_slice(128)))
     finally:
         dist.destroy_process_group()
+
+
+def global_mesh_coords(spec) -> Dict[str, Any]:
+    """This rank's host and its place on `make_global_mesh(n_model)` for
+    each `n_model` of the spec (the error text where it raises)."""
+    out = {"host": distributed.host_index(), "hosts": distributed.host_count()}
+    for n_model in spec["n_model"]:
+        try:
+            out[n_model] = dict(distributed.make_global_mesh(n_model).coords)
+        except ValueError as e:
+            out[n_model] = str(e)
+    return out

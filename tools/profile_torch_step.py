@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of one training step of the PyTorch/CUDA port goes, on the GPU.
 
-    python3 tools/profile_torch_step.py [--model lenet|mnv2|mnv2_transfer|resnet18|resnet18_fp32|squeezenet|inceptionv3]
+    python3 tools/profile_torch_step.py [--model lenet|mnv2|mnv2_transfer|resnet18|resnet18_fp32|squeezenet|inceptionv3|lenet_qat|distill_student|lenet_fp32_teacher]
                                         [--mode matmul_only|all] [--recipe] [--batch 64 2048]
                                         [--graph] [--steps 20] [--out PATH]
 
@@ -16,16 +16,25 @@ global pool and a trained 1280 -> 12 head), the NITI
 ResNet-18 on synthetic CIFAR (default batch 256; `resnet18_fp32`: its float
 twin ResNet18FP32 through `train_fp32_bn`'s float step, TF32 off), or the zoo's NITI
 SqueezeNet v1.0 (224x224, default batch 128) and Inception-v3 (299x299,
-default batch 32) with 1000 classes on seeded integer pixels, in fused mode
-`--mode`, timed without tracing, then traced with torch.profiler. The
+default batch 32) with 1000 classes on seeded integer pixels, or the
+fine-tuning demos' float steps at batch 64 on synthetic MNIST
+(train/qat_train.py, TF32 off): `lenet_qat` MnistInt8Train's LeNetQAT step
+(normalised pixels, lr a 0-d tensor, dropout from a CUDA generator),
+`distill_student` DistillTrainQuant's student step (LeNetQAT against a
+frozen LeNetFP32 teacher, dropout) and `lenet_fp32_teacher` its teacher's
+step, in fused mode `--mode`, timed without tracing, then traced with
+torch.profiler. The
 batches come from pinned host memory, as the trainer's (`to_device`). With
 `--graph` the step is the compiled one (`jit_train_step`, or the transfer
-step through `compile_step`: one CUDA graph, captured at the first step
-and replayed), which `train_niti` runs; without it, the eager step. Prints
+and float steps through `compile_step`: one CUDA graph, captured at the
+first step and replayed), which `train_niti` and the demos run; without it,
+the eager step. Prints
 wall ms/step (back to back, and synchronised after each step as the
 trainer's StepTimer does), device busy ms/step (the union of the CUDA activity
 intervals), the device's idle share, CUDA activities and top-level host ops
-per step, and the device and host time by name. The idle share sets the
+per step, and the device time by name (utils/device_trace.per_op_rows, the
+rows of profiler.per_op_profile, from the same trace; the JSON adds each
+name's category and flops) and host time by name. The idle share sets the
 traced device busy time against the untraced wall time, since tracing
 slows the host but not the kernels. With --out, the full table is also
 written there as JSON. Needs a CUDA device.
@@ -53,17 +62,22 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from mandheling_tpu_torch.data import (onehot_padded, synthetic_cifar, synthetic_mnist,  # noqa: E402
                                        to_device)
 from mandheling_tpu_torch.models import (NITI_LOGIT_CHANNELS, NUM_CLASSES,  # noqa: E402
-                                         ResNet18FP32, inceptionv3_niti, lenet_niti,
+                                         LeNetFP32, ResNet18FP32, inceptionv3_niti, lenet_niti,
                                          mobilenet_v2_niti, resnet18_niti, squeezenet_niti)
+from mandheling_tpu_torch.models.lenet_qat import LeNetQAT  # noqa: E402
+from mandheling_tpu_torch.ops import flops  # noqa: E402
 from mandheling_tpu_torch.ops.conv import use_fused_conv_mode  # noqa: E402
 from mandheling_tpu_torch.ops.depthwise import recipe_margins  # noqa: E402
 from mandheling_tpu_torch.ops.kernels import build  # noqa: E402
 from mandheling_tpu_torch.train import make_train_step  # noqa: E402
 from mandheling_tpu_torch.train.optim import sgd_init  # noqa: E402
+from mandheling_tpu_torch.train.qat_train import (make_distill_step,  # noqa: E402
+                                                  make_qat_train_step, make_teacher_step)
 from mandheling_tpu_torch.train.step_graph import compile_step  # noqa: E402
 from mandheling_tpu_torch.train.trainer import (_normalize, full_float32,  # noqa: E402
                                                 make_float_step)
 from mandheling_tpu_torch.train.transfer import make_transfer_train_step, transfer_from  # noqa: E402
+from mandheling_tpu_torch.utils import device_trace  # noqa: E402
 
 def imagenet_like(side: int):
     """Seeded integer pixels at (side, side, 3) and labels of 1000 classes."""
@@ -91,7 +105,28 @@ MODELS = {
                    [128], 1000, 1000),
     "inceptionv3": (functools.partial(inceptionv3_niti, num_classes=1000), imagenet_like(299),
                     [32], 1000, 1000),
+    "lenet_qat": (LeNetQAT, synthetic_mnist, [64], NUM_CLASSES, NUM_CLASSES),
+    "distill_student": (LeNetQAT, synthetic_mnist, [64], NUM_CLASSES, NUM_CLASSES),
+    "lenet_fp32_teacher": (LeNetFP32, synthetic_mnist, [64], NUM_CLASSES, NUM_CLASSES),
 }
+FLOAT_STEPS = ("resnet18_fp32", "lenet_qat", "distill_student", "lenet_fp32_teacher")
+
+
+def float_step(model_name, model, device):
+    """(step, its last argument or None, whether it takes normalised pixels)
+    of a float model: train_fp32_bn's float step for the twin, the demos'
+    steps for the fine-tuning models (their dropout from a CUDA generator)."""
+    gen = torch.Generator(device=device).manual_seed(1)
+    lr = torch.full((), 0.01, device=device)
+    if model_name == "resnet18_fp32":  # the float loop's step, its lr a 0-d tensor
+        params = list(model.parameters())
+        return make_float_step(model, params, sgd_init(params), training=True), lr, True
+    if model_name == "lenet_qat":
+        return make_qat_train_step(model, gen), lr, True
+    if model_name == "lenet_fp32_teacher":
+        return make_teacher_step(model), None, False
+    teacher = LeNetFP32().reset_parameters(torch.Generator().manual_seed(2)).to(device)
+    return make_distill_step(model, teacher, gen), None, False
 
 
 def union_us(intervals):
@@ -117,11 +152,11 @@ def profile_batch(model_name: str, batch: int, steps: int, recipe: bool = False,
     xs = [x[i * batch:(i + 1) * batch].astype(np.float32) for i in range(steps)]
     ohs = [onehot_padded(y[i * batch:(i + 1) * batch], classes, logits) for i in range(steps)]
     extra = ()
-    if model_name == "resnet18_fp32":  # the float loop's step, its lr a 0-d tensor
-        params = list(model.parameters())
-        step = make_float_step(model, params, sgd_init(params), training=True)
-        xs, ohs = [_normalize(x) for x in xs], [oh.astype(np.float32) for oh in ohs]
-        extra = (torch.full((), 0.01, device=device),)
+    if model_name in FLOAT_STEPS:
+        step, last, normalised = float_step(model_name, model, device)
+        xs = [_normalize(x) if normalised else x for x in xs]
+        ohs = [oh.astype(np.float32) for oh in ohs]
+        extra = () if last is None else (last,)
     else:
         step = (make_transfer_train_step if model_name == "mnv2_transfer"
                 else make_train_step)(model)
@@ -149,16 +184,14 @@ def profile_batch(model_name: str, batch: int, steps: int, recipe: bool = False,
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
         run()  # the first trace of a process also pays the tracer's start-up
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with flops.recording() as notes, \
+            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
     traced_ms = (time.perf_counter() - t0) * 1e3 / steps
 
     events = prof.events()
     dev = [e for e in events if e.device_type == DeviceType.CUDA]
-    by_kernel = collections.defaultdict(lambda: [0, 0.0])
-    for e in dev:
-        by_kernel[e.name][0] += 1
-        by_kernel[e.name][1] += e.time_range.elapsed_us()
+    rows = device_trace.per_op_rows(device_trace.device_events(events, notes, True))
     top_host = [e for e in events if e.device_type == DeviceType.CPU and e.cpu_parent is None]
     by_host = collections.defaultdict(lambda: [0, 0.0])
     for e in top_host:
@@ -179,9 +212,13 @@ def profile_batch(model_name: str, batch: int, steps: int, recipe: bool = False,
         "device_idle_share": (1 - busy_ms / wall_ms) if dev else None,
         "cuda_activities_per_step": len(dev) / steps,
         "top_level_host_ops_per_step": len(top_host) / steps,
-        "device_by_name_us_per_step": sorted(
-            ((n, c / steps, t / steps) for n, (c, t) in by_kernel.items()),
-            key=lambda r: -r[2])[:15],
+        "device_by_name_us_per_step": [(r["name"], r["occurrences"] / steps,
+                                        r["total_us"] / steps) for r in rows[:15]],
+        "device_by_name_category_flops_per_step": [
+            (r["name"], r["category"], r["flops"] / steps) for r in rows[:15]],
+        "device_by_category_us_per_step": [
+            (c["category"], c["occurrences"] / steps, c["total_us"] / steps)
+            for c in device_trace.by_category(rows)],
         "host_by_name_us_per_step": sorted(
             ((n, c / steps, t / steps) for n, (c, t) in by_host.items()),
             key=lambda r: -r[2])[:15],
@@ -197,7 +234,8 @@ def main() -> int:
     ap.add_argument("--batch", type=int, nargs="+",
                     help="batch sizes (default: 64 2048 for lenet, 256 for mnv2, mnv2_transfer, "
                          "resnet18 and resnet18_fp32, "
-                         "128 for squeezenet, 32 for inceptionv3)")
+                         "128 for squeezenet, 32 for inceptionv3, 64 for lenet_qat, "
+                         "distill_student and lenet_fp32_teacher)")
     ap.add_argument("--recipe", action="store_true",
                     help="mnv2 only: per-channel depthwise exponents and margins 0/0")
     ap.add_argument("--graph", action="store_true",
@@ -219,7 +257,7 @@ def main() -> int:
     results = []
     for batch in args.batch or MODELS[args.model][2]:
         margins = recipe_margins() if args.recipe else contextlib.nullcontext()
-        fp32 = full_float32() if args.model == "resnet18_fp32" else contextlib.nullcontext()
+        fp32 = full_float32() if args.model in FLOAT_STEPS else contextlib.nullcontext()
         with use_fused_conv_mode(args.mode), margins, fp32:
             r = profile_batch(args.model, batch, args.steps, args.recipe, args.graph)
         results.append(r)

@@ -174,7 +174,8 @@ def mobilenet_v1_train(args):
 def mnist_int8_train(args):
     """Fake-quant QAT training (reference MnistInt8Train): LeNetQAT by
     autograd through the straight-through estimators, float momentum SGD at
-    lr_inv(0.01, step), dropout on ip1 (its mask from torch's generator)."""
+    lr_inv(0.01, step), dropout on ip1 (its mask from torch's generator).
+    The step and predict are compiled, as the JAX CLI jits them."""
     import numpy as np
     import torch
 
@@ -182,13 +183,15 @@ def mnist_int8_train(args):
     from mandheling_tpu_torch.device import resolve_device
     from mandheling_tpu_torch.models.lenet_qat import LeNetQAT
     from mandheling_tpu_torch.train.optim import lr_inv
-    from mandheling_tpu_torch.train.qat_train import make_qat_train_step, predict
+    from mandheling_tpu_torch.train.qat_train import make_predict_step, make_qat_train_step
+    from mandheling_tpu_torch.train.step_graph import compile_step
 
     device = resolve_device(args.device)
     (x, y), (xt, yt) = _data(args.root)
     model = LeNetQAT(bits=8).reset_parameters(torch.Generator().manual_seed(0)).to(device)
-    step = make_qat_train_step(model)
     gen = torch.Generator(device=device).manual_seed(1)
+    step = compile_step(make_qat_train_step(model, gen), device)
+    predict = compile_step(make_predict_step(model), device)
     dl = DataLoader(x, y, 64, seed=0)
     it = 0
     for epoch in range(args.epochs):
@@ -196,13 +199,13 @@ def mnist_int8_train(args):
             bx = (bx / 255.0 - 0.5) * 2.0
             oh = onehot_padded(by, 10, 10).astype(np.float32)
             loss = step(torch.from_numpy(bx).to(device), torch.from_numpy(oh).to(device),
-                        lr_inv(0.01, it), gen)
+                        torch.full((), lr_inv(0.01, it), device=device))
             it += 1
         n = (len(xt) // 64) * 64
         correct = 0
         for i in range(0, n, 64):
             bx = (xt[i : i + 64].astype(np.float32) / 255.0 - 0.5) * 2.0
-            pred = predict(model, torch.from_numpy(bx).to(device)).cpu().numpy()
+            pred = predict(torch.from_numpy(bx).to(device)).cpu().numpy()
             correct += int(np.sum(pred == yt[i : i + 64]))
         print(f"epoch {epoch}: loss {float(loss):.4f} test_acc {correct/max(n,1):.4f}")
 
@@ -212,7 +215,9 @@ def distill_train_quant(args):
     """Knowledge-distillation QAT (reference demo/distillTrainQuant.cpp:114-139):
     a float teacher's logits guide a fake-quant student through
     distill_loss (T = 20, alpha = 0.9, Loss.cpp:68-84). Teacher = LeNetFP32,
-    pre-trained for one epoch of plain SGD; student = LeNetQAT."""
+    pre-trained for one epoch of plain SGD; student = LeNetQAT. The teacher
+    step, the student step and predict are compiled, as the JAX CLI jits
+    them."""
     import numpy as np
     import torch
 
@@ -220,8 +225,9 @@ def distill_train_quant(args):
     from mandheling_tpu_torch.device import resolve_device
     from mandheling_tpu_torch.models import LeNetFP32
     from mandheling_tpu_torch.models.lenet_qat import LeNetQAT
-    from mandheling_tpu_torch.train.qat_train import (make_distill_step, make_teacher_step,
-                                                      predict)
+    from mandheling_tpu_torch.train.qat_train import (make_distill_step, make_predict_step,
+                                                      make_teacher_step)
+    from mandheling_tpu_torch.train.step_graph import compile_step
 
     device = resolve_device(args.device)
 
@@ -230,22 +236,23 @@ def distill_train_quant(args):
 
     (x, y), (xt, yt) = _data(args.root)
     teacher = LeNetFP32().reset_parameters(torch.Generator().manual_seed(0)).to(device)
-    tstep = make_teacher_step(teacher)
+    tstep = compile_step(make_teacher_step(teacher), device)
     dl = DataLoader(x, y, 64, seed=0)
     for bx, by in dl.epoch():
         tstep(dev(bx), dev(onehot_padded(by, 10, 10).astype(np.float32)))
     print("teacher pre-trained (1 epoch)")
 
     student = LeNetQAT(bits=8).reset_parameters(torch.Generator().manual_seed(1)).to(device)
-    sstep = make_distill_step(student, teacher)
     gen = torch.Generator(device=device).manual_seed(2)
+    sstep = compile_step(make_distill_step(student, teacher, gen), device)
+    predict = compile_step(make_predict_step(student), device)
     for epoch in range(args.epochs):
         loss = None
         for bx, by in dl.epoch():
-            loss = sstep(dev(bx), dev(onehot_padded(by, 10, 10).astype(np.float32)), gen)
+            loss = sstep(dev(bx), dev(onehot_padded(by, 10, 10).astype(np.float32)))
         n = (len(xt) // 64) * 64
         correct = sum(
-            int(np.sum(predict(student, dev(xt[i:i + 64].astype(np.float32))).cpu().numpy()
+            int(np.sum(predict(dev(xt[i:i + 64].astype(np.float32))).cpu().numpy()
                        == yt[i:i + 64]))
             for i in range(0, n, 64)
         )
@@ -740,27 +747,49 @@ def dataloader_demo(args):
     print(f"{len(dl)} batches/epoch")
 
 
-@demo("LinearRegression")
-def linear_regression(args):
-    """The reference's sanity demo (demo/linearRegression.cpp): fit y=ax+b
-    by gradient descent (data drawn from torch's generator, seed 0)."""
+def linear_regression_data(device):
+    """LinearRegression's data, y = 3x + 1.5 + 0.01 noise at 256 points,
+    drawn from torch's generator at seed 0, and its (w, b) at 0."""
     import torch
 
-    from mandheling_tpu_torch.device import resolve_device
-
-    device = resolve_device(args.device)
     gen = torch.Generator().manual_seed(0)
     xs = torch.randn((256, 1), generator=gen).to(device)
     ys = 3.0 * xs + 1.5 + 0.01 * torch.randn((256, 1), generator=gen).to(device)
-    w = torch.zeros((1, 1), device=device, requires_grad=True)
-    b = torch.zeros((1,), device=device, requires_grad=True)
-    for _ in range(200):
-        loss = torch.mean((xs @ w + b - ys) ** 2)
-        gw, gb = torch.autograd.grad(loss, (w, b))
+    return xs, ys, torch.zeros((1, 1), device=device), torch.zeros((1,), device=device)
+
+
+def make_linear_regression_step(w, b):
+    """LinearRegression's step, step(xs, ys) -> loss: the mean squared
+    error of xs @ w + b against ys and one gradient-descent update of w and
+    b in place at rate 0.1 (the JAX CLI's jitted step returns them new)."""
+    import torch
+
+    def step(xs, ys):
+        with torch.enable_grad():
+            wg, bg = w.detach().requires_grad_(), b.detach().requires_grad_()
+            loss = torch.mean((xs @ wg + bg - ys) ** 2)
+            gw, gb = torch.autograd.grad(loss, (wg, bg))
         with torch.no_grad():
-            w -= 0.1 * gw
-            b -= 0.1 * gb
-    w, b, loss = w.detach(), b.detach(), loss.detach()
+            w.sub_(0.1 * gw)
+            b.sub_(0.1 * gb)
+        return loss.detach()
+
+    return step
+
+
+@demo("LinearRegression")
+def linear_regression(args):
+    """The reference's sanity demo (demo/linearRegression.cpp): fit y=ax+b
+    by gradient descent (data drawn from torch's generator, seed 0), the
+    step compiled as the JAX CLI jits it."""
+    from mandheling_tpu_torch.device import resolve_device
+    from mandheling_tpu_torch.train.step_graph import compile_step
+
+    device = resolve_device(args.device)
+    xs, ys, w, b = linear_regression_data(device)
+    step = compile_step(make_linear_regression_step(w, b), device)
+    for _ in range(200):
+        loss = step(xs, ys)
     print(f"fit: a={float(w[0, 0]):.3f} b={float(b[0]):.3f} loss={float(loss):.6f}")
 
 

@@ -13,6 +13,8 @@ from typing import Iterator, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.spans import count, span
+
 
 class DataLoader:
     """Shuffled fixed-batch iterator with background prefetch. Drops the
@@ -42,30 +44,35 @@ class DataLoader:
 
     def epoch(self) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
         """Yield (float32 images, int32 labels) batches for one epoch,
-        prefetched on a background thread."""
-        order = self._order()
-        self._epoch += 1
-        nb = len(self)
-        q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
+        prefetched on a background thread (named "loader"). Spans
+        (utils/spans.py): `loader.epoch_start` (the order, the worker's
+        start and the first batch's wait), `loader.wait` (the wait for each
+        later batch) and, on the worker's thread, `loader.gather`."""
         stop = threading.Event()
-
-        def worker():
-            for i in range(nb):
-                if stop.is_set():
-                    return
-                idx = order[i * self.batch_size : (i + 1) * self.batch_size]
-                q.put((self.images[idx].astype(np.float32),
-                       self.labels[idx].astype(np.int32)))
-            q.put(None)
-
-        t = threading.Thread(target=worker, daemon=True)
-        t.start()
         try:
-            while True:
+            with span("loader.epoch_start"):
+                order = self._order()
+                self._epoch += 1
+                nb = len(self)
+                q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
+
+                def worker():
+                    for i in range(nb):
+                        if stop.is_set():
+                            return
+                        with span("loader.gather"):
+                            idx = order[i * self.batch_size : (i + 1) * self.batch_size]
+                            item = (self.images[idx].astype(np.float32),
+                                    self.labels[idx].astype(np.int32))
+                        q.put(item)
+                    q.put(None)
+
+                threading.Thread(target=worker, daemon=True, name="loader").start()
                 item = q.get()
-                if item is None:
-                    return
+            while item is not None:
                 yield item
+                with span("loader.wait"):
+                    item = q.get()
         finally:
             stop.set()
 
@@ -105,9 +112,10 @@ def shard_for_host(images: np.ndarray, labels: np.ndarray, host_id: int,
 def onehot_padded(labels: np.ndarray, num_classes: int, width: int) -> np.ndarray:
     """One-hot with zero padding out to the model's logit width (10 classes
     in 12 NITI logit channels)."""
-    out = np.zeros((len(labels), width), np.int32)
-    out[np.arange(len(labels)), labels] = 1
-    return out
+    with span("loader.onehot"):
+        out = np.zeros((len(labels), width), np.int32)
+        out[np.arange(len(labels)), labels] = 1
+        return out
 
 
 def to_device(a: np.ndarray, device: torch.device,
@@ -117,10 +125,17 @@ def to_device(a: np.ndarray, device: torch.device,
     non-blocking, so the copy overlaps the host's next work. The pinned
     block is not overwritten before its copy has run: torch's host
     allocator records the copy's event on it and hands the block out again
-    only once that event has passed. On the CPU: the array's tensor."""
-    t = torch.from_numpy(np.ascontiguousarray(a))
-    if dtype is not None:
-        t = t.to(dtype)
-    if device.type != "cuda":
-        return t
-    return t.pin_memory().to(device, non_blocking=True)
+    only once that event has passed. On the CPU: the array's tensor.
+    Span `loader.to_device`, its device marks around the copy alone, its
+    child `loader.pin`, and counter `loader.h2d_bytes` (utils/spans.py)."""
+    with span("loader.to_device") as sp:
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if dtype is not None:
+            t = t.to(dtype)
+        if device.type != "cuda":
+            return t
+        with span("loader.pin"):
+            t = t.pin_memory()
+        count("loader.h2d_bytes", t.numel() * t.element_size())
+        with sp.device():
+            return t.to(device, non_blocking=True)

@@ -22,6 +22,8 @@ from typing import Optional
 
 import numpy as np
 
+from ..utils.spans import span
+
 _LIB_NAME = "libmandheling_native.so"
 _NATIVE_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
@@ -172,6 +174,8 @@ class NativeLoader:
         return len(self.images) // self.batch
 
     def epoch(self):
+        """Batches of one epoch from the C++ workers; span `loader.wait`
+        around each blocking fetch (utils/spans.py)."""
         h, w, c = self.sample_shape
         nb = self._lib.mdl_epoch_start(
             self._handle, self.batch, int(self.shuffle),
@@ -181,11 +185,12 @@ class NativeLoader:
         for _ in range(nb):
             x = np.empty((self.batch, h, w, c), np.float32)
             y = np.empty((self.batch,), np.int32)
-            ok = self._lib.mdl_next(
-                self._handle,
-                x.ctypes.data_as(ctypes.c_void_p),
-                y.ctypes.data_as(ctypes.c_void_p),
-            )
+            with span("loader.wait"):
+                ok = self._lib.mdl_next(
+                    self._handle,
+                    x.ctypes.data_as(ctypes.c_void_p),
+                    y.ctypes.data_as(ctypes.c_void_p),
+                )
             if not ok:
                 return
             yield x, y

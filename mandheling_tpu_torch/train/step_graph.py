@@ -36,11 +36,20 @@ CUDA device:
   up for it: the launches a capture counted are taken back, and added again
   at every replay, so the counts stay launches executed. So are the launch
   notes the profiler reads (ops/flops.py), in the same hook.
+- Spans and counters (utils/spans.py, recorded only inside
+  `profiler.spans`): `step.call` around every call, with device marks from
+  the replay's first copy-in to its last clone; `step.capture` (warm-up and
+  capture) and counter `step.captures`; inside a replay `step.copy_in`,
+  `step.replay` (the `CUDAGraph.replay()` call alone), `step.hooks` and
+  `step.clone`, counter `step.replays`, and counter `step.graph_kernels`,
+  the kernel nodes of the replayed graph, counted once when it is captured
+  (:func:`graph_kernels`).
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
 from typing import Any, Callable, Dict, List, Tuple
 
 import torch
@@ -49,6 +58,7 @@ from ..ops import conv as conv_ops
 from ..ops import depthwise as dw_ops
 from ..ops import flops
 from ..ops import kernels
+from ..utils.spans import count, span
 
 
 def settings() -> Tuple:
@@ -114,13 +124,59 @@ def _warm_up(stream, fn: Callable, args: Tuple):
         return fn(*args)
 
 
+# libcuda's node types (CUgraphNodeType) that graph_kernels reads
+_KERNEL_NODE, _CHILD_GRAPH_NODE = 0, 4
+
+
+def _libcuda():
+    """libcuda's graph queries, their argument types declared."""
+    lib = ctypes.CDLL("libcuda.so.1")
+    ptr, out = ctypes.c_void_p, ctypes.POINTER
+    lib.cuGraphGetNodes.argtypes = [ptr, ptr, out(ctypes.c_size_t)]
+    lib.cuGraphNodeGetType.argtypes = [ptr, out(ctypes.c_int)]
+    lib.cuGraphChildGraphNodeGetGraph.argtypes = [ptr, out(ptr)]
+    for f in (lib.cuGraphGetNodes, lib.cuGraphNodeGetType, lib.cuGraphChildGraphNodeGetGraph):
+        f.restype = ctypes.c_int
+    return lib
+
+
+def _check(status: int) -> None:
+    if status != 0:
+        raise RuntimeError(f"a libcuda graph query failed with CUresult {status}")
+
+
+def graph_kernels(graph: int, lib=None) -> int:
+    """The kernel nodes of a captured `cudaGraph_t` (its handle as an int,
+    `CUDAGraph.raw_cuda_graph()`), those of child graphs included, read
+    through libcuda."""
+    lib = lib or _libcuda()
+    n = ctypes.c_size_t(0)
+    _check(lib.cuGraphGetNodes(graph, None, ctypes.byref(n)))
+    nodes = (ctypes.c_void_p * n.value)()
+    _check(lib.cuGraphGetNodes(graph, nodes, ctypes.byref(n)))
+    kind, child, total = ctypes.c_int(0), ctypes.c_void_p(), 0
+    for node in nodes[:n.value]:
+        _check(lib.cuGraphNodeGetType(node, ctypes.byref(kind)))
+        if kind.value == _KERNEL_NODE:
+            total += 1
+        elif kind.value == _CHILD_GRAPH_NODE:
+            _check(lib.cuGraphChildGraphNodeGetGraph(node, ctypes.byref(child)))
+            total += graph_kernels(child.value, lib)
+    return total
+
+
 def _new_graph():
-    return torch.cuda.CUDAGraph()
+    return torch.cuda.CUDAGraph(keep_graph=True)
 
 
 def _capture(graph, stream, fn: Callable, args: Tuple):
+    """fn(*args) captured into `graph` on `stream`; its kernel nodes are
+    counted into `graph.kernels` before it is instantiated."""
     with torch.cuda.graph(graph, stream=stream):
-        return fn(*args)
+        out = fn(*args)
+    graph.kernels = graph_kernels(graph.raw_cuda_graph())
+    graph.instantiate()
+    return out
 
 
 def _clone(out):
@@ -149,32 +205,43 @@ class _Graph:
     def __init__(self, fn: Callable, args: Tuple, device: torch.device):
         gens = _generators(fn, device)
         current, stream = _streams(device)
-        self.inputs = tuple(torch.empty(a.shape, dtype=a.dtype, device=device) for a in args)
-        self._copy_in(args)
-        stream.wait_stream(current)
-        first = _warm_up(stream, fn, self.inputs)
-        tokens = [(hook, hook.begin()) for hook in _HOOKS]
-        self.graph = _new_graph()
-        for g in gens:
-            self.graph.register_generator_state(g)
-        try:
-            self.outputs = _capture(self.graph, stream, fn, self.inputs)
-        finally:
-            self.recorded = [(hook, hook.end(token)) for hook, token in tokens]
-        current.wait_stream(stream)
-        self.first = _clone(first)
+        with span("step.capture"):
+            self.inputs = tuple(torch.empty(a.shape, dtype=a.dtype, device=device)
+                                for a in args)
+            self._copy_in(args)
+            stream.wait_stream(current)
+            first = _warm_up(stream, fn, self.inputs)
+            tokens = [(hook, hook.begin()) for hook in _HOOKS]
+            self.graph = _new_graph()
+            for g in gens:
+                self.graph.register_generator_state(g)
+            try:
+                self.outputs = _capture(self.graph, stream, fn, self.inputs)
+            finally:
+                self.recorded = [(hook, hook.end(token)) for hook, token in tokens]
+            current.wait_stream(stream)
+            self.first = _clone(first)
+        count("step.captures")
+        # what _capture counted (a graph it did not count reads 0)
+        self.kernels = getattr(self.graph, "kernels", 0)
 
     def _copy_in(self, args: Tuple) -> None:
         for dst, src in zip(self.inputs, args):
             dst.copy_(src, non_blocking=True)
 
     def replay(self, args: Tuple):
-        self._copy_in(args)
-        self.graph.replay()
-        for hook, recorded in self.recorded:
-            if any(h is hook for h in _HOOKS):
-                hook.replay(recorded)
-        return _clone(self.outputs)
+        with span("step.copy_in"):
+            self._copy_in(args)
+        with span("step.replay"):
+            self.graph.replay()
+        with span("step.hooks"):
+            for hook, recorded in self.recorded:
+                if any(h is hook for h in _HOOKS):
+                    hook.replay(recorded)
+        count("step.replays")
+        count("step.graph_kernels", self.kernels)
+        with span("step.clone"):
+            return _clone(self.outputs)
 
 
 class CompiledStep:
@@ -188,13 +255,15 @@ class CompiledStep:
         self._graphs: Dict[Tuple, _Graph] = {}
 
     def __call__(self, *args: torch.Tensor):
-        key = tuple((tuple(a.shape), a.dtype) for a in args) + settings()
-        graph = self._graphs.get(key)
-        if graph is None:
-            graph = self._graphs[key] = _Graph(self.fn, args, self.device)
-            out, graph.first = graph.first, None
-            return out
-        return graph.replay(args)
+        with span("step.call") as call:
+            key = tuple((tuple(a.shape), a.dtype) for a in args) + settings()
+            graph = self._graphs.get(key)
+            if graph is None:
+                graph = self._graphs[key] = _Graph(self.fn, args, self.device)
+                out, graph.first = graph.first, None
+                return out
+            with call.device():
+                return graph.replay(args)
 
     @property
     def graphs(self) -> int:

@@ -10,6 +10,9 @@ and counts flops as it runs:
 - :class:`StepTimer`: ms/step and samples/s, as the training loops print
   them (MnistUtils.cpp:128-147);
 - :func:`trace` (`xla_trace`): a Chrome trace of the work inside;
+- :func:`spans` (utils/spans.py): the program's own host spans, counters
+  and device marks on one clock, without torch.profiler, so a replayed
+  CUDA graph runs as it does untraced; `Record.write_chrome` writes them;
 - :func:`cost_analysis` / :func:`flops_per_step`: the NITI integer
   contractions from their shapes (ops/flops.py) and the float contractions
   from torch's FlopCounterMode;
@@ -31,6 +34,7 @@ from torch.utils._pytree import tree_flatten
 
 from ..ops import flops as flop_count
 from . import device_trace
+from .spans import Record, count, span, spans  # noqa: F401
 
 
 class StepTimer:

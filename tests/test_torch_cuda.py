@@ -1071,3 +1071,41 @@ def test_per_op_profile_of_the_compiled_lenet_step(gen):
                 m = lenet_niti().reset_parameters(torch.Generator().manual_seed(0)).to(dev)
                 counts.add(profiler.flops_per_step(make_train_step(m), x.to(dev), oh.to(dev)))
     assert len(counts) == 1 and 2 * counts.pop() == sum(c["flops"] for c in cats)
+
+
+def test_spans_mark_the_compiled_lenet_step_on_one_clock(gen):
+    """The compiled LeNet b64 step fed by to_device under profiler.spans:
+    one device interval a step call and a batch copy, each inside the
+    recording's anchors, none resolved more than 20 us before the host
+    recorded it; step.graph_kernels per replay equals the kernels
+    torch.profiler sees a replayed call launch (memcpy and memset apart)."""
+    import numpy as np
+
+    from mandheling_tpu_torch.data import onehot_padded, to_device
+    from mandheling_tpu_torch.models import lenet_niti
+    from mandheling_tpu_torch.train import jit_train_step
+    from mandheling_tpu_torch.utils import device_trace, profiler
+
+    rng = np.random.default_rng(3)
+    xs = [rng.integers(0, 256, (64, 28, 28, 1)).astype(np.float32) for _ in range(4)]
+    ohs = [onehot_padded(rng.integers(0, 10, 64), 10, 12) for _ in range(4)]
+    model = lenet_niti().reset_parameters(torch.Generator().manual_seed(0)).cuda()
+    step = jit_train_step(model)
+    dev = torch.device("cuda")
+    step(to_device(xs[0], dev), to_device(ohs[0], dev))  # the capture, outside
+    with profiler.spans(dev) as rec:
+        for x, oh in zip(xs, ohs):
+            step(to_device(x, dev), to_device(oh, dev))
+    names = [i.name for i in rec.intervals]
+    assert names.count("step.call") == 4 and names.count("loader.to_device") == 8
+    lo, hi = rec.anchors_ns
+    assert all(lo <= i.start_ns <= i.end_ns <= hi for i in rec.intervals)
+    assert rec.lead_ns < 20_000 and abs(rec.drift_ns) < 0.01 * (hi - lo)
+    assert rec.counters["step.replays"] == 4 and "step.captures" not in rec.counters
+    assert rec.counters["loader.h2d_bytes"] == 4 * (64 * 28 * 28 * 4 + 64 * 12 * 4)
+    kernels = rec.counters["step.graph_kernels"] // 4
+    x, oh = to_device(xs[0], dev), to_device(ohs[0], dev)
+    events = profiler.trace_device_events(step, x, oh, iters=2)
+    rows = device_trace.per_op_rows(events)
+    traced = sum(r["occurrences"] for r in rows if r["category"] not in ("memcpy", "memset"))
+    assert kernels > 0 and traced == 2 * kernels

@@ -449,3 +449,35 @@ def test_compile_step_is_the_eager_step_on_the_cpu():
     """On the CPU, which the caller asks for, the compiled step is the step."""
     assert step_graph.compile_step(doubled, "cpu") is doubled
     assert isinstance(step_graph.compile_step(doubled, "cuda"), step_graph.CompiledStep)
+
+
+def test_compiled_step_spans_and_counters(stub_cuda, monkeypatch):
+    """Recorded under profiler.spans: step.call around every call (the step
+    id), step.capture inside the first, step.copy_in / step.replay /
+    step.hooks / step.clone inside each replay, in that order; counters
+    step.captures, step.replays and step.graph_kernels (the kernel nodes
+    _capture counted, once a replay). A call outside the recording records
+    nothing."""
+    from mandheling_tpu_torch.utils import profiler
+
+    def counted(graph, stream, fn, args):
+        out = fake_capture(graph, stream, fn, args)
+        graph.kernels = 7
+        return out
+
+    monkeypatch.setattr(step_graph, "_capture", counted)
+    step = step_graph.CompiledStep(doubled, "cpu")
+    x, y = torch.arange(4.0), torch.ones(4)
+    with profiler.spans("cpu") as rec:
+        outs = [step(x + i, y) for i in range(3)]
+    step(x, y)
+    assert all(torch.equal(a, 2 * (x + i)) for i, (a, _) in enumerate(outs))
+    calls = [s for s in rec.spans if s.name == "step.call"]
+    assert [s.step for s in calls] == [1, 2, 3] and rec.steps == 3
+    inside = {c.id: [s.name for s in rec.spans if s.parent == c.id] for c in calls}
+    assert inside[calls[0].id] == ["step.capture"]
+    for c in calls[1:]:
+        assert inside[c.id] == ["step.copy_in", "step.replay", "step.hooks", "step.clone"]
+    assert all(s.step == c.step for c in calls for s in rec.spans if s.parent == c.id)
+    assert rec.counters == {"step.captures": 1, "step.replays": 2, "step.graph_kernels": 14}
+    assert rec.intervals == []  # no device, no marks

@@ -31,13 +31,18 @@ first step and replayed), which `train_niti` and the demos run; without it,
 the eager step. Prints
 wall ms/step (back to back, and synchronised after each step as the
 trainer's StepTimer does), device busy ms/step (the union of the CUDA activity
-intervals), the device's idle share, CUDA activities and top-level host ops
+intervals), the device's starved share, CUDA activities and top-level host ops
 per step, and the device time by name (utils/device_trace.per_op_rows, the
 rows of profiler.per_op_profile, from the same trace; the JSON adds each
-name's category and flops) and host time by name. The idle share sets the
-traced device busy time against the untraced wall time, since tracing
-slows the host but not the kernels. With --out, the full table is also
-written there as JSON. Needs a CUDA device.
+name's category and flops) and host time by name. The starved share comes
+from one untraced run recorded by `profiler.spans` (no tracer, so a
+replayed graph is launched as it is untraced): one less the union of the
+run's device intervals (each batch copy and each step, from the event
+before its first device operation to the one after its last) over the
+stretch from the first one's start to the last one's end, all on one
+clock. It is the share of that stretch in which the card had none of the
+run's work queued; gaps inside a step are not in it. With --out, the full
+table is also written there as JSON. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -77,7 +82,7 @@ from mandheling_tpu_torch.train.step_graph import compile_step  # noqa: E402
 from mandheling_tpu_torch.train.trainer import (_normalize, full_float32,  # noqa: E402
                                                 make_float_step)
 from mandheling_tpu_torch.train.transfer import make_transfer_train_step, transfer_from  # noqa: E402
-from mandheling_tpu_torch.utils import device_trace  # noqa: E402
+from mandheling_tpu_torch.utils import device_trace, profiler  # noqa: E402
 
 def imagenet_like(side: int):
     """Seeded integer pixels at (side, side, 3) and labels of 1000 classes."""
@@ -166,7 +171,10 @@ def profile_batch(model_name: str, batch: int, steps: int, recipe: bool = False,
     def run(step_times=None):
         for xb, oh in zip(xs, ohs):
             t0 = time.perf_counter()
-            step(to_device(xb, device), to_device(oh, device), *extra)
+            args = to_device(xb, device), to_device(oh, device)
+            # an eager step has no span of its own (the compiled one's is step.call)
+            with profiler.span("tool.step") as sp, sp.device():
+                step(*args, *extra)
             if step_times is not None:  # as train_niti's StepTimer times a step
                 torch.cuda.synchronize()
                 step_times.append((time.perf_counter() - t0) * 1e3)
@@ -181,6 +189,13 @@ def profile_batch(model_name: str, batch: int, steps: int, recipe: bool = False,
         walls.append((time.perf_counter() - t0) * 1e3 / steps)
     synced = []
     run(synced)
+    with profiler.spans(device) as rec:
+        run()
+    starved = None
+    if rec.intervals:
+        marked = [(i.start_ns, i.end_ns) for i in rec.intervals]
+        stretch = max(e for _, e in marked) - min(s for s, _ in marked)
+        starved = 1 - union_us(marked) / stretch
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
         run()  # the first trace of a process also pays the tracer's start-up
     t0 = time.perf_counter()
@@ -208,8 +223,9 @@ def profile_batch(model_name: str, batch: int, steps: int, recipe: bool = False,
                                      float(np.percentile(synced, 75))],
         "first_run_step_ms": first,
         "device_busy_ms_per_step": busy_ms if dev else None,
-        # device time is the tracer's; the wall is the untraced run's
-        "device_idle_share": (1 - busy_ms / wall_ms) if dev else None,
+        # from the device marks of one untraced run (profiler.spans)
+        "device_starved_share": starved,
+        "clock_drift_ns": rec.drift_ns,
         "cuda_activities_per_step": len(dev) / steps,
         "top_level_host_ops_per_step": len(top_host) / steps,
         "device_by_name_us_per_step": [(r["name"], r["occurrences"] / steps,
@@ -261,12 +277,12 @@ def main() -> int:
         with use_fused_conv_mode(args.mode), margins, fp32:
             r = profile_batch(args.model, batch, args.steps, args.recipe, args.graph)
         results.append(r)
-        busy = r["device_busy_ms_per_step"]
+        busy, starved = r["device_busy_ms_per_step"], r["device_starved_share"]
         print(f"batch {batch}: wall {r['wall_ms_per_step']:.3f} ms/step "
               f"({batch / r['wall_ms_per_step'] * 1e3:.0f} samples/s), traced "
               f"{r['traced_ms_per_step']:.3f} ms/step, device busy "
-              f"{'not measured' if busy is None else '%.3f ms/step' % busy}, idle share "
-              f"{'not measured' if busy is None else '%.3f' % r['device_idle_share']}, "
+              f"{'not measured' if busy is None else '%.3f ms/step' % busy}, starved share "
+              f"{'not measured' if starved is None else '%.4f' % starved}, "
               f"{r['cuda_activities_per_step']:.0f} CUDA activities and "
               f"{r['top_level_host_ops_per_step']:.0f} top-level host ops per step", flush=True)
         print(f"  synchronised after each step (as train_niti times it): median "

@@ -31,7 +31,12 @@ raises on failure (the script then exits non-zero and prints no result):
    stride 1, 3 at stride 2), the JAX test shape, ragged C, strides on ragged
    C and odd maps, 5x5 and 3x1 kernels and cases whose sums wrap past 2^31 at
    strides 1 and 2, each called twice (the second call equal to the first);
-   kernel, plain, library and bound times;
+   kernel, plain, library and bound times; K7 (requant_int32_absmax /
+   _requant) at every non-fused requant site of a train step of the
+   benchmark's models (the MobileNetV2 recipe and ResNet-18 at batch 256,
+   rehearsed on the meta device), each in its form, mode and activation,
+   both phases, beside the plain chain's time, the byte bound and phase 2's
+   CUDA-core floor;
 4. LeNet's main path at batch 64: `train_niti` on the card with the kernels,
    launch counts reset just before and read just after; then the same steps
    from the same params with the plain versions on the card and on the CPU.
@@ -203,6 +208,7 @@ import importlib.util
 import io
 import itertools
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -244,7 +250,7 @@ from mandheling_tpu_torch.ops import numerics
 from mandheling_tpu_torch.ops import kernels
 from mandheling_tpu_torch.ops.conv import use_fused_conv_mode
 from mandheling_tpu_torch.ops.kernels import (build, fused_conv_int8, fused_dwconv_int8,
-                                              fused_matmul_int8, matmul_int8)
+                                              fused_matmul_int8, matmul_int8, requant_int32)
 from mandheling_tpu_torch.parallel import distributed, quantize_microbatches, tp
 from mandheling_tpu_torch.parallel import runs as runs_mod
 from mandheling_tpu_torch.data.loader import onehot_padded
@@ -458,72 +464,75 @@ K5_PATH_KEYS = {(xs, k, pads, stride) for _, xs, k, pads, stride in K5_PATH_CASE
 # (per-channel depthwise exponents, margins 0/0; `MobilenetV2Train`, batch
 # 16 on synthetic data), whose per-channel depthwise forms take K4 where
 # their per-tensor twins do (with their alignment shifts as K4's operand).
+# K7 requantizes every int32 accumulator that no fused kernel takes, both of
+# its phases once a site (counted here once a site, as K2-K4 are).
 EXPECTED_PER_STEP = {
-    ("lenet", 64, "matmul_only"): ({"K1": 11}, {"K1": 4}),
-    ("lenet", 2048, "matmul_only"): ({"K1": 10, "K2": 1}, {"K1": 4}),
-    ("lenet", 64, "all"): ({"K1": 8, "K3": 3}, {"K1": 2, "K3": 2}),
-    ("mnv2", 256, "matmul_only"): ({"K1": 65, "K2": 42, "K4": 31, "K5": 17},
-                                   {"K1": 15, "K2": 21, "K4": 14}),
-    ("mnv2", 32, "matmul_only"): ({"K1": 81, "K2": 26, "K4": 31, "K5": 17},
-                                  {"K1": 23, "K2": 13, "K4": 14}),
-    ("mnv2", 256, "all"): ({"K1": 64, "K2": 42, "K3": 1, "K4": 31, "K5": 17},
-                           {"K1": 14, "K2": 21, "K3": 1, "K4": 14}),
-    ("mnv2pc", 256, "matmul_only"): ({"K1": 65, "K2": 42, "K4": 31, "K5": 17},
-                                     {"K1": 15, "K2": 21, "K4": 14}),
-    ("mnv2pc", 32, "matmul_only"): ({"K1": 81, "K2": 26, "K4": 31, "K5": 17},
-                                    {"K1": 23, "K2": 13, "K4": 14}),
-    ("mnv2pc", 16, "matmul_only"): ({"K1": 95, "K2": 12, "K4": 31, "K5": 17},
-                                    {"K1": 30, "K2": 6, "K4": 14}),
+    ("lenet", 64, "matmul_only"): ({"K1": 11, "K7": 11}, {"K1": 4, "K7": 4}),
+    ("lenet", 2048, "matmul_only"): ({"K1": 10, "K2": 1, "K7": 10}, {"K1": 4, "K7": 4}),
+    ("lenet", 64, "all"): ({"K1": 8, "K3": 3, "K7": 8}, {"K1": 2, "K3": 2, "K7": 2}),
+    ("mnv2", 256, "matmul_only"): ({"K1": 65, "K2": 42, "K4": 31, "K5": 17, "K7": 95},
+                                   {"K1": 15, "K2": 21, "K4": 14, "K7": 28}),
+    ("mnv2", 32, "matmul_only"): ({"K1": 81, "K2": 26, "K4": 31, "K5": 17, "K7": 111},
+                                  {"K1": 23, "K2": 13, "K4": 14, "K7": 36}),
+    ("mnv2", 256, "all"): ({"K1": 64, "K2": 42, "K3": 1, "K4": 31, "K5": 17, "K7": 94},
+                           {"K1": 14, "K2": 21, "K3": 1, "K4": 14, "K7": 27}),
+    ("mnv2pc", 256, "matmul_only"): ({"K1": 65, "K2": 42, "K4": 31, "K5": 17, "K7": 95},
+                                     {"K1": 15, "K2": 21, "K4": 14, "K7": 28}),
+    ("mnv2pc", 32, "matmul_only"): ({"K1": 81, "K2": 26, "K4": 31, "K5": 17, "K7": 111},
+                                    {"K1": 23, "K2": 13, "K4": 14, "K7": 36}),
+    ("mnv2pc", 16, "matmul_only"): ({"K1": 95, "K2": 12, "K4": 31, "K5": 17, "K7": 125},
+                                    {"K1": 30, "K2": 6, "K4": 14, "K7": 43}),
     # each rank of phase 16's data-parallel recipe run (global batch 256 over 2)
-    ("mnv2pc", 128, "matmul_only"): ({"K1": 65, "K2": 42, "K4": 31, "K5": 17},
-                                     {"K1": 15, "K2": 21, "K4": 14}),
-    ("mnv2pc", 128, "all"): ({"K1": 64, "K2": 42, "K3": 1, "K4": 31, "K5": 17},
-                             {"K1": 14, "K2": 21, "K3": 1, "K4": 14}),
+    ("mnv2pc", 128, "matmul_only"): ({"K1": 65, "K2": 42, "K4": 31, "K5": 17, "K7": 95},
+                                     {"K1": 15, "K2": 21, "K4": 14, "K7": 28}),
+    ("mnv2pc", 128, "all"): ({"K1": 64, "K2": 42, "K3": 1, "K4": 31, "K5": 17, "K7": 94},
+                             {"K1": 14, "K2": 21, "K3": 1, "K4": 14, "K7": 27}),
     # ResNet-18 (CIFAR): K2 takes the strided 1x1 projections and their input
     # grads where the accumulator reaches 2 MB (at batch 8 one input grad);
     # under "all" K3 takes the 3x3 forwards but layer4's 512 -> 512 and the
     # stride-1 input grads of layer1-3. ResNet-v2-50 at 224x224, 1000
     # classes: K2 the bottleneck 1x1s at 55x55 and 28x28, K1 the rest.
-    ("resnet18", 256, "matmul_only"): ({"K1": 56, "K2": 6}, {"K1": 18, "K2": 3}),
-    ("resnet18", 256, "all"): ({"K1": 32, "K2": 6, "K3": 24}, {"K1": 4, "K2": 3, "K3": 14}),
-    ("resnet18", 8, "matmul_only"): ({"K1": 61, "K2": 1}, {"K1": 21}),
-    ("resnet50v2", 16, "matmul_only"): ({"K1": 127, "K2": 34}, {"K1": 37, "K2": 17}),
+    ("resnet18", 256, "matmul_only"): ({"K1": 56, "K2": 6, "K7": 64}, {"K1": 18, "K2": 3, "K7": 26}),
+    ("resnet18", 256, "all"): ({"K1": 32, "K2": 6, "K3": 24, "K7": 40}, {"K1": 4, "K2": 3, "K3": 14, "K7": 12}),
+    ("resnet18", 8, "matmul_only"): ({"K1": 61, "K2": 1, "K7": 69}, {"K1": 21, "K7": 29}),
+    ("resnet50v2", 16, "matmul_only"): ({"K1": 127, "K2": 34, "K7": 143}, {"K1": 37, "K2": 17, "K7": 53}),
     # The zoo, 1000 classes: SqueezeNet v1.0 at 224x224, Inception-v3 at
     # 299x299; under "all" K3 takes every non-1x1 SqueezeNet conv and 22
     # Inception forwards (its 1x7s, 1x3s, the 35x35 3x3s and the stem) and 17
     # of their input grads. "squeezenet10": 10 classes at 32x32 (CIFAR).
-    ("squeezenet", 128, "matmul_only"): ({"K1": 45, "K2": 32}, {"K1": 10, "K2": 16}),
-    ("squeezenet", 128, "all"): ({"K1": 36, "K2": 32, "K3": 9}, {"K1": 1, "K2": 16, "K3": 9}),
-    ("squeezenet", 2, "all"): ({"K1": 68, "K3": 9}, {"K1": 17, "K3": 9}),
-    ("squeezenet10", 64, "matmul_only"): ({"K1": 77}, {"K1": 26}),
-    ("inceptionv3", 32, "matmul_only"): ({"K1": 256, "K2": 28}, {"K1": 81, "K2": 14}),
-    ("inceptionv3", 32, "all"): ({"K1": 217, "K2": 28, "K3": 39},
-                                 {"K1": 59, "K2": 14, "K3": 22}),
-    ("inceptionv3", 2, "all"): ({"K1": 245, "K3": 39}, {"K1": 73, "K3": 22}),
+    ("squeezenet", 128, "matmul_only"): ({"K1": 45, "K2": 32, "K7": 45}, {"K1": 10, "K2": 16, "K7": 10}),
+    ("squeezenet", 128, "all"): ({"K1": 36, "K2": 32, "K3": 9, "K7": 36}, {"K1": 1, "K2": 16, "K3": 9, "K7": 1}),
+    ("squeezenet", 2, "all"): ({"K1": 68, "K3": 9, "K7": 68}, {"K1": 17, "K3": 9, "K7": 17}),
+    ("squeezenet10", 64, "matmul_only"): ({"K1": 77, "K7": 77}, {"K1": 26, "K7": 26}),
+    ("inceptionv3", 32, "matmul_only"): ({"K1": 256, "K2": 28, "K7": 256}, {"K1": 81, "K2": 14, "K7": 81}),
+    ("inceptionv3", 32, "all"): ({"K1": 217, "K2": 28, "K3": 39, "K7": 217},
+                                 {"K1": 59, "K2": 14, "K3": 22, "K7": 59}),
+    ("inceptionv3", 2, "all"): ({"K1": 245, "K3": 39, "K7": 245}, {"K1": 73, "K3": 22, "K7": 73}),
     # MobileNetV2 with int16 projection outputs (proj_bits=15): K1's int16-A
     # route takes the 17 convs that read them (16 expansions and the head),
     # forward and filter grad; no fused kernel takes an int16 operand or
     # output, so K2 keeps only the input grads it took.
-    ("mnv2p15", 256, "matmul_only"): ({"K1": 52, "K1i16": 34, "K2": 21, "K4": 31, "K5": 17},
-                                      {"K1": 19, "K1i16": 17, "K4": 14}),
-    ("mnv2p15", 32, "matmul_only"): ({"K1": 60, "K1i16": 34, "K2": 13, "K4": 31, "K5": 17},
-                                     {"K1": 19, "K1i16": 17, "K4": 14}),
+    ("mnv2p15", 256, "matmul_only"): ({"K1": 52, "K1i16": 34, "K2": 21, "K4": 31, "K5": 17, "K7": 116},
+                                      {"K1": 19, "K1i16": 17, "K4": 14, "K7": 49}),
+    ("mnv2p15", 32, "matmul_only"): ({"K1": 60, "K1i16": 34, "K2": 13, "K4": 31, "K5": 17, "K7": 124},
+                                     {"K1": 19, "K1i16": 17, "K4": 14, "K7": 49}),
     # MobilenetV2Transfer at full width (mnv2_transfer_model): the frozen
     # features run a MobileNetV2 eval step's forward but its classifier; a
     # train step adds the head's forward and filter grad (K1, K = 1280 > 512
     # and 256), no input grad and no depthwise filter grad.
-    ("mnv2_transfer", 256, "matmul_only"): ({"K1": 16, "K2": 21, "K4": 14},
-                                           {"K1": 15, "K2": 21, "K4": 14}),
-    ("mnv2_transfer", 256, "all"): ({"K1": 15, "K2": 21, "K3": 1, "K4": 14},
-                                    {"K1": 14, "K2": 21, "K3": 1, "K4": 14}),
-    ("mnv2_transfer", 32, "matmul_only"): ({"K1": 24, "K2": 13, "K4": 14},
-                                          {"K1": 23, "K2": 13, "K4": 14}),
+    ("mnv2_transfer", 256, "matmul_only"): ({"K1": 16, "K2": 21, "K4": 14, "K7": 29},
+                                           {"K1": 15, "K2": 21, "K4": 14, "K7": 28}),
+    ("mnv2_transfer", 256, "all"): ({"K1": 15, "K2": 21, "K3": 1, "K4": 14, "K7": 28},
+                                    {"K1": 14, "K2": 21, "K3": 1, "K4": 14, "K7": 27}),
+    ("mnv2_transfer", 32, "matmul_only"): ({"K1": 24, "K2": 13, "K4": 14, "K7": 37},
+                                          {"K1": 23, "K2": 13, "K4": 14, "K7": 36}),
 }
 FAMILIES = {"K1": ("matmul_int8",), "K1i16": ("matmul_int16a",),
             "K2": ("fused_matmul_max", "fused_matmul_requant"),
             "K3": ("fused_conv_max", "fused_conv_requant"),
             "K4": ("fused_dwconv_max", "fused_dwconv_requant"),
-            "K5": ("fused_dwconv_fgrad",)}
+            "K5": ("fused_dwconv_fgrad",),
+            "K7": ("requant_int32_absmax", "requant_int32_requant")}
 
 
 def mnv2_transfer_model() -> TransferModel:
@@ -1019,6 +1028,131 @@ def check_k5(rates, mac_rate, gen):
               f"{row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, bound {b_ms * 1e3:.2f} us "
               f"{b_by})", flush=True)
     return rows, worst
+
+
+# K7: the benchmark's models, whose non-fused requant sites phase 3 checks
+# and times, rehearsed on the meta device: (what, model, batch, the recipe's
+# margins).
+K7_NETS = [("MNv2 recipe b256", functools.partial(mobilenet_v2_niti, dw_per_channel=True), 256,
+            True),
+           ("ResNet-18 b256", resnet18_niti, 256, False)]
+K7_SUMS = {(torch.int8, torch.int8): "sum", (torch.int16, torch.int16): "sum16",
+           (torch.int8, torch.int16): "sum8_16", (torch.int16, torch.int8): "sum16_8"}
+
+
+def k7_form(v) -> str:
+    """The form of K7's values: "acc", "pc_left", "pc_right" or a sum."""
+    v = requant_int32._values(v)
+    if v.b is not None:
+        return K7_SUMS[(v.a.dtype, v.b.dtype)]
+    if v.pc_shift is None:
+        return "acc"
+    return "pc_right" if v.pc_right else "pc_left"
+
+
+def k7_forward_key(v, m, exps=(), out_bits=7, act=None):
+    return (k7_form(v), tuple(requant_int32._values(v).a.shape), len(exps), out_bits, act, None)
+
+
+def k7_grad_key(v, m, margin):
+    return (k7_form(v), tuple(requant_int32._values(v).a.shape), 0, 7, None, margin)
+
+
+def k7_sites(model_fn, batch, recipe):
+    """{(form, shape, exps given, out_bits, act, margin or None): calls} of
+    K7's phase 2 in one train step of the model at `batch` on 32x32x3
+    inputs, rehearsed on the meta device."""
+    model = model_fn().to("meta")
+    x = torch.zeros((batch, 32, 32, 3), device="meta")
+    oh = torch.zeros((batch, NITI_LOGIT_CHANNELS), dtype=torch.int32, device="meta")
+    spec = {"f": (requant_int32, "requant_forward", k7_forward_key),
+            "g": (requant_int32, "requant_grad", k7_grad_key)}
+    with dw_ops.recipe_margins() if recipe else contextlib.nullcontext(), recording(spec) as seen:
+        make_train_step(model)(x, oh)
+    return seen["f"] + seen["g"]
+
+
+def k7_values(form, shape, gen):
+    """Random values of a K7 form on the card: accumulators within +-2^22,
+    per-channel shifts in [0, 12], int8 / int16 operands over their range
+    with exponents in [-12, 2]."""
+    if form in ("acc", "pc_left", "pc_right"):
+        acc = torch.randint(-(2**22), 2**22, shape, generator=gen, dtype=torch.int32,
+                            device="cuda")
+        if form == "acc":
+            return requant_int32.Values(acc)
+        pc = torch.randint(0, 13, (shape[-1],), generator=gen, dtype=torch.int32, device="cuda")
+        if form == "pc_right":
+            pc = pc.reshape((1,) * (len(shape) - 1) + (-1,))
+        return requant_int32.Values(acc, pc_shift=pc, pc_right=form == "pc_right")
+    ta, tb = next(k for k, f in K7_SUMS.items() if f == form)
+    a, b = (torch.randint(torch.iinfo(t).min, torch.iinfo(t).max + 1, shape, generator=gen,
+                          dtype=t, device="cuda") for t in (ta, tb))
+    e = torch.randint(-12, 3, (2,), generator=gen, dtype=torch.int32, device="cuda")
+    return requant_int32.aligned_sum(a, e[0], b, e[1])
+
+
+def check_k7(rates, int_rate, gen):
+    """K7 against its plain version, byte for byte, at every non-fused
+    requant site of a train step of each of K7_NETS (both phases, each
+    site's form, mode, exps, out_bits, act and margin, on random values),
+    and its times there beside the plain chain's. Bounds: bytes (phase 1
+    reads the values and writes 4 bytes; phase 2 reads them and writes the
+    output), and for phase 2 also the CUDA cores' floor, PSTO_INT_OPS
+    integer operations an output. Returns {net: summary over one train
+    step, the sites by shape} and the largest difference (0)."""
+    out, worst = {}, 0
+    for what, model_fn, batch, recipe in K7_NETS:
+        sites = k7_sites(model_fn, batch, recipe)
+        rows = []
+        for (form, shape, n_exps, out_bits, act, margin), calls in sorted(sites.items(), key=repr):
+            v = k7_values(form, shape, gen)
+            n = math.prod(shape)
+            exps = tuple(torch.randint(-8, 2, (n_exps,), generator=gen, dtype=torch.int32,
+                                       device="cuda"))
+            m = requant_int32.absmax_cuda(v)
+            if margin is None:
+                def phase2(m=m, v=v, exps=exps, out_bits=out_bits, act=act):
+                    return requant_int32.requant_forward_cuda(v, m, exps, out_bits, act)
+
+                def plain(v=v, exps=exps, out_bits=out_bits, act=act):
+                    return requant_int32.requant_forward_plain(
+                        v, requant_int32.absmax_plain(v), exps, out_bits, act)
+                got, want = phase2(), plain()
+            else:
+                def phase2(m=m, v=v, margin=margin):
+                    return (requant_int32.requant_grad_cuda(v, m, margin),)
+
+                def plain(v=v, margin=margin):
+                    return (requant_int32.requant_grad_plain(v, requant_int32.absmax_plain(v),
+                                                             margin),)
+                got, want = phase2(), plain()
+            errs = [max_abs_err(m, requant_int32.absmax_plain(v))]
+            errs += [max_abs_err(g, w) for g, w in zip(got, want)]
+            if any(errs):
+                raise AssertionError(f"K7 {what} {form} {shape}: differs from plain {errs}")
+            in_bytes = sum(t.numel() * t.element_size() for t in (v.a, v.b) if t is not None)
+            out_bytes = n * got[0].element_size()
+            row = dict(form=form, shape=shape, exps=n_exps, out_bits=out_bits, act=act,
+                       margin=margin, calls_per_train_step=calls, n=n,
+                       absmax_ms=time_ms(lambda v=v: requant_int32.absmax_cuda(v)),
+                       requant_ms=time_ms(phase2), plain_ms=time_ms(plain, launches=5, rounds=3),
+                       absmax_bound_ms=(in_bytes + 4) / rates[1] * 1e3,
+                       requant_bound_ms=(in_bytes + out_bytes) / rates[1] * 1e3,
+                       requant_floor_ms=n * PSTO_INT_OPS / int_rate * 1e3)
+            rows.append(row)
+        total = {key: sum(r["calls_per_train_step"] * r[key] for r in rows)
+                 for key in ("absmax_ms", "requant_ms", "plain_ms", "absmax_bound_ms",
+                             "requant_bound_ms", "requant_floor_ms")}
+        total["sites"] = sum(r["calls_per_train_step"] for r in rows)
+        out[what] = dict(total, by_shape=rows)
+        print(f"  K7 {what}: byte-equal at {len(rows)} site shapes; over one train step "
+              f"({total['sites']} sites): absmax {total['absmax_ms']:.4f} ms (bound "
+              f"{total['absmax_bound_ms']:.4f}, bytes), requant {total['requant_ms']:.4f} ms "
+              f"(bound {total['requant_bound_ms']:.4f}, bytes; CUDA-core floor "
+              f"{total['requant_floor_ms']:.4f}), the plain chain {total['plain_ms']:.4f} ms",
+              flush=True)
+    return out, worst
 
 
 def k1_library_rows(k1_per_step, rates, gen):
@@ -2549,6 +2683,7 @@ def main() -> int:
     k3_rows, k3_err = check_k3(rates, gen)
     k4_rows, k4_err = check_k4(rates, mac_rate, int_rate, gen)
     k5_rows, k5_err = check_k5(rates, mac_rate, gen)
+    k7_nets, k7_err = check_k7(rates, int_rate, gen)
 
     runs = {}
     start = export_jax_params(lenet_niti().reset_parameters(torch.Generator().manual_seed(0)))
@@ -3253,6 +3388,27 @@ def main() -> int:
         "by_stride": {p: k5_parts[p] for p in ("stride1", "stride2")},
         "by_shape": {r["what"]: dict(r, launches_per_train_step=k5_per_step.get(
             k5_row_key(r), 0)) for r in k5_rows}})
+    for phase, counter in (("absmax", "requant_int32_absmax"), ("requant", "requant_int32_requant")):
+        net = k7_nets[K7_NETS[0][0]]
+        kernels_line["kernels"].append({
+            "name": counter, "route": "cuda", "source": "mandheling_tpu_torch/csrc/requant_int32.cu",
+            "replaces": "mandheling_tpu/ops/numerics.py:40",
+            "replaces_note": "no Pallas site: the JAX package requantizes an accumulator no fused "
+                             "kernel takes in XLA (range_estimate, requant_forward_from_bw, "
+                             "requant_grad_from_bw); K7's phase " + ("1" if phase == "absmax" else "2"),
+            "launches": launches[counter], "launches_by_run": by_run[counter],
+            "max_abs_err": k7_err, "ms": net[f"{phase}_ms"], "plain_ms": net["plain_ms"],
+            "plain_note": "the whole plain chain of the sites (both phases)",
+            "bound_ms": net[f"{phase}_bound_ms"], "bound_by": "bytes",
+            **({"cuda_core_floor_ms": net["requant_floor_ms"]} if phase == "requant" else {}),
+            "library_ms": None,
+            "library_note": "no PyTorch call requantizes an int32 tensor NITI's way",
+            "shapes": f"the {net['sites']} non-fused requant sites of one {K7_NETS[0][0]} train "
+                      "step, rehearsed on the meta device; times are their sum",
+            **{f"{what.replace(' ', '_')}_train_step": {
+                key: val for key, val in t.items() if key != "by_shape"}
+               for what, t in k7_nets.items()},
+            "by_shape": {what: t["by_shape"] for what, t in k7_nets.items()}})
     for variant, source in (("int8", "fused_matmul_int8.cu"), ("bf16", "matmul_max_bf16.cu")):
         rows = [r for r in probe_rows if r["variant"] == variant]
         top = rows[-1]  # K = 256

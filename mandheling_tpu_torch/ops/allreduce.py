@@ -45,6 +45,7 @@ import torch
 import torch.distributed as dist
 
 from . import numerics
+from .kernels import requant_int32 as _rq
 
 _MODE = "int32"
 _VALID = ("int32", "int8")
@@ -191,22 +192,18 @@ def grad_allreduce_requant(acc: torch.Tensor, group, margin: int,
 
     `pc_shift`, the per-channel depthwise alignment (a broadcastable int32
     tensor of right shifts, truncating), is applied AFTER the cross-replica
-    sum: truncating division does not commute with addition."""
-
-    def _shift(a):
-        return a if pc_shift is None else numerics.trunc_shift_div(a, pc_shift)
-
-    if group is None:
-        acc = _shift(acc)
-        return numerics.requant_grad_from_bw(acc, numerics.range_estimate(acc), margin)
-    if _MODE == "int32":
-        acc = _shift(psum(acc, group))
-        return numerics.requant_grad_from_bw(acc, numerics.range_estimate(acc), margin)
-    n = dist.get_world_size(group)
-    log2n = max(1, math.ceil(math.log2(n))) if n > 1 else 0
-    bw_g = pmax(numerics.range_estimate(acc), group)
-    # |psto(acc, bw_g + log2n - 7)| <= 2^(7 - log2n): the N-replica sum stays
-    # within int8, so the wire dtype really is int8
-    aligned = numerics.psto_shift_int8(acc, bw_g + log2n - 7)
-    s = _shift(psum(aligned, group).to(torch.int32))
-    return numerics.requant_grad_from_bw(s, numerics.range_estimate(s), margin)
+    sum: truncating division does not commute with addition. The final
+    requant, the shift inside it, is K7's (kernels/requant_int32.py) in
+    every mode: one site a gradient."""
+    if group is not None and _MODE == "int8":
+        n = dist.get_world_size(group)
+        log2n = max(1, math.ceil(math.log2(n))) if n > 1 else 0
+        bw_g = pmax(numerics.range_estimate(acc), group)
+        # |psto(acc, bw_g + log2n - 7)| <= 2^(7 - log2n): the N-replica sum
+        # stays within int8, so the wire dtype really is int8
+        aligned = numerics.psto_shift_int8(acc, bw_g + log2n - 7)
+        acc = psum(aligned, group).to(torch.int32)
+    elif group is not None:
+        acc = psum(acc, group)
+    acc = _rq.Values(acc, pc_shift=pc_shift, pc_right=True)
+    return _rq.requant_grad(acc, _rq.absmax(acc), margin)

@@ -6,7 +6,10 @@ contraction is an int8 GEMM through the dispatch layer (K1 on the card):
 the forward and the input grad through im2col, the filter grad as
 patches^T @ gy — the JAX package's "matmul" strategy, which gives the same
 int32 as its "conv" and "corr" forms. The requantization is the shared code
-in ops/numerics.py, on the device, with no host synchronisation.
+in ops/numerics.py, on the device, with no host synchronisation; an int32
+accumulator that reaches device memory is requantized by K7
+(kernels/requant_int32.py: two launches on the card under the "cuda"
+backend, its plain version, that shared code, otherwise).
 
 Under the "cuda" backend, as under the JAX package's Pallas backends, a
 conv whose shape a fused kernel takes runs through it instead (the int32
@@ -32,10 +35,10 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from . import allreduce, flops, numerics
-from . import relu as relu_ops
 from .kernels import dispatch as _dispatch
 from .kernels import fused_conv_int8 as _fconv
 from .kernels import fused_matmul_int8 as _fmm
+from .kernels import requant_int32 as _rq
 from .kernels.conv_int8 import _dilate_hw, im2col, pad_hw
 
 Pads = Tuple[Tuple[int, int], Tuple[int, int]]
@@ -93,10 +96,6 @@ def use_fused_conv_mode(mode: str):
 
 def _fused_enabled() -> bool:
     return _dispatch.get_backend() == "cuda"
-
-
-def _zero_exp(like: torch.Tensor) -> torch.Tensor:
-    return torch.zeros((), dtype=torch.int32, device=like.device)
 
 
 def _work(args, out_size: int) -> Tuple[int, int]:
@@ -165,18 +164,6 @@ def _fused_conv_requant(
     return y.reshape(b, h, w_sp, oc), eff_shift
 
 
-def _apply_act(y: torch.Tensor, exp_out: torch.Tensor, act: Optional[str]):
-    """Activation fused onto the requantized output."""
-    if act is None:
-        return y
-    if y.dtype != torch.int8:
-        raise ValueError("fused activations are int8-only")
-    if act == "relu6":
-        cap = relu_ops.relu6_cap(exp_out).to(torch.int8)
-        return torch.clamp_min(torch.minimum(y, cap), 0)
-    raise ValueError(f"unknown act {act!r}")
-
-
 @flops.counted(lambda args: _work(args, 2 if args["out_bits"] > 7 else 1))
 def conv2d_forward(
     x: torch.Tensor,
@@ -192,19 +179,19 @@ def conv2d_forward(
     """NITI int8 conv forward -> (int8 y, int32 exp_out), exp_out = x_exp +
     w_exp + shift from the range estimate of the accumulator
     (NITI_Conv_Int8.cpp:255-307). `out_bits=15` gives an int16 y; an int16
-    x or y never takes a fused kernel, and an int16 y no activation."""
-    exp_in = x_exp.to(torch.int32) + w_exp.to(torch.int32)
+    x or y never takes a fused kernel, and an int16 y no activation. The
+    accumulator of a conv no fused kernel takes is requantized by K7
+    (kernels/requant_int32.py), the activation with it."""
     if _fused_enabled() and out_bits == 7 and x.dtype == torch.int8:
         pad = resolve_padding(padding, w.shape[:2], stride, x.shape[1:3])
         fused = _fused_conv_requant(x, w, tuple(stride), pad, group)
         if fused is not None:
             y, eff_shift = fused
-            e = exp_in + eff_shift
-            return _apply_act(y, e, act), e
+            e = x_exp.to(torch.int32) + w_exp.to(torch.int32) + eff_shift
+            return _rq.apply_act(y, e, act), e
     acc = conv2d_int8_acc(x, w, stride, padding)
-    bw = numerics.range_estimate_from_max(allreduce.maybe_pmax(torch.abs(acc).amax(), group))
-    y, e = numerics.requant_forward_from_bw(acc, exp_in, bw, out_bits)
-    return _apply_act(y, e, act), e
+    m = allreduce.maybe_pmax(_rq.absmax(acc), group)
+    return _rq.requant_forward(acc, m, (x_exp, w_exp), out_bits, act)
 
 
 def _rot180_io(w: torch.Tensor) -> torch.Tensor:
@@ -258,9 +245,8 @@ def conv2d_input_grad(
             if fused is not None:
                 return fused[0]
     acc = conv2d_input_grad_acc(gy, w, x_spatial, stride, padding)
-    bw = numerics.range_estimate_from_max(allreduce.maybe_pmax(torch.abs(acc).amax(), group))
-    out, _ = numerics.requant_forward_from_bw(acc, _zero_exp(acc), bw)
-    return out
+    m = allreduce.maybe_pmax(_rq.absmax(acc), group)
+    return _rq.requant_forward(acc, m)[0]
 
 
 @flops.counted(lambda args: _filter_grad_work(args, 4))

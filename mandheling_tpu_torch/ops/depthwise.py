@@ -47,9 +47,10 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from . import allreduce, flops, numerics
-from .conv import (_apply_act, _fused_enabled, _input_grad_pads, get_fgrad_margin,
-                   get_fused_conv_mode, resolve_padding, set_fgrad_margin)
+from .conv import (_fused_enabled, _input_grad_pads, get_fgrad_margin, get_fused_conv_mode,
+                   resolve_padding, set_fgrad_margin)
 from .kernels import fused_dwconv_int8 as _fdw
+from .kernels import requant_int32 as _rq
 from .kernels.conv_int8 import _dilate_hw, pad_hw
 from .kernels.dispatch import get_backend
 
@@ -199,20 +200,16 @@ def dwconv2d_forward(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """NITI int8 depthwise forward -> (int8 y, int32 exp_out)."""
     e_base, pc_shift = _per_channel_shifts(w_exp, w.shape[0] * w.shape[1])
-    exp_in = x_exp.to(torch.int32) + e_base
     if _fused_enabled() and tuple(stride) == (1, 1):
         pad = resolve_padding(padding, w.shape[:2], stride, x.shape[1:3])
         fused = _fused_dw_requant(x, w, pad, pc_shift=pc_shift, group=group)
         if fused is not None:
             y, eff_shift = fused
-            e = exp_in + eff_shift
-            return _apply_act(y, e, act), e
-    acc = dwconv2d_int8_acc(x, w, stride, padding)
-    if pc_shift is not None:
-        acc = acc << pc_shift
-    bw = numerics.range_estimate_from_max(allreduce.maybe_pmax(numerics.abs_max(acc), group))
-    y, e = numerics.requant_forward_from_bw(acc, exp_in, bw)
-    return _apply_act(y, e, act), e
+            e = x_exp.to(torch.int32) + e_base + eff_shift
+            return _rq.apply_act(y, e, act), e
+    acc = _rq.Values(dwconv2d_int8_acc(x, w, stride, padding), pc_shift=pc_shift)
+    m = allreduce.maybe_pmax(_rq.absmax(acc), group)
+    return _rq.requant_forward(acc, m, (x_exp, e_base), act=act)
 
 
 @flops.counted(_input_grad_work)
@@ -239,10 +236,10 @@ def dwconv2d_input_grad(
                                   rot180=True, group=group)
         if fused is not None:
             return fused[0]
-    acc = _fdw.dwconv_shifted_acc_plain(gy, w, pad, tuple(stride), pc_shift, rot180=True)
-    bw = numerics.range_estimate_from_max(allreduce.maybe_pmax(numerics.abs_max(acc), group))
-    out, _ = numerics.requant_forward_from_bw(acc, torch.zeros_like(bw), bw)
-    return out
+    acc = _rq.Values(_fdw.dwconv_shifted_acc_plain(gy, w, pad, tuple(stride), rot180=True),
+                     pc_shift=pc_shift)
+    m = allreduce.maybe_pmax(_rq.absmax(acc), group)
+    return _rq.requant_forward(acc, m)[0]
 
 
 @flops.counted(lambda args: _filter_grad_work(args, 4))

@@ -24,25 +24,27 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from . import allreduce, numerics
+from . import allreduce, flops, numerics
+from .kernels import requant_int32 as _rq
 
 
+@flops.counted(lambda args: (0, 0))
 def add_int8(
     a: torch.Tensor, a_exp: torch.Tensor, b: torch.Tensor, b_exp: torch.Tensor,
     out_bits: Optional[int] = None, group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exponent-aligned integer residual add -> (intN, exp_out): align to
     max(a_exp, b_exp) by x >> (max_exp - x_exp), add in int32, forward
-    requant. `out_bits` defaults to the wider operand's (15 for int16)."""
+    requant. `out_bits` defaults to the wider operand's (15 for int16).
+    Under the "cuda" backend K7 (kernels/requant_int32.py) forms the sum in
+    registers in both of its phases, so the int32 sum never reaches device
+    memory. Counted as no work (ops/flops.py), so that its launches are
+    noted."""
     if out_bits is None:
         out_bits = 15 if torch.int16 in (a.dtype, b.dtype) else 7
-    a_exp = a_exp.to(torch.int32)
-    b_exp = b_exp.to(torch.int32)
-    e = torch.maximum(a_exp, b_exp)
-    acc = numerics.trunc_shift_div(a, e - a_exp) + numerics.trunc_shift_div(b, e - b_exp)
-    m = allreduce.maybe_pmax(numerics.abs_max(acc), group, "add")
-    bw = numerics.range_estimate_from_max(m)
-    return numerics.requant_forward_from_bw(acc, e, bw, out_bits)
+    acc = _rq.aligned_sum(a, a_exp, b, b_exp)
+    m = allreduce.maybe_pmax(_rq.absmax(acc), group, "add")
+    return _rq.requant_forward(acc, m, out_bits=out_bits)
 
 
 def pad_int8(x: torch.Tensor, pad: int) -> torch.Tensor:

@@ -3,7 +3,8 @@ integer half of `utils/profiler.cost_analysis` (XLA's cost model counts the
 JAX package's convolutions and dots from their shapes the same way).
 
 Every public contraction op of ops/conv.py, ops/depthwise.py and
-ops/matmul.py is wrapped by :func:`counted`, at its entry, where every route
+ops/matmul.py is wrapped by :func:`counted` (and ops/eltwise.add_int8, as no
+work, so that its requant launches are noted), at its entry, where every route
 passes: the plain version, K1, and the fused two-phase routes (K2, K3, K4),
 which do not all go through the `_acc` functions. So a count does not
 depend on the backend, the fused mode or the device. An op counts 2 flops a
@@ -17,8 +18,9 @@ While a counted op runs, :func:`inside` is true: cost_analysis leaves the
 float work of a plain version (its float64 GEMM) out of the float count.
 
 :func:`recording` notes, for every kernel launch a counted op makes, the
-kernel's launch counter, the op's flops and bytes and the op's source
-(file:line), in launch order. Every graph of train/step_graph.py keeps the
+kernel's launch counter, the op's flops and bytes (none for K7's requant
+launches, ``kernels.NO_CONTRACTION``) and the op's source (file:line), in
+launch order. Every graph of train/step_graph.py keeps the
 notes of its capture (:func:`hold_launches`, :func:`take_launches`) and
 hands them to the open records at every replay (:func:`add_launches`), in
 the replay hook that re-adds the launch counts. The profiler joins the
@@ -134,7 +136,8 @@ def counted(work: Callable[[Mapping[str, Any]], Tuple[int, int]]):
                 _DEPTH -= 1
             if before is not None:
                 after = kernels.launch_counts()
-                made = [(name, 2 * macs, nbytes, source)
+                made = [(name, 0, 0, source) if name in kernels.NO_CONTRACTION
+                        else (name, 2 * macs, nbytes, source)
                         for name in after for _ in range(after[name] - before[name])]
                 for notes in _RECORDS:
                     notes.extend(made)

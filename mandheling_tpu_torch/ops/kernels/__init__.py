@@ -13,12 +13,14 @@ PyTorch versions, and the backend selector.
 | `fused_dwconv_requant` | fused_dwconv_int8.py   | fused_dwconv_int8.py `_requant_kernel` (`dwconv_requant_pallas`) |
 | `fused_dwconv_fgrad`   | fused_dwconv_int8.py   | fused_dwconv_int8.py `_fgrad_kernel` (`dwconv_fgrad_acc_pallas`) |
 | `fused_matmul_max_bf16` | fused_matmul_int8.py  | tools/probes/dot_probe.py `make_dot.kernel`, bf16 operands (its int8 variant is `fused_matmul_max`) |
+| `requant_int32_absmax`  | requant_int32.py      | no Pallas kernel: the XLA-side range estimate of an int32 accumulator no fused kernel takes (K7 phase 1) |
+| `requant_int32_requant` | requant_int32.py      | no Pallas kernel: the XLA-side forward / gradient requant of that accumulator (K7 phase 2) |
 """
 
 from typing import Dict
 
 from . import (conv_int8, dispatch, fused_conv_int8, fused_dwconv_int8, fused_matmul_int8,
-               matmul_int8, stream_state)
+               matmul_int8, requant_int32, stream_state)
 from .dispatch import get_backend, set_backend, use_backend
 
 # kernel name -> (module, name of its launch counter)
@@ -33,7 +35,13 @@ _COUNTERS = {
     "fused_dwconv_requant": (fused_dwconv_int8, "REQUANT_LAUNCHES"),
     "fused_dwconv_fgrad": (fused_dwconv_int8, "FGRAD_LAUNCHES"),
     "fused_matmul_max_bf16": (fused_matmul_int8, "MAX_BF16_LAUNCHES"),
+    "requant_int32_absmax": (requant_int32, "ABSMAX_LAUNCHES"),
+    "requant_int32_requant": (requant_int32, "REQUANT_LAUNCHES"),
 }
+
+# the counters of kernels that compute no contraction (K7's requant of an
+# accumulator another kernel made): their launch notes carry no work
+NO_CONTRACTION = frozenset(("requant_int32_absmax", "requant_int32_requant"))
 
 
 def launch_counts() -> Dict[str, int]:
@@ -62,6 +70,7 @@ __all__ = [
     "fused_dwconv_int8",
     "fused_matmul_int8",
     "matmul_int8",
+    "requant_int32",
     "stream_state",
     "get_backend",
     "set_backend",

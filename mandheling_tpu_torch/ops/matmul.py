@@ -4,7 +4,8 @@
 int8 x int8 -> int32 through the kernel dispatch (K1 under backend "cuda"
 on CUDA tensors), then either the FC-gradient requant (range estimate, psto
 shift by bw - 3, an all-zero accumulator gives zeros) or the forward
-requant (bw - 7 with the forward shift's branch rules). The JAX package
+requant (bw - 7 with the forward shift's branch rules), both by K7
+(kernels/requant_int32.py) under the "cuda" backend. The JAX package
 recomputes the accumulator behind an optimization barrier for large
 outputs, which only schedules memory; the port computes it once. With a
 replica `group`, the gradient sums over it before its shift and the forward
@@ -18,8 +19,9 @@ from typing import Tuple
 
 import torch
 
-from . import allreduce, flops, numerics
+from . import allreduce, flops
 from .kernels import dispatch
+from .kernels import requant_int32 as _rq
 
 
 def _work(args, out_size: int) -> Tuple[int, int]:
@@ -47,6 +49,5 @@ def matmul_int8_forward(a: torch.Tensor, a_exp: torch.Tensor, b: torch.Tensor,
     """Forward-style requant of an int8 GEMM -> (int8 (M, N), int32 exp_out):
     the matmul analog of conv2d_forward."""
     acc = matmul_int8_acc(a, b)
-    bw = numerics.range_estimate_from_max(allreduce.maybe_pmax(numerics.abs_max(acc), group))
-    exp_in = a_exp.to(torch.int32) + b_exp.to(torch.int32)
-    return numerics.requant_forward_from_bw(acc, exp_in, bw)
+    m = allreduce.maybe_pmax(_rq.absmax(acc), group)
+    return _rq.requant_forward(acc, m, (a_exp, b_exp))

@@ -55,6 +55,8 @@ _KERNELS = {
     "fgrad_any_kernel": (None, "fused_dwconv_fgrad"),
     "max_bf16_kernel": (None, "fused_matmul_max_bf16"),
     "max_bf16_resident_kernel": (None, "fused_matmul_max_bf16"),
+    "k7_absmax_kernel": (None, "requant_int32_absmax"),
+    "k7_requant_kernel": (None, "requant_int32_requant"),
 }
 _SYMBOL = re.compile(r"(?<![A-Za-z_])(" + "|".join(_KERNELS) + r")(<[^>]*>)?")
 # the categories that are launch counters (K1's split-K sum is counted

@@ -927,7 +927,7 @@ def test_compiled_step_replays_the_eager_bytes(gen, net, mode):
     assert all(g == eager[3][0] for g in graph[3]) and sum(eager[3][0].values()) > 0
     assert graph[4].graphs == 1
     for key, t in stream_state._STATE.items():
-        if key[0] == "fused_conv_state":
+        if key[0] in ("fused_conv_state", "requant_int32_state"):
             assert t.tolist() == [-(2**31), 0], key
         elif key[0] in ("fused_dwconv_ticket", "fused_dwconv_fgrad_state"):
             assert not bool(t.any()), key
@@ -1109,3 +1109,198 @@ def test_spans_mark_the_compiled_lenet_step_on_one_clock(gen):
     rows = device_trace.per_op_rows(events)
     traced = sum(r["occurrences"] for r in rows if r["category"] not in ("memcpy", "memset"))
     assert kernels > 0 and traced == 2 * kernels
+
+
+I32_MIN = -(2**31)
+
+
+def _k7_values(form, shape, gen, bits=20):
+    """K7's values of `form` on the card: "acc" an int32 accumulator,
+    "pc_left" / "pc_right" one with per-channel shifts in [0, 12], "sum"
+    (int8, int8) and the other (int8 / int16) pairs with unequal exponents."""
+    from mandheling_tpu_torch.ops.kernels import requant_int32 as rq
+
+    if form.startswith("sum"):
+        ta, tb = {"sum": (torch.int8, torch.int8), "sum16": (torch.int16, torch.int16),
+                  "sum8_16": (torch.int8, torch.int16), "sum16_8": (torch.int16, torch.int8)}[form]
+        a = torch.randint(torch.iinfo(ta).min, torch.iinfo(ta).max + 1, shape, generator=gen,
+                          dtype=ta, device="cuda")
+        b = torch.randint(torch.iinfo(tb).min, torch.iinfo(tb).max + 1, shape, generator=gen,
+                          dtype=tb, device="cuda")
+        e = torch.randint(-12, 3, (2,), generator=gen, dtype=torch.int32, device="cuda")
+        return rq.aligned_sum(a, e[0], b, e[1])
+    acc = torch.randint(-(2**bits), 2**bits, shape, generator=gen, dtype=torch.int32,
+                        device="cuda")
+    if form == "acc":
+        return rq.Values(acc)
+    pc = torch.randint(0, 13, (shape[-1],), generator=gen, dtype=torch.int32, device="cuda")
+    return rq.Values(acc, pc_shift=pc if form == "pc_left" else pc.reshape(
+        (1,) * (len(shape) - 1) + (-1,)), pc_right=form == "pc_right")
+
+
+def _k7_equal(v, exps=(), out_bits=7, act=None, margins=(0, 2, 3)):
+    """Both phases of K7 against their plain versions on `v`, the forward
+    requant (with `exps`, `out_bits`, `act`) and the gradient requant at
+    `margins` (int8 outputs only)."""
+    from mandheling_tpu_torch.ops.kernels import requant_int32 as rq
+
+    m = rq.absmax_cuda(v)
+    assert torch.equal(m, rq.absmax_plain(v)), (int(m), int(rq.absmax_plain(v)))
+    y, e = rq.requant_forward_cuda(v, m, exps, out_bits, act)
+    y0, e0 = rq.requant_forward_plain(v, m, exps, out_bits, act)
+    assert y.dtype == y0.dtype and torch.equal(y, y0) and torch.equal(e, e0)
+    if out_bits == 7 and act is None:
+        for margin in margins:
+            assert torch.equal(rq.requant_grad_cuda(v, m, margin), rq.requant_grad_plain(v, m, margin))
+
+
+@pytest.mark.parametrize("n", [0, 1, 3, 4, 5, 1023, 4099, 1 << 20, (1 << 22) + 7])
+@pytest.mark.parametrize("form", ["acc", "sum", "sum8_16", "sum16_8", "sum16"])
+def test_requant_kernel_matches_plain(gen, n, form):
+    _k7_equal(_k7_values(form, (n,), gen))
+
+
+@pytest.mark.parametrize("form", ["pc_left", "pc_right"])
+@pytest.mark.parametrize("shape", [(2, 3, 3, 144), (1, 1, 1, 7), (5, 9, 3), (256, 8, 8, 96)])
+def test_requant_kernel_per_channel_shifts(gen, form, shape):
+    _k7_equal(_k7_values(form, shape, gen, bits=18))
+
+
+@pytest.mark.parametrize("values", [
+    [0] * 40, [I32_MIN] * 9, [I32_MIN, 5, -7] * 5, [1, -1, 0] * 7, [2**24] * 3 + [-5] * 5,
+    [2**24 + 1, -3] * 4, [2**30 + 1, -(2**30)] * 6, [2**31 - 1, 12345] * 3,
+    [127, -128, 128, 255, 256] * 9, [2, -3, 4] * 11,
+])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_requant_kernel_edges(gen, values, offset):
+    """INT32_MIN, all-zero, bw 0 and 1, a max of exactly 2^24 and 2^24 + 1,
+    above 2^30; a view one element past an aligned address (scalar path);
+    exps that make every relu6 cap and shift 0, 1 (promoted to 2) and more."""
+    from mandheling_tpu_torch.ops.kernels import requant_int32 as rq
+
+    base = torch.tensor([0] * offset + values, dtype=torch.int32, device="cuda")
+    acc = base[offset:]
+    for exps in [(), (torch.tensor(-9, dtype=torch.int32, device="cuda"),),
+                 (torch.tensor(2, dtype=torch.int32, device="cuda"),
+                  torch.tensor(-1, dtype=torch.int32, device="cuda"))]:
+        _k7_equal(acc, exps)
+        _k7_equal(acc, exps, out_bits=15)
+        _k7_equal(acc, exps, act="relu6")
+
+
+@pytest.mark.parametrize("bits", range(0, 31, 3))
+def test_requant_kernel_every_shift(gen, bits):
+    """Maxima from 2^0 to 2^30: forward shifts 0, 2 and above, relu6 at
+    exponents from -8 to 4 (caps 127 down to 0), grad margins 0, 2, 3."""
+    acc = torch.randint(-(2**bits), 2**bits + 1, (3001,), generator=gen, dtype=torch.int32,
+                        device="cuda")
+    for e in range(-8, 5):
+        _k7_equal(acc, (torch.tensor(e, dtype=torch.int32, device="cuda"),), act="relu6")
+    _k7_equal(acc, out_bits=15)
+
+
+def _k7_site_cases(name, batch):
+    """The requant sites of one train step and one eval step of a benchmark
+    model at `batch`, rehearsed on the meta device: (form, shape, exps given,
+    out_bits, act, margin or None) each."""
+    from mandheling_tpu_torch.models import mobilenet_v2_niti, resnet18_niti
+    from mandheling_tpu_torch.ops.depthwise import recipe_margins
+    from mandheling_tpu_torch.ops.kernels import requant_int32 as rq
+    from mandheling_tpu_torch.train import make_eval_step, make_train_step
+
+    sites = set()
+
+    def form(v):
+        if v.b is not None:
+            return {(torch.int8, torch.int8): "sum", (torch.int16, torch.int16): "sum16",
+                    (torch.int8, torch.int16): "sum8_16"}.get((v.a.dtype, v.b.dtype), "sum16_8")
+        if v.pc_shift is None:
+            return "acc"
+        return "pc_right" if v.pc_right else "pc_left"
+
+    real_f, real_g = rq.requant_forward, rq.requant_grad
+
+    def fwd(v, m, exps=(), out_bits=7, act=None):
+        w = rq._values(v)
+        sites.add((form(w), tuple(w.a.shape), len(exps), out_bits, act, None))
+        return real_f(v, m, exps, out_bits, act)
+
+    def grad(v, m, margin):
+        w = rq._values(v)
+        sites.add((form(w), tuple(w.a.shape), 0, 7, None, margin))
+        return real_g(v, m, margin)
+
+    model = (mobilenet_v2_niti(dw_per_channel=True) if name == "mnv2_recipe"
+             else resnet18_niti()).to("meta")
+    x = torch.zeros((batch, 32, 32, 3), device="meta")
+    oh = torch.zeros((batch, 12), dtype=torch.int32, device="meta")
+    margins = recipe_margins() if name == "mnv2_recipe" else contextlib.nullcontext()
+    rq.requant_forward, rq.requant_grad = fwd, grad
+    try:
+        with margins:
+            make_train_step(model)(x, oh)
+            make_eval_step(model)(x, torch.zeros(batch, dtype=torch.int64, device="meta"))
+    finally:
+        rq.requant_forward, rq.requant_grad = real_f, real_g
+    return sorted(sites, key=repr)
+
+
+@pytest.mark.parametrize("name,batch", [("mnv2_recipe", 256), ("mnv2_recipe", 32),
+                                        ("resnet18", 256), ("resnet18", 32)])
+def test_requant_kernel_at_the_benchmark_sites(gen, name, batch):
+    """K7 byte-equal to its plain version at every non-fused requant site of
+    the benchmark's models (the MobileNetV2 recipe, ResNet-18) at batch 256
+    and 32, each site in its own form, mode, exps, out_bits, act and margin,
+    on random values."""
+    from mandheling_tpu_torch.ops.kernels import requant_int32 as rq
+
+    sites = _k7_site_cases(name, batch)
+    assert len(sites) > 5
+    for form, shape, n_exps, out_bits, act, margin in sites:
+        v = _k7_values(form, shape, gen)
+        m = rq.absmax_cuda(v)
+        assert torch.equal(m, rq.absmax_plain(v)), (form, shape)
+        if margin is None:
+            exps = tuple(torch.randint(-8, 2, (n_exps,), generator=gen, dtype=torch.int32,
+                                       device="cuda"))
+            y, e = rq.requant_forward_cuda(v, m, exps, out_bits, act)
+            y0, e0 = rq.requant_forward_plain(v, m, exps, out_bits, act)
+            assert torch.equal(y, y0) and torch.equal(e, e0), (form, shape, act)
+        else:
+            assert torch.equal(rq.requant_grad_cuda(v, m, margin),
+                               rq.requant_grad_plain(v, m, margin)), (form, shape, margin)
+
+
+def test_requant_kernel_replayed_in_a_graph(gen):
+    """Both phases captured in a CUDA graph (the state made on the capturing
+    stream first) and replayed twice: the same bytes as the eager calls, and
+    the stream's phase-1 state back to {INT32_MIN, 0}."""
+    from mandheling_tpu_torch.ops.kernels import requant_int32 as rq
+    from mandheling_tpu_torch.ops.kernels import stream_state
+
+    acc = torch.randint(-(2**22), 2**22, (64, 16, 16, 96), generator=gen, dtype=torch.int32,
+                        device="cuda")
+    v = _k7_values("sum", (4099,), gen)
+    exp = torch.tensor(-6, dtype=torch.int32, device="cuda")
+
+    def calls():
+        y, e = rq.requant_forward(acc, rq.absmax(acc), (exp,), act="relu6")
+        g = rq.requant_grad(acc, rq.absmax(acc), 2)
+        s, es = rq.requant_forward(v, rq.absmax(v))
+        return y, e, g, s, es
+
+    want = calls()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        calls()  # the stream's state, made outside the capture
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            got = calls()
+    torch.cuda.current_stream().wait_stream(stream)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    states = [t for key, t in stream_state._STATE.items() if key[0] == "requant_int32_state"]
+    assert len(states) >= 2 and all(t.tolist() == [I32_MIN, 0] for t in states)

@@ -200,10 +200,11 @@ def test_chip_smoke_launch_table_is_the_routes(monkeypatch):
     table's models ("mnv2pc": the r5 recipe's per-channel depthwise
     MobileNetV2; "mnv2p15": MobileNetV2 with int16 projection outputs; the
     ResNets; the zoo, "squeezenet10" at 10 classes), batches and fused
-    modes."""
+    modes. K7 (the requant of each accumulator no fused kernel takes)
+    counts its sites: each runs phase 1 once and one phase 2."""
     from mandheling_tpu_torch.models import lenet_niti
     from mandheling_tpu_torch.ops.kernels import fused_conv_int8, fused_dwconv_int8
-    from mandheling_tpu_torch.ops.kernels import fused_matmul_int8, matmul_int8
+    from mandheling_tpu_torch.ops.kernels import fused_matmul_int8, matmul_int8, requant_int32
 
     cs = _load_chip_smoke()
     calls = {}
@@ -212,7 +213,9 @@ def test_chip_smoke_launch_table_is_the_routes(monkeypatch):
                            ("K3", fused_conv_int8, "conv_max"), ("K3r", fused_conv_int8, "conv_requant"),
                            ("K4", fused_dwconv_int8, "dwconv_max"),
                            ("K4r", fused_dwconv_int8, "dwconv_requant"),
-                           ("K5", fused_dwconv_int8, "dwconv_fgrad_acc")]:
+                           ("K5", fused_dwconv_int8, "dwconv_fgrad_acc"),
+                           ("K7", requant_int32, "absmax"), ("K7r", requant_int32, "requant_forward"),
+                           ("K7g", requant_int32, "requant_grad")]:
         real = getattr(mod, name)
 
         def counted(*a, _fam=fam, _real=real, **k):
@@ -247,7 +250,8 @@ def test_chip_smoke_launch_table_is_the_routes(monkeypatch):
                 run()
                 for fam in ("K2", "K3", "K4"):
                     assert calls.get(fam, 0) == calls.get(fam + "r", 0)
-                got.append({f: n for f, n in calls.items() if not f.endswith("r")})
+                assert calls.get("K7", 0) == calls.get("K7r", 0) + calls.get("K7g", 0)
+                got.append({f: n for f, n in calls.items() if not f.endswith(("r", "g"))})
         assert tuple(got) == want, (model_name, batch, mode)
 
 

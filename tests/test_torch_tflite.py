@@ -299,7 +299,7 @@ def test_chip_smoke_imported_launches_are_the_built_rows(monkeypatch):
 
     from mandheling_tpu_torch.ops import conv as tconv
     from mandheling_tpu_torch.ops.kernels import fused_conv_int8, fused_dwconv_int8
-    from mandheling_tpu_torch.ops.kernels import fused_matmul_int8, matmul_int8
+    from mandheling_tpu_torch.ops.kernels import fused_matmul_int8, matmul_int8, requant_int32
     from mandheling_tpu_torch.train import make_eval_step, make_train_step
 
     spec = importlib.util.spec_from_file_location(
@@ -309,7 +309,8 @@ def test_chip_smoke_imported_launches_are_the_built_rows(monkeypatch):
     calls = {}
     for fam, mod, name in [("K1", matmul_int8, "matmul_acc"), ("K2", fused_matmul_int8, "matmul_max"),
                            ("K3", fused_conv_int8, "conv_max"), ("K4", fused_dwconv_int8, "dwconv_max"),
-                           ("K5", fused_dwconv_int8, "dwconv_fgrad_acc")]:
+                           ("K5", fused_dwconv_int8, "dwconv_fgrad_acc"),
+                           ("K7", requant_int32, "absmax")]:
         real = getattr(mod, name)
 
         def counted(*a, _fam=fam, _real=real, **k):

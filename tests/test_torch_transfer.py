@@ -214,7 +214,7 @@ def test_chip_smoke_transfer_launch_table_is_the_routes(monkeypatch):
     the head's forward and filter grad. Rehearsed here on the meta device
     with each dispatch call counted, per kernel family."""
     from mandheling_tpu_torch.ops.kernels import (fused_conv_int8, fused_dwconv_int8,
-                                                  fused_matmul_int8, matmul_int8)
+                                                  fused_matmul_int8, matmul_int8, requant_int32)
 
     cs = load_module("chip_smoke.py", "chip_smoke")
     calls = {}
@@ -223,7 +223,9 @@ def test_chip_smoke_transfer_launch_table_is_the_routes(monkeypatch):
                            ("K3", fused_conv_int8, "conv_max"), ("K3r", fused_conv_int8, "conv_requant"),
                            ("K4", fused_dwconv_int8, "dwconv_max"),
                            ("K4r", fused_dwconv_int8, "dwconv_requant"),
-                           ("K5", fused_dwconv_int8, "dwconv_fgrad_acc")]:
+                           ("K5", fused_dwconv_int8, "dwconv_fgrad_acc"),
+                           ("K7", requant_int32, "absmax"), ("K7r", requant_int32, "requant_forward"),
+                           ("K7g", requant_int32, "requant_grad")]:
         def counted(*a, _fam=fam, _real=getattr(mod, name), **k):
             calls[_fam] = calls.get(_fam, 0) + 1
             return _real(*a, **k)
@@ -244,6 +246,7 @@ def test_chip_smoke_transfer_launch_table_is_the_routes(monkeypatch):
                 run()
                 for fam in ("K2", "K3", "K4"):
                     assert calls.get(fam, 0) == calls.get(fam + "r", 0)
-                got.append({f: n for f, n in calls.items() if not f.endswith("r")})
+                assert calls.get("K7", 0) == calls.get("K7r", 0) + calls.get("K7g", 0)
+                got.append({f: n for f, n in calls.items() if not f.endswith(("r", "g"))})
         assert tuple(got) == want, (batch, mode, got)
         assert "K5" not in got[0]  # the features are frozen: no depthwise filter grad

@@ -16,6 +16,14 @@ wraps as an int32 accumulator does) or a sum of depthwise taps in int32
 and int64. Nothing here reads a device value on the host, so a step runs
 on any device, the meta device included.
 
+A layer has fwd(x, e, ctx) -> (y, exponent, residual), bwd(residual, gy,
+ctx, need_input_grad) -> (gx, [(layer, weight grad)]) and out_shape(shape)
+of its NHWC input shape. A layer with a weight has `weight_shape`, `w` and
+`w_exp`; a composite layer has `branches`, the layer lists that all read
+its input, in the order of the program's modules. weighted() and the work
+count (work.py) read nothing else, so a family file can define a layer of
+its own.
+
 `Precision(bits)` sets the width every activation and gradient is
 requantized to: 7 magnitude bits (int8, the configurations' precision), or
 3 (int4) for the control that must come out not correct. Weights stay int8
@@ -169,16 +177,44 @@ def dilate(x: torch.Tensor, stride) -> torch.Tensor:
     return out
 
 
-def patches(x: torch.Tensor, kernel, stride) -> Tuple[torch.Tensor, Tuple[int, int]]:
-    """VALID windows of a padded NHWC tensor as (B*OH*OW, KH*KW*C) rows,
-    ordered (kh, kw, c)."""
+def conv_spatial(spatial, kernel, stride, padding: str) -> Tuple[int, int]:
+    """Output H and W of a conv or pool with "SAME" or "VALID" padding."""
+    pads = same_or_valid(padding, kernel, stride, spatial)
+    return tuple((n + p[0] + p[1] - k) // s + 1
+                 for n, p, k, s in zip(spatial, pads, kernel, stride))
+
+
+def windows(x: torch.Tensor, kernel, stride) -> torch.Tensor:
+    """(B, OH, OW, KH, KW, C) strided view of the VALID windows of NHWC x."""
     kh, kw = kernel
     sh, sw = stride
     b, h, w, c = x.shape
     oh, ow = (h - kh) // sh + 1, (w - kw) // sw + 1
     sb, s_h, s_w, sc = x.stride()
-    win = x.as_strided((b, oh, ow, kh, kw, c), (sb, s_h * sh, s_w * sw, s_h, s_w, sc))
+    return x.as_strided((b, oh, ow, kh, kw, c), (sb, s_h * sh, s_w * sw, s_h, s_w, sc))
+
+
+def patches(x: torch.Tensor, kernel, stride) -> Tuple[torch.Tensor, Tuple[int, int]]:
+    """VALID windows of a padded NHWC tensor as (B*OH*OW, KH*KW*C) rows,
+    ordered (kh, kw, c)."""
+    win = windows(x, kernel, stride)
+    b, oh, ow, kh, kw, c = win.shape
     return win.reshape(b * oh * ow, kh * kw * c), (oh, ow)
+
+
+def scatter(taps: Sequence[torch.Tensor], kernel, stride, spatial) -> torch.Tensor:
+    """The int32 (B, H, W, C) sum of the window taps' (B, OH, OW, C)
+    tensors, each put back where its tap read: taps[i * KW + j] for tap
+    (i, j) of windows of `kernel` and `stride` over H, W = `spatial`."""
+    kh, kw = kernel
+    sh, sw = stride
+    b, oh, ow, c = taps[0].shape
+    out = torch.zeros((b, *spatial, c), dtype=torch.int32, device=taps[0].device)
+    for i in range(kh):
+        for j in range(kw):
+            out[:, i:i + (oh - 1) * sh + 1:sh, j:j + (ow - 1) * sw + 1:sw, :] += \
+                taps[i * kw + j].to(torch.int32)
+    return out
 
 
 def exact_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -242,6 +278,10 @@ class Conv:
     def weight_shape(self):
         return (*self.kernel, self.ic, self.oc)
 
+    def out_shape(self, shape):
+        return (shape[0], *conv_spatial(shape[1:3], self.kernel, self.stride, self.padding),
+                self.oc)
+
     def fwd(self, x, e, ctx):
         pads = same_or_valid(self.padding, self.kernel, self.stride, x.shape[1:3])
         y, ey = requant_forward(conv_acc(x, self.w, self.stride, pads),
@@ -290,6 +330,10 @@ class DepthwiseConv:
     def weight_shape(self):
         return (*self.kernel, 1, self.c)
 
+    def out_shape(self, shape):
+        return (shape[0], *conv_spatial(shape[1:3], self.kernel, self.stride, self.padding),
+                self.c)
+
     def _shifts(self):
         e = self.w_exp.to(torch.int32)
         if e.dim() == 0:
@@ -337,6 +381,9 @@ class DepthwiseConv:
 
 
 class Relu:
+    def out_shape(self, shape):
+        return shape
+
     def fwd(self, x, e, ctx):
         return torch.clamp_min(x, 0), e, x
 
@@ -347,6 +394,9 @@ class Relu:
 class GlobalAvgPool:
     """(B, H, W, C) -> (B, 1, 1, C): int32 sum / (H*W), truncated, clipped."""
 
+    def out_shape(self, shape):
+        return (shape[0], 1, 1, shape[3])
+
     def fwd(self, x, e, ctx):
         _, h, w, _ = x.shape
         acc = x.to(torch.int32).sum(dim=(1, 2), keepdim=True, dtype=torch.int32)
@@ -356,6 +406,81 @@ class GlobalAvgPool:
         b, h, w, c = res
         g = torch.div(gy.to(torch.int32), h * w, rounding_mode="trunc")
         return clip(g.expand(b, h, w, c), ctx.p.rail), []
+
+
+class MaxPool:
+    """VALID max pool; the exponent passes (NITI_Maxpool_Int8.cpp). The
+    gradient goes to the first position of each window, in row-major scan
+    order, whose value is at least the window's max
+    (NITI_CPUPoolGrad_Int8.cpp:60-66); where windows overlap, the
+    contributions add in int32 and clip."""
+
+    def __init__(self, window=(2, 2), stride=(2, 2)):
+        self.window, self.stride = tuple(window), tuple(stride)
+
+    def out_shape(self, shape):
+        return (shape[0], *conv_spatial(shape[1:3], self.window, self.stride, "VALID"), shape[3])
+
+    def fwd(self, x, e, ctx):
+        y = windows(x, self.window, self.stride).amax(dim=(3, 4))
+        return y, e, (x, y)
+
+    def bwd(self, res, gy, ctx, need_input_grad=True):
+        x, y = res
+        win = windows(x, self.window, self.stride)
+        b, oh, ow, kh, kw, c = win.shape
+        hit = (win >= y[:, :, :, None, None, :]).reshape(b, oh, ow, kh * kw, c)
+        first = hit & (torch.cumsum(hit.to(torch.int32), dim=3, dtype=torch.int32) == 1)
+        zero = torch.zeros((), dtype=gy.dtype, device=gy.device)
+        taps = [torch.where(first[:, :, :, t], gy, zero) for t in range(kh * kw)]
+        return clip(scatter(taps, self.window, self.stride, x.shape[1:3]), ctx.p.rail), []
+
+
+class AvgPool:
+    """Average pool of `pad` zero pixels a side and a VALID window: the
+    int32 window sum divided by |window|, truncated, clipped; the exponent
+    passes. The gradient spreads gy / |window|, truncated, over each
+    window, sums in int32, clips and crops the pad."""
+
+    def __init__(self, window=(3, 3), stride=(1, 1), pad: int = 0):
+        self.window, self.stride, self.pad = tuple(window), tuple(stride), int(pad)
+
+    def out_shape(self, shape):
+        p = self.pad
+        return (shape[0], *conv_spatial((shape[1] + 2 * p, shape[2] + 2 * p), self.window,
+                                        self.stride, "VALID"), shape[3])
+
+    def fwd(self, x, e, ctx):
+        p, (kh, kw) = self.pad, self.window
+        win = windows(pad(x, ((p, p), (p, p))), self.window, self.stride)
+        acc = torch.zeros(win.shape[:3] + win.shape[5:], dtype=torch.int32, device=x.device)
+        for i in range(kh):
+            for j in range(kw):
+                acc += win[:, :, :, i, j, :].to(torch.int32)
+        y = clip(torch.div(acc, kh * kw, rounding_mode="trunc"), ctx.p.rail)
+        return y, e, x.shape
+
+    def bwd(self, res, gy, ctx, need_input_grad=True):
+        _, h, w, _ = res
+        p, (kh, kw) = self.pad, self.window
+        g = torch.div(gy.to(torch.int32), kh * kw, rounding_mode="trunc")
+        gx = clip(scatter([g] * (kh * kw), self.window, self.stride, (h + 2 * p, w + 2 * p)),
+                  ctx.p.rail)
+        return gx[:, p:p + h, p:p + w, :], []
+
+
+class Flatten:
+    """(B, H, W, C) -> (B, 1, 1, H*W*C) in NHWC order; the gradient
+    restores the shape."""
+
+    def out_shape(self, shape):
+        return (shape[0], 1, 1, math.prod(shape[1:]))
+
+    def fwd(self, x, e, ctx):
+        return x.reshape(x.shape[0], 1, 1, -1), e, x.shape
+
+    def bwd(self, res, gy, ctx, need_input_grad=True):
+        return gy.reshape(res), []
 
 
 def add(a, ea, b, eb, p: Precision):
@@ -372,6 +497,13 @@ class Residual:
 
     def __init__(self, branch: Sequence, proj: Optional[Conv] = None):
         self.branch, self.proj = list(branch), proj
+
+    @property
+    def branches(self):
+        return [self.branch] + ([[self.proj]] if self.proj is not None else [])
+
+    def out_shape(self, shape):
+        return shape_of(self.branch, shape)
 
     def fwd(self, x, e, ctx):
         y, ey, res_b = run_forward(self.branch, x, e, ctx)
@@ -393,6 +525,38 @@ class Residual:
         return clip(gb.to(torch.int32) + gs.to(torch.int32), ctx.p.rail), grads
 
 
+class Concat:
+    """Branches that all read the input, joined on the channel axis: each
+    output shifted right, truncating, to the largest exponent. The gradient
+    gives each branch its own channel slice; the branches' input grads are
+    summed in branch order and clipped after each sum, as where two
+    gradient paths meet (grad/OpGrad.cpp:64-128)."""
+
+    def __init__(self, branches: Sequence[Sequence]):
+        self.branches = [list(b) for b in branches]
+
+    def out_shape(self, shape):
+        outs = [shape_of(b, shape) for b in self.branches]
+        return (*outs[0][:3], sum(o[3] for o in outs))
+
+    def fwd(self, x, e, ctx):
+        outs = [run_forward(b, x, e, ctx) for b in self.branches]
+        eo = torch.stack([eb.to(torch.int32) for _, eb, _ in outs]).amax()
+        y = torch.cat([trunc_shift(yb, eo - eb.to(torch.int32)).to(torch.int8)
+                       for yb, eb, _ in outs], dim=-1)
+        return y, eo, ([r for _, _, r in outs], [yb.shape[-1] for yb, _, _ in outs])
+
+    def bwd(self, res, gy, ctx, need_input_grad=True):
+        ress, sizes = res
+        gx, grads, at = None, [], 0
+        for branch, r, n in zip(self.branches, ress, sizes):
+            gb, g = run_backward(branch, r, gy[..., at:at + n], ctx, True)
+            at += n
+            grads += g
+            gx = gb if gx is None else clip(gx.to(torch.int32) + gb.to(torch.int32), ctx.p.rail)
+        return gx, grads
+
+
 def run_forward(layers, x, e, ctx):
     residuals = []
     for layer in layers:
@@ -409,14 +573,23 @@ def run_backward(layers, residuals, gy, ctx, need_input_grad=True):
     return gy, grads
 
 
+def shape_of(layers, shape):
+    """The output shape of `layers` on an NHWC input of `shape`."""
+    for layer in layers:
+        shape = layer.out_shape(tuple(shape))
+    return tuple(shape)
+
+
 def weighted(layers) -> List:
-    """The layers that hold a weight, in order (branch before projection)."""
+    """The layers that hold a weight, in the order of the program's
+    modules: a composite layer's branches one after another (a residual's
+    branch before its projection)."""
     out = []
     for layer in layers:
-        if isinstance(layer, Residual):
-            out += weighted(layer.branch) + ([layer.proj] if layer.proj is not None else [])
-        elif hasattr(layer, "weight_shape"):
+        if hasattr(layer, "weight_shape"):
             out.append(layer)
+        for branch in getattr(layer, "branches", ()):
+            out += weighted(branch)
     return out
 
 

@@ -195,9 +195,14 @@ def _quiet(*args):
     pass
 
 
-@pytest.mark.parametrize("name", ["mnv2_recipe.b256", "resnet18.b32"])
-def test_a_sound_run_is_correct(tiny_cell, monkeypatch, name):
-    bench, c = tiny_cell(name)
+# (cell, family in place of the cell's configuration, or None)
+SOUND = [("mnv2_recipe.b256", None), ("resnet18.b32", None), ("resnet18.b32", "inception_v3")]
+SOUND_IDS = ["mnv2_recipe.b256", "resnet18.b32", "inception_v3"]
+
+
+@pytest.mark.parametrize("name,family", SOUND, ids=SOUND_IDS)
+def test_a_sound_run_is_correct(tiny_cell, monkeypatch, name, family):
+    bench, c = tiny_cell(name, family)
     monkeypatch.setattr(run, "WARMUP_S", 0.2)
     r = run.run_cell(bench, c, name, 2**31 + 99, 0.3, False, torch.device("cpu"), log=_quiet)
     assert r["correct"] is True
@@ -242,18 +247,20 @@ def _altered(monkeypatch):
 # between chips to leave out.
 @pytest.mark.parametrize("fault", [_unchanged, _half_batch, _altered],
                          ids=["state_unchanged", "half_batch", "answer_altered"])
-@pytest.mark.parametrize("name", ["mnv2_recipe.b256", "resnet18.b32"])
-def test_a_broken_step_is_not_correct(tiny_cell, monkeypatch, fault, name):
-    bench, c = tiny_cell(name)
+@pytest.mark.parametrize("name,family", SOUND, ids=SOUND_IDS)
+def test_a_broken_step_is_not_correct(tiny_cell, monkeypatch, fault, name, family):
+    bench, c = tiny_cell(name, family)
     fault(monkeypatch)
     monkeypatch.setattr(run, "WARMUP_S", 0.1)
     r = run.run_cell(bench, c, name, 2**31 + 99, 0.2, False, torch.device("cpu"), log=_quiet)
     assert r["correct"] is False
 
 
-@pytest.mark.parametrize("name", ["mnv2_recipe.b32", "resnet18.b256"])
-def test_the_control_is_not_correct(tiny_cell, name):
-    _, c = tiny_cell(name)
+@pytest.mark.parametrize("name,family", [("mnv2_recipe.b32", None), ("resnet18.b256", None),
+                                         ("resnet18.b256", "inception_v3")],
+                         ids=["mnv2_recipe.b32", "resnet18.b256", "inception_v3"])
+def test_the_control_is_not_correct(tiny_cell, name, family):
+    _, c = tiny_cell(name, family)
     for seed in (1, 2, 3):
         got = control.readings(c, seed, torch.device("cpu"))
         for variant in ("control", "half_batch", "altered", "unchanged"):

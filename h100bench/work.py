@@ -5,13 +5,18 @@ traffic around it not counted. Every conv and depthwise conv counts its
 forward, its filter gradient and, but for the first layer, its input
 gradient, each with the forward's multiply-adds (a strided input gradient
 counts the forward's products, not those of its zero-dilated form). The
-same rule whatever kernel, route or fused mode computes them."""
+same rule whatever kernel, route or fused mode computes them.
+
+A layer with a weight is a contraction: its multiply-adds are those of its
+weight (KH, KW, IC, OC; a depthwise weight's IC is 1) at every output
+pixel. Every other layer adds none and changes the shape as its
+out_shape() says; a composite layer's branches each start from its input
+(reference.py)."""
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Tuple
-
-from .reference import Conv, DepthwiseConv, GlobalAvgPool, Residual, same_or_valid
+import math
+from typing import List, NamedTuple
 
 
 class Contraction(NamedTuple):
@@ -24,36 +29,22 @@ class Contraction(NamedTuple):
         return 2 * self.macs
 
 
-def _out_spatial(layer, spatial) -> Tuple[int, int]:
-    pads = same_or_valid(layer.padding, layer.kernel, layer.stride, spatial)
-    return tuple((n + p[0] + p[1] - k) // s + 1
-                 for n, p, k, s in zip(spatial, pads, layer.kernel, layer.stride))
-
-
 def _layer(layer, shape, first: bool, out: List[Contraction]):
-    b, h, w, c = shape
-    if isinstance(layer, Residual):
-        y = _walk(layer.branch, shape, False, out)
-        if layer.proj is not None:
-            _layer(layer.proj, shape, False, out)
+    for branch in getattr(layer, "branches", ()):
+        _walk(branch, shape, False, out)
+    y = layer.out_shape(shape)
+    if not hasattr(layer, "weight_shape"):
         return y
-    if isinstance(layer, GlobalAvgPool):
-        return (b, 1, 1, c)
-    if not isinstance(layer, (Conv, DepthwiseConv)):
-        return shape
-    oh, ow = _out_spatial(layer, (h, w))
-    kh, kw = layer.kernel
-    depthwise = isinstance(layer, DepthwiseConv)
-    oc = c if depthwise else layer.oc
-    ic = 1 if depthwise else c
-    taps = b * oh * ow * kh * kw * ic * oc  # multiply-adds of the forward
-    x, y, wt = b * h * w * c, b * oh * ow * oc, kh * kw * ic * oc
-    name = f"{'dw' if depthwise else 'conv'}{kh}x{kw}/{layer.stride[0]} {h}x{w}x{c}->{oc}"
-    out.append(Contraction(f"{name} fwd", taps, x + wt + y))
-    out.append(Contraction(f"{name} filter grad", taps, y + x + wt))
+    wt = math.prod(layer.weight_shape)
+    taps = math.prod(y[:3]) * wt  # multiply-adds of the forward
+    x, yb = math.prod(shape), math.prod(y)
+    kh, kw = layer.weight_shape[:2]
+    name = f"{type(layer).__name__}{kh}x{kw}/{layer.stride[0]} {shape[1:]}->{y[3]}"
+    out.append(Contraction(f"{name} fwd", taps, x + wt + yb))
+    out.append(Contraction(f"{name} filter grad", taps, yb + x + wt))
     if not first:
-        out.append(Contraction(f"{name} input grad", taps, y + wt + x))
-    return (b, oh, ow, oc)
+        out.append(Contraction(f"{name} input grad", taps, yb + wt + x))
+    return y
 
 
 def _walk(layers, shape, top: bool, out: List[Contraction]):

@@ -36,7 +36,9 @@ raises on failure (the script then exits non-zero and prints no result):
    benchmark's models (the MobileNetV2 recipe and ResNet-18 at batch 256,
    rehearsed on the meta device), each in its form, mode and activation,
    both phases, beside the plain chain's time, the byte bound and phase 2's
-   CUDA-core floor;
+   CUDA-core floor; K8 against its plain versions at every pool and concat
+   site of an Inception-v3 train step at 299, batch 32 (rehearsed on the
+   meta device), beside the plain chains' time and the byte bound;
 4. LeNet's main path at batch 64: `train_niti` on the card with the kernels,
    launch counts reset just before and read just after; then the same steps
    from the same params with the plain versions on the card and on the CPU.
@@ -250,7 +252,8 @@ from mandheling_tpu_torch.ops import numerics
 from mandheling_tpu_torch.ops import kernels
 from mandheling_tpu_torch.ops.conv import use_fused_conv_mode
 from mandheling_tpu_torch.ops.kernels import (build, fused_conv_int8, fused_dwconv_int8,
-                                              fused_matmul_int8, matmul_int8, requant_int32)
+                                              fused_matmul_int8, matmul_int8, pool_concat_int8,
+                                              requant_int32)
 from mandheling_tpu_torch.parallel import distributed, quantize_microbatches, tp
 from mandheling_tpu_torch.parallel import runs as runs_mod
 from mandheling_tpu_torch.data.loader import onehot_padded
@@ -465,11 +468,17 @@ K5_PATH_KEYS = {(xs, k, pads, stride) for _, xs, k, pads, stride in K5_PATH_CASE
 # 16 on synthetic data), whose per-channel depthwise forms take K4 where
 # their per-tensor twins do (with their alignment shifts as K4's operand).
 # K7 requantizes every int32 accumulator that no fused kernel takes, both of
-# its phases once a site (counted here once a site, as K2-K4 are).
+# its phases once a site (counted here once a site, as K2-K4 are). K8 takes
+# every max pool ("K8mp", its backward "K8mpb"), zero-padded average pool
+# ("K8ap", "K8apb") and channel concat ("K8cat"): LeNet's two 2x2 pools,
+# ResNet-v2-50's stem pool, SqueezeNet's three 3x3/2 pools and eight Fire
+# concats, Inception-v3's four max pools, nine average pools and 15 concats.
 EXPECTED_PER_STEP = {
-    ("lenet", 64, "matmul_only"): ({"K1": 11, "K7": 11}, {"K1": 4, "K7": 4}),
-    ("lenet", 2048, "matmul_only"): ({"K1": 10, "K2": 1, "K7": 10}, {"K1": 4, "K7": 4}),
-    ("lenet", 64, "all"): ({"K1": 8, "K3": 3, "K7": 8}, {"K1": 2, "K3": 2, "K7": 2}),
+    ("lenet", 64, "matmul_only"): ({"K1": 11, "K7": 11, "K8mp": 2, "K8mpb": 2}, {"K1": 4, "K7": 4, "K8mp": 2}),
+    ("lenet", 2048, "matmul_only"): ({"K1": 10, "K2": 1, "K7": 10, "K8mp": 2, "K8mpb": 2},
+                                     {"K1": 4, "K7": 4, "K8mp": 2}),
+    ("lenet", 64, "all"): ({"K1": 8, "K3": 3, "K7": 8, "K8mp": 2, "K8mpb": 2},
+                           {"K1": 2, "K3": 2, "K7": 2, "K8mp": 2}),
     ("mnv2", 256, "matmul_only"): ({"K1": 65, "K2": 42, "K4": 31, "K5": 17, "K7": 95},
                                    {"K1": 15, "K2": 21, "K4": 14, "K7": 28}),
     ("mnv2", 32, "matmul_only"): ({"K1": 81, "K2": 26, "K4": 31, "K5": 17, "K7": 111},
@@ -495,19 +504,26 @@ EXPECTED_PER_STEP = {
     ("resnet18", 256, "matmul_only"): ({"K1": 56, "K2": 6, "K7": 64}, {"K1": 18, "K2": 3, "K7": 26}),
     ("resnet18", 256, "all"): ({"K1": 32, "K2": 6, "K3": 24, "K7": 40}, {"K1": 4, "K2": 3, "K3": 14, "K7": 12}),
     ("resnet18", 8, "matmul_only"): ({"K1": 61, "K2": 1, "K7": 69}, {"K1": 21, "K7": 29}),
-    ("resnet50v2", 16, "matmul_only"): ({"K1": 127, "K2": 34, "K7": 143}, {"K1": 37, "K2": 17, "K7": 53}),
+    ("resnet50v2", 16, "matmul_only"): ({"K1": 127, "K2": 34, "K7": 143, "K8mp": 1, "K8mpb": 1},
+                                        {"K1": 37, "K2": 17, "K7": 53, "K8mp": 1}),
     # The zoo, 1000 classes: SqueezeNet v1.0 at 224x224, Inception-v3 at
     # 299x299; under "all" K3 takes every non-1x1 SqueezeNet conv and 22
     # Inception forwards (its 1x7s, 1x3s, the 35x35 3x3s and the stem) and 17
     # of their input grads. "squeezenet10": 10 classes at 32x32 (CIFAR).
-    ("squeezenet", 128, "matmul_only"): ({"K1": 45, "K2": 32, "K7": 45}, {"K1": 10, "K2": 16, "K7": 10}),
-    ("squeezenet", 128, "all"): ({"K1": 36, "K2": 32, "K3": 9, "K7": 36}, {"K1": 1, "K2": 16, "K3": 9, "K7": 1}),
-    ("squeezenet", 2, "all"): ({"K1": 68, "K3": 9, "K7": 68}, {"K1": 17, "K3": 9, "K7": 17}),
-    ("squeezenet10", 64, "matmul_only"): ({"K1": 77, "K7": 77}, {"K1": 26, "K7": 26}),
-    ("inceptionv3", 32, "matmul_only"): ({"K1": 256, "K2": 28, "K7": 256}, {"K1": 81, "K2": 14, "K7": 81}),
-    ("inceptionv3", 32, "all"): ({"K1": 217, "K2": 28, "K3": 39, "K7": 217},
-                                 {"K1": 59, "K2": 14, "K3": 22, "K7": 59}),
-    ("inceptionv3", 2, "all"): ({"K1": 245, "K3": 39, "K7": 245}, {"K1": 73, "K3": 22, "K7": 73}),
+    ("squeezenet", 128, "matmul_only"): ({"K1": 45, "K2": 32, "K7": 45, "K8mp": 3, "K8mpb": 3, "K8cat": 8},
+                                         {"K1": 10, "K2": 16, "K7": 10, "K8mp": 3, "K8cat": 8}),
+    ("squeezenet", 128, "all"): ({"K1": 36, "K2": 32, "K3": 9, "K7": 36, "K8mp": 3, "K8mpb": 3, "K8cat": 8},
+                                 {"K1": 1, "K2": 16, "K3": 9, "K7": 1, "K8mp": 3, "K8cat": 8}),
+    ("squeezenet", 2, "all"): ({"K1": 68, "K3": 9, "K7": 68, "K8mp": 3, "K8mpb": 3, "K8cat": 8},
+                               {"K1": 17, "K3": 9, "K7": 17, "K8mp": 3, "K8cat": 8}),
+    ("squeezenet10", 64, "matmul_only"): ({"K1": 77, "K7": 77, "K8mp": 3, "K8mpb": 3, "K8cat": 8},
+                                          {"K1": 26, "K7": 26, "K8mp": 3, "K8cat": 8}),
+    ("inceptionv3", 32, "matmul_only"): ({"K1": 256, "K2": 28, "K7": 256, "K8mp": 4, "K8mpb": 4, "K8ap": 9, "K8apb": 9, "K8cat": 15},
+                                         {"K1": 81, "K2": 14, "K7": 81, "K8mp": 4, "K8ap": 9, "K8cat": 15}),
+    ("inceptionv3", 32, "all"): ({"K1": 217, "K2": 28, "K3": 39, "K7": 217, "K8mp": 4, "K8mpb": 4, "K8ap": 9, "K8apb": 9, "K8cat": 15},
+                                 {"K1": 59, "K2": 14, "K3": 22, "K7": 59, "K8mp": 4, "K8ap": 9, "K8cat": 15}),
+    ("inceptionv3", 2, "all"): ({"K1": 245, "K3": 39, "K7": 245, "K8mp": 4, "K8mpb": 4, "K8ap": 9, "K8apb": 9, "K8cat": 15},
+                                {"K1": 73, "K3": 22, "K7": 73, "K8mp": 4, "K8ap": 9, "K8cat": 15}),
     # MobileNetV2 with int16 projection outputs (proj_bits=15): K1's int16-A
     # route takes the 17 convs that read them (16 expansions and the head),
     # forward and filter grad; no fused kernel takes an int16 operand or
@@ -532,7 +548,10 @@ FAMILIES = {"K1": ("matmul_int8",), "K1i16": ("matmul_int16a",),
             "K3": ("fused_conv_max", "fused_conv_requant"),
             "K4": ("fused_dwconv_max", "fused_dwconv_requant"),
             "K5": ("fused_dwconv_fgrad",),
-            "K7": ("requant_int32_absmax", "requant_int32_requant")}
+            "K7": ("requant_int32_absmax", "requant_int32_requant"),
+            "K8mp": ("pool_concat_maxpool",), "K8mpb": ("pool_concat_maxpool_grad",),
+            "K8ap": ("pool_concat_avgpool",), "K8apb": ("pool_concat_avgpool_grad",),
+            "K8cat": ("pool_concat_concat",)}
 
 
 def mnv2_transfer_model() -> TransferModel:
@@ -1151,6 +1170,98 @@ def check_k7(rates, int_rate, gen):
               f"{total['absmax_bound_ms']:.4f}, bytes), requant {total['requant_ms']:.4f} ms "
               f"(bound {total['requant_bound_ms']:.4f}, bytes; CUDA-core floor "
               f"{total['requant_floor_ms']:.4f}), the plain chain {total['plain_ms']:.4f} ms",
+              flush=True)
+    return out, worst
+
+
+# K8's five dispatch functions -> (the counter of its kernel, the key of a
+# call: its operands' shapes and the pool's window, stride and pad).
+K8_SPEC = {
+    "pool_concat_maxpool": (
+        "maxpool", lambda x, window=(2, 2), stride=(2, 2): (
+            tuple(x.shape), tuple(window), tuple(stride), 0)),
+    "pool_concat_maxpool_grad": (
+        "maxpool_grad", lambda x, y, gy, window=(2, 2), stride=(2, 2): (
+            tuple(x.shape), tuple(window), tuple(stride), 0)),
+    "pool_concat_avgpool": (
+        "avgpool", lambda x, window, stride, pad=0: (
+            tuple(x.shape), tuple(window), tuple(stride), pad)),
+    "pool_concat_avgpool_grad": (
+        "avgpool_grad", lambda gy, x_spatial, window, stride, pad=0: (
+            (gy.shape[0], *x_spatial, gy.shape[3]), tuple(window), tuple(stride), pad)),
+    "pool_concat_concat": (
+        "concat", lambda datas, exps: tuple(tuple(d.shape) for d in datas)),
+}
+
+
+def k8_sites(batch=32, side=299, classes=1000):
+    """{counter: {key: calls}} of K8's dispatch functions in one
+    Inception-v3 train step at `batch` on side x side x 3 inputs, rehearsed
+    on the meta device."""
+    model = inceptionv3_niti(num_classes=classes).to("meta")
+    x = torch.zeros((batch, side, side, 3), device="meta")
+    oh = torch.zeros((batch, classes), dtype=torch.int32, device="meta")
+    spec = {counter: (pool_concat_int8, fn, key) for counter, (fn, key) in K8_SPEC.items()}
+    with recording(spec) as seen:
+        make_train_step(model)(x, oh)
+    return seen
+
+
+def k8_calls(counter, key, gen):
+    """(the kernel's call, its plain version's, bytes it must move) at one
+    K8 site on random card operands (exponents in [-8, 1])."""
+    pc = pool_concat_int8
+    if counter == "pool_concat_concat":
+        datas = [rand_int8(s, gen) for s in key]
+        exps = [e for e in torch.randint(-8, 2, (len(key),), generator=gen, dtype=torch.int32,
+                                         device="cuda")]
+        moved = 2 * sum(math.prod(s) for s in key) + 4 * (len(key) + 1)
+        return (lambda: pc.concat_cuda(datas, exps)), (lambda: pc.concat_plain(datas, exps)), moved
+    shape, window, stride, pad = key
+    x = rand_int8(shape, gen)
+    y_shape = (shape[0], *pc.pooled(shape[1:3], window, stride, pad), shape[3])
+    nx, ny = math.prod(shape), math.prod(y_shape)
+    if counter == "pool_concat_maxpool":
+        return (lambda: pc.maxpool_cuda(x, window, stride),
+                lambda: pc.maxpool_plain(x, window, stride), nx + ny)
+    if counter == "pool_concat_avgpool":
+        return (lambda: pc.avgpool_cuda(x, window, stride, pad),
+                lambda: pc.avgpool_plain(x, window, stride, pad), nx + ny)
+    gy = rand_int8(y_shape, gen)
+    if counter == "pool_concat_maxpool_grad":
+        y = pc.maxpool_plain(x, window, stride)
+        return (lambda: pc.maxpool_grad_cuda(x, y, gy, window, stride),
+                lambda: pc.maxpool_grad_plain(x, y, gy, window, stride), 2 * nx + 2 * ny)
+    return (lambda: pc.avgpool_grad_cuda(gy, shape[1:3], window, stride, pad),
+            lambda: pc.avgpool_grad_plain(gy, shape[1:3], window, stride, pad), nx + ny)
+
+
+def check_k8(rates, gen):
+    """K8 against its plain versions, byte for byte, at every pool and
+    concat site of an Inception-v3 train step at 299, batch 32, and its
+    times there beside the plain chains'. Bound: bytes (each operand read
+    and each result written once, int8). Returns {counter: summary over one
+    train step, the sites by key} and the largest difference (0)."""
+    out, worst = {}, 0
+    for counter, sites in k8_sites().items():
+        rows = []
+        for key, calls in sorted(sites.items(), key=repr):
+            kernel, plain, moved = k8_calls(counter, key, gen)
+            got, want = kernel(), plain()
+            got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+            errs = [max_abs_err(g, w) for g, w in zip(got, want)]
+            if any(errs):
+                raise AssertionError(f"K8 {counter} {key}: differs from plain {errs}")
+            rows.append(dict(key=repr(key), calls_per_train_step=calls, bytes=moved,
+                             ms=time_ms(kernel), plain_ms=time_ms(plain, launches=5, rounds=3),
+                             bound_ms=moved / rates[1] * 1e3))
+        total = {k: sum(r["calls_per_train_step"] * r[k] for r in rows)
+                 for k in ("ms", "plain_ms", "bound_ms", "bytes")}
+        total["sites"] = sum(r["calls_per_train_step"] for r in rows)
+        out[counter] = dict(total, by_shape=rows)
+        print(f"  K8 {counter}: byte-equal at {len(rows)} site shapes; over one Inception-v3 "
+              f"b32 train step ({total['sites']} sites): {total['ms']:.4f} ms (bound "
+              f"{total['bound_ms']:.4f}, bytes), the plain chain {total['plain_ms']:.4f} ms",
               flush=True)
     return out, worst
 
@@ -2684,6 +2795,7 @@ def main() -> int:
     k4_rows, k4_err = check_k4(rates, mac_rate, int_rate, gen)
     k5_rows, k5_err = check_k5(rates, mac_rate, gen)
     k7_nets, k7_err = check_k7(rates, int_rate, gen)
+    k8_step, k8_err = check_k8(rates, gen)
 
     runs = {}
     start = export_jax_params(lenet_niti().reset_parameters(torch.Generator().manual_seed(0)))
@@ -3409,6 +3521,24 @@ def main() -> int:
                 key: val for key, val in t.items() if key != "by_shape"}
                for what, t in k7_nets.items()},
             "by_shape": {what: t["by_shape"] for what, t in k7_nets.items()}})
+    k8_replaces = {"pool_concat_maxpool": "mandheling_tpu/ops/pool.py:25",
+                   "pool_concat_maxpool_grad": "mandheling_tpu/ops/pool.py:53",
+                   "pool_concat_avgpool": "mandheling_tpu/ops/depthwise.py:397",
+                   "pool_concat_avgpool_grad": "mandheling_tpu/ops/depthwise.py:421",
+                   "pool_concat_concat": "mandheling_tpu/ops/eltwise.py:50"}
+    for counter, t in k8_step.items():
+        kernels_line["kernels"].append({
+            "name": counter, "route": "cuda",
+            "source": "mandheling_tpu_torch/csrc/pool_concat_int8.cu",
+            "replaces": k8_replaces[counter],
+            "replaces_note": "no Pallas site: the JAX package pools and concatenates in XLA",
+            "launches": launches[counter], "launches_by_run": by_run[counter],
+            "max_abs_err": k8_err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": "bytes", "library_ms": None,
+            "library_note": "no PyTorch call pools or concatenates int8 NITI's way",
+            "shapes": f"the {t['sites']} sites of one Inception-v3 batch-32 train step at 299, "
+                      "rehearsed on the meta device; times are their sum",
+            "by_shape": t["by_shape"]})
     for variant, source in (("int8", "fused_matmul_int8.cu"), ("bf16", "matmul_max_bf16.cu")):
         rows = [r for r in probe_rows if r["variant"] == variant]
         top = rows[-1]  # K = 256

@@ -8,6 +8,8 @@
 // - phase 2: `requant` is the bit-exact NITI pseudo-stochastic shift of one
 //   int32 accumulator to int8, with the shift read from device memory by the
 //   kernel, so the host never waits between the phases.
+//
+// Also the int32 shifts by torch's rules that K7 and K8 share (`trunc_div`).
 #pragma once
 
 #include <climits>
@@ -38,6 +40,21 @@ __device__ __forceinline__ int psto_round(int acc, int shift, int rail) {
   const int sign = (acc > 0) - (acc < 0);
   const int r = round_temp + (qprob > prand ? sign : 0);
   return min(max(r, -rail), rail);
+}
+
+// int32 shifts by torch's rules (K7's values and K8's concat): a << s is 0
+// and a >> s the sign for s outside [0, 32).
+__device__ __forceinline__ int shl(int v, int s) {
+  return (s < 0 || s >= 32) ? 0 : static_cast<int>(static_cast<unsigned>(v) << s);
+}
+
+__device__ __forceinline__ int sar(int v, int s) { return (s < 0 || s >= 32) ? v >> 31 : v >> s; }
+
+// numerics.trunc_shift_div: trunc(v / 2^s) with those rules.
+__device__ __forceinline__ int trunc_div(int v, int s) {
+  const unsigned mask = static_cast<unsigned>(shl(1, s)) - 1u;
+  const unsigned bias = static_cast<unsigned>(v >> 31) & mask;
+  return sar(static_cast<int>(static_cast<unsigned>(v) + bias), s);
 }
 
 // |v| with |INT32_MIN| == INT32_MIN, as jnp.abs and torch.abs give it.

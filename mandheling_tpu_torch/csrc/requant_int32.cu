@@ -83,18 +83,9 @@ struct K7Args {
   int relu6;            // forward, int8: clamp to [0, relu6_cap(exp_out)]
 };
 
-__device__ __forceinline__ int shl(int v, int s) {
-  return (s < 0 || s >= 32) ? 0 : static_cast<int>(static_cast<unsigned>(v) << s);
-}
-
-__device__ __forceinline__ int sar(int v, int s) { return (s < 0 || s >= 32) ? v >> 31 : v >> s; }
-
-// numerics.trunc_shift_div: trunc(v / 2^s) with torch's shift rules.
-__device__ __forceinline__ int trunc_div(int v, int s) {
-  const unsigned mask = static_cast<unsigned>(shl(1, s)) - 1u;
-  const unsigned bias = static_cast<unsigned>(v >> 31) & mask;
-  return sar(static_cast<int>(static_cast<unsigned>(v) + bias), s);
-}
+using mh::sar;
+using mh::shl;
+using mh::trunc_div;
 
 __device__ __forceinline__ int wrap_add(int x, int y) {
   return static_cast<int>(static_cast<unsigned>(x) + static_cast<unsigned>(y));

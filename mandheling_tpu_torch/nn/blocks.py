@@ -90,7 +90,8 @@ class NITIDepthwiseConv2D(NITILayer):
 
 class NITIAvgPool(NITILayer):
     """int8 average pool. `pad` > 0 zero-pads each spatial side before a
-    VALID pool (the divisor stays |window|)."""
+    VALID pool (the divisor stays |window|); the pad is read as zeros, and
+    the gradient is the unpadded input's (ops/depthwise.avgpool2d_int8)."""
 
     def __init__(self, window=(2, 2), stride=None, pad: int = 0):
         super().__init__()
@@ -99,16 +100,12 @@ class NITIAvgPool(NITILayer):
         self.pad = int(pad)
 
     def fwd(self, q: QTensor, group=None):
-        x = elt_ops.pad_int8(q.data, self.pad) if self.pad else q.data
-        y, e = dw_ops.avgpool2d_int8(x, q.exp, self.window, self.stride)
-        return QTensor(y, e), x.shape
+        y, e = dw_ops.avgpool2d_int8(q.data, q.exp, self.window, self.stride, pad=self.pad)
+        return QTensor(y, e), q.data.shape
 
     def bwd(self, res, gy, group=None):
-        gx = dw_ops.avgpool2d_grad(gy, (res[1], res[2]), self.window, self.stride)
-        if self.pad:
-            p = self.pad
-            gx = gx[:, p:-p, p:-p, :]
-        return gx, ()
+        return dw_ops.avgpool2d_grad(gy, (res[1], res[2]), self.window, self.stride,
+                                     pad=self.pad), ()
 
 
 class GlobalAvgPool(NITILayer):

@@ -50,8 +50,9 @@ from . import allreduce, flops, numerics
 from .conv import (_fused_enabled, _input_grad_pads, get_fgrad_margin, get_fused_conv_mode,
                    resolve_padding, set_fgrad_margin)
 from .kernels import fused_dwconv_int8 as _fdw
+from .kernels import pool_concat_int8 as _pc
 from .kernels import requant_int32 as _rq
-from .kernels.conv_int8 import _dilate_hw, pad_hw
+from .kernels.conv_int8 import pad_hw
 from .kernels.dispatch import get_backend
 
 Pads = Tuple[Tuple[int, int], Tuple[int, int]]
@@ -286,41 +287,24 @@ def dwconv2d_filter_grad(
                                             pc_shift=pc_shift)
 
 
+@flops.counted(lambda args: (0, 0))
 def avgpool2d_int8(
     x: torch.Tensor, x_exp: torch.Tensor, window: Sequence[int],
-    stride: Optional[Sequence[int]] = None,
+    stride: Optional[Sequence[int]] = None, pad: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """int8 VALID average pool: int32 window sum, division truncated toward
-    zero by the window size, exponent passthrough."""
-    kh, kw = window
-    sh, sw = stride or window
-    b, ih, iw, c = x.shape
-    oh, ow = (ih - kh) // sh + 1, (iw - kw) // sw + 1
-    acc = torch.zeros((b, oh, ow, c), dtype=torch.int32, device=x.device)
-    for dy in range(kh):
-        for dx in range(kw):
-            acc += x[:, dy:dy + (oh - 1) * sh + 1:sh, dx:dx + (ow - 1) * sw + 1:sw, :].to(torch.int32)
-    out = torch.div(acc, kh * kw, rounding_mode="trunc")
-    return numerics.int8_clip(out).to(torch.int8), x_exp
+    """int8 VALID average pool of x zero-padded by `pad` a side: int32 window
+    sum, division truncated toward zero by the window size, exponent
+    passthrough. K8 (kernels/pool_concat_int8.py) under "cuda", which reads
+    the pad as zeros; counted as no work, so that its launches are noted."""
+    return _pc.avgpool(x, window, stride or window, pad), x_exp
 
 
+@flops.counted(lambda args: (0, 0))
 def avgpool2d_grad(
     gy: torch.Tensor, x_spatial: Tuple[int, int], window: Sequence[int],
-    stride: Optional[Sequence[int]] = None,
+    stride: Optional[Sequence[int]] = None, pad: int = 0,
 ) -> torch.Tensor:
     """Spread gy / |window| (truncating division) over each window; int32
-    sums of overlapping windows clip to int8."""
-    kh, kw = window
-    sh, sw = stride or window
-    ih, iw = x_spatial
-    g = torch.div(gy.to(torch.int32), kh * kw, rounding_mode="trunc")
-    b, oh, ow, c = gy.shape
-    dil = _dilate_hw(g, sh, sw)
-    dh, dw = dil.shape[1], dil.shape[2]
-    gx = torch.zeros((b, ih, iw, c), dtype=torch.int32, device=gy.device)
-    for dy in range(kh):
-        for dx in range(kw):
-            # lax.dynamic_update_slice clamps the start so that the update fits
-            y0, x0 = min(dy, ih - dh), min(dx, iw - dw)
-            gx[:, y0:y0 + dh, x0:x0 + dw, :] += dil
-    return numerics.int8_clip(gx).to(torch.int8)
+    sums of overlapping windows clip to int8. `x_spatial` is the input's
+    size before its `pad`, and so is the gradient's."""
+    return _pc.avgpool_grad(gy, x_spatial, window, stride or window, pad)

@@ -24,7 +24,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from . import allreduce, flops, numerics
+from . import allreduce, flops
+from .kernels import pool_concat_int8 as _pc
 from .kernels import requant_int32 as _rq
 
 
@@ -52,14 +53,11 @@ def pad_int8(x: torch.Tensor, pad: int) -> torch.Tensor:
     return F.pad(x, (0, 0, pad, pad, pad, pad))
 
 
+@flops.counted(lambda args: (0, 0))
 def concat_int8(datas: Sequence[torch.Tensor],
                 exps: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exponent-aligned channel concat -> (int8, exp_out): every branch is
-    right-shifted (truncating) to e = max(exps), which keeps it int8."""
-    exps = [e.to(torch.int32) for e in exps]
-    e = exps[0]
-    for ei in exps[1:]:
-        e = torch.maximum(e, ei)
-    aligned = [numerics.trunc_shift_div(d, e - ei).to(torch.int8)
-               for d, ei in zip(datas, exps)]
-    return torch.cat(aligned, dim=-1), e
+    right-shifted (truncating) to e = max(exps), which keeps it int8. K8
+    (kernels/pool_concat_int8.py) under "cuda": one launch that reads the
+    exponents and writes e on the device."""
+    return _pc.concat(datas, exps)

@@ -3,10 +3,12 @@ integer half of `utils/profiler.cost_analysis` (XLA's cost model counts the
 JAX package's convolutions and dots from their shapes the same way).
 
 Every public contraction op of ops/conv.py, ops/depthwise.py and
-ops/matmul.py is wrapped by :func:`counted` (and ops/eltwise.add_int8, as no
-work, so that its requant launches are noted), at its entry, where every route
-passes: the plain version, K1, and the fused two-phase routes (K2, K3, K4),
-which do not all go through the `_acc` functions. So a count does not
+ops/matmul.py is wrapped by :func:`counted` (and, as no work, so that their
+launches are noted: ops/eltwise.add_int8's requant and K8's pools and concat,
+ops/pool.py, ops/depthwise.py's average pool, ops/eltwise.concat_int8), at
+its entry, where every route passes: the plain version, K1, and the fused
+two-phase routes (K2, K3, K4), which do not all go through the `_acc`
+functions. So a count does not
 depend on the backend, the fused mode or the device. An op counts 2 flops a
 multiply-add of the contraction its shapes define (a strided input grad
 counts the forward's products, not those of the zero-dilated form the
@@ -18,7 +20,7 @@ While a counted op runs, :func:`inside` is true: cost_analysis leaves the
 float work of a plain version (its float64 GEMM) out of the float count.
 
 :func:`recording` notes, for every kernel launch a counted op makes, the
-kernel's launch counter, the op's flops and bytes (none for K7's requant
+kernel's launch counter, the op's flops and bytes (none for K7's and K8's
 launches, ``kernels.NO_CONTRACTION``) and the op's source (file:line), in
 launch order. Every graph of train/step_graph.py keeps the
 notes of its capture (:func:`hold_launches`, :func:`take_launches`) and

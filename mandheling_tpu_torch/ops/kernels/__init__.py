@@ -15,12 +15,15 @@ PyTorch versions, and the backend selector.
 | `fused_matmul_max_bf16` | fused_matmul_int8.py  | tools/probes/dot_probe.py `make_dot.kernel`, bf16 operands (its int8 variant is `fused_matmul_max`) |
 | `requant_int32_absmax`  | requant_int32.py      | no Pallas kernel: the XLA-side range estimate of an int32 accumulator no fused kernel takes (K7 phase 1) |
 | `requant_int32_requant` | requant_int32.py      | no Pallas kernel: the XLA-side forward / gradient requant of that accumulator (K7 phase 2) |
+| `pool_concat_maxpool`, `pool_concat_maxpool_grad` | pool_concat_int8.py | no Pallas kernel: the XLA-side int8 max pool and its gradient (K8) |
+| `pool_concat_avgpool`, `pool_concat_avgpool_grad` | pool_concat_int8.py | no Pallas kernel: the XLA-side zero-padded int8 average pool and its gradient (K8) |
+| `pool_concat_concat`    | pool_concat_int8.py   | no Pallas kernel: the XLA-side exponent-aligned channel concat (K8) |
 """
 
 from typing import Dict
 
 from . import (conv_int8, dispatch, fused_conv_int8, fused_dwconv_int8, fused_matmul_int8,
-               matmul_int8, requant_int32, stream_state)
+               matmul_int8, pool_concat_int8, requant_int32, stream_state)
 from .dispatch import get_backend, set_backend, use_backend
 
 # kernel name -> (module, name of its launch counter)
@@ -37,11 +40,19 @@ _COUNTERS = {
     "fused_matmul_max_bf16": (fused_matmul_int8, "MAX_BF16_LAUNCHES"),
     "requant_int32_absmax": (requant_int32, "ABSMAX_LAUNCHES"),
     "requant_int32_requant": (requant_int32, "REQUANT_LAUNCHES"),
+    "pool_concat_maxpool": (pool_concat_int8, "MAXPOOL_LAUNCHES"),
+    "pool_concat_maxpool_grad": (pool_concat_int8, "MAXPOOL_GRAD_LAUNCHES"),
+    "pool_concat_avgpool": (pool_concat_int8, "AVGPOOL_LAUNCHES"),
+    "pool_concat_avgpool_grad": (pool_concat_int8, "AVGPOOL_GRAD_LAUNCHES"),
+    "pool_concat_concat": (pool_concat_int8, "CONCAT_LAUNCHES"),
 }
 
 # the counters of kernels that compute no contraction (K7's requant of an
-# accumulator another kernel made): their launch notes carry no work
-NO_CONTRACTION = frozenset(("requant_int32_absmax", "requant_int32_requant"))
+# accumulator another kernel made, K8's pools and concats): their launch
+# notes carry no work
+NO_CONTRACTION = frozenset(("requant_int32_absmax", "requant_int32_requant", "pool_concat_maxpool",
+                            "pool_concat_maxpool_grad", "pool_concat_avgpool",
+                            "pool_concat_avgpool_grad", "pool_concat_concat"))
 
 
 def launch_counts() -> Dict[str, int]:
@@ -70,6 +81,7 @@ __all__ = [
     "fused_dwconv_int8",
     "fused_matmul_int8",
     "matmul_int8",
+    "pool_concat_int8",
     "requant_int32",
     "stream_state",
     "get_backend",

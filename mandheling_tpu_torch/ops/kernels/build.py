@@ -35,6 +35,7 @@ SOURCES = {
     "fused_dwconv_fgrad_int8": "fused_dwconv_fgrad_int8.cu",
     "matmul_max_bf16": "matmul_max_bf16.cu",
     "requant_int32": "requant_int32.cu",
+    "pool_concat_int8": "pool_concat_int8.cu",
 }
 _HEADERS = ("gemm_s8_sm90.cuh", "niti_epilogue.cuh")
 NVCC_FLAGS = (

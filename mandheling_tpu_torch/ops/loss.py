@@ -17,13 +17,25 @@ import torch
 from . import numerics
 
 
+def _mean_nll(logits: torch.Tensor, ascale: torch.Tensor, target_onehot: torch.Tensor,
+              dtype: torch.dtype) -> torch.Tensor:
+    x = logits.to(dtype) * torch.exp2(ascale.to(dtype))
+    logp = torch.log_softmax(x, dim=-1)
+    return -torch.mean(torch.sum(logp * target_onehot.to(dtype), dim=-1))
+
+
 def loss_cross_entropy_float(logits: torch.Tensor, ascale: torch.Tensor,
                              target_onehot: torch.Tensor) -> torch.Tensor:
-    """Float CE value for logging: mean NLL of softmax(logits * 2^ascale)."""
-    x = logits.to(torch.float32) * torch.exp2(ascale.to(torch.float32))
-    logp = torch.log_softmax(x, dim=-1)
-    per_sample = torch.sum(logp * target_onehot.to(torch.float32), dim=-1)
-    return -torch.mean(per_sample)
+    """Float CE value for logging: mean NLL of softmax(logits * 2^ascale),
+    0-d float64. It is the JAX package's float32 value wherever that is
+    finite, and the same formula in float64 where logits * 2^ascale
+    overflows float32 (ascale above about 120: a network without batch norm
+    whose logits' exponent runs away), finite up to ascale about 1015. Both
+    are computed and one is selected on the device, so the host never reads
+    ascale."""
+    narrow = _mean_nll(logits, ascale, target_onehot, torch.float32).to(torch.float64)
+    wide = _mean_nll(logits, ascale, target_onehot, torch.float64)
+    return torch.where(torch.isfinite(narrow), narrow, wide)
 
 
 def _p_linear(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:

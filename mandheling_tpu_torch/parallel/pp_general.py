@@ -217,7 +217,7 @@ def make_gpipe_train_step(plan: GPipePlan, mesh: Mesh, n_microbatches: int,
                 allreduce.send(q.data, nxt)
                 allreduce.send(q.exp, nxt)
 
-        zero = torch.zeros((), dtype=torch.float32, device=device)
+        zero = torch.zeros((), dtype=torch.float64, device=device)
         gys = []
         if last:
             oh = onehot[:, rows].to(torch.int32)

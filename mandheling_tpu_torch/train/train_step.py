@@ -71,7 +71,7 @@ def quantize_batch(x: torch.Tensor, group=None) -> Tuple[torch.Tensor, torch.Ten
 
 
 def make_train_step(model: Sequential, group=None):
-    """Returns train_step(x_float, onehot) -> loss (0-d float32 on the
+    """Returns train_step(x_float, onehot) -> loss (0-d float64 on the
     device), updating the model's weights in place. `onehot` is padded to
     the model's logit width (10 classes in 12 channels for the LeNet). With
     `group`, x and onehot are this rank's rows of the global batch and the

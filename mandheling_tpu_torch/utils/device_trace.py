@@ -57,6 +57,11 @@ _KERNELS = {
     "max_bf16_resident_kernel": (None, "fused_matmul_max_bf16"),
     "k7_absmax_kernel": (None, "requant_int32_absmax"),
     "k7_requant_kernel": (None, "requant_int32_requant"),
+    "k8_maxpool_kernel": (None, "pool_concat_maxpool"),
+    "k8_maxpool_grad_kernel": (None, "pool_concat_maxpool_grad"),
+    "k8_avgpool_kernel": (None, "pool_concat_avgpool"),
+    "k8_avgpool_grad_kernel": (None, "pool_concat_avgpool_grad"),
+    "k8_concat_kernel": (None, "pool_concat_concat"),
 }
 _SYMBOL = re.compile(r"(?<![A-Za-z_])(" + "|".join(_KERNELS) + r")(<[^>]*>)?")
 # the categories that are launch counters (K1's split-K sum is counted

@@ -1304,3 +1304,151 @@ def test_requant_kernel_replayed_in_a_graph(gen):
         assert all(torch.equal(a, b) for a, b in zip(got, want))
     states = [t for key, t in stream_state._STATE.items() if key[0] == "requant_int32_state"]
     assert len(states) >= 2 and all(t.tolist() == [I32_MIN, 0] for t in states)
+
+
+# K8 (ops/kernels/pool_concat_int8.py): the pools and concats of an
+# Inception-v3 train step at 299, batch 32, and ragged forms.
+K8_MAXPOOLS = [(32, 147, 147, 64), (32, 71, 71, 192), (32, 35, 35, 288), (32, 17, 17, 768)]
+K8_AVGPOOLS = [(32, 35, 35, 192), (32, 35, 35, 256), (32, 35, 35, 288), (32, 17, 17, 768),
+               (32, 8, 8, 1280), (32, 8, 8, 2048)]
+K8_CONCATS = [(35, (64, 64, 96, 32)), (35, (64, 64, 96, 64)), (17, (384, 96, 288)),
+              (17, (192, 192, 192, 192)), (8, (320, 192, 768)), (8, (384, 384)),
+              (8, (320, 768, 768, 192))]
+
+
+def _k8_int8(shape, gen, flavor):
+    """int8 values over the whole range, or from four values (ties in
+    every window), or the rails and zero."""
+    if flavor == "random":
+        return rand_int8(shape, gen)
+    pick = torch.tensor([-2, 0, 1, 5] if flavor == "ties" else [-128, -127, 0, 127],
+                        dtype=torch.int8, device="cuda")
+    return pick[torch.randint(0, 4, shape, generator=gen, device="cuda")]
+
+
+@pytest.mark.parametrize("flavor", ["random", "ties", "extremes"])
+@pytest.mark.parametrize("shape", K8_MAXPOOLS, ids=str)
+def test_k8_maxpool_matches_plain_at_inception_b32(gen, shape, flavor):
+    from mandheling_tpu_torch.ops.kernels import pool_concat_int8 as pc
+
+    x = _k8_int8(shape, gen, flavor)
+    y = pc.maxpool_cuda(x, (3, 3), (2, 2))
+    assert torch.equal(y, pc.maxpool_plain(x, (3, 3), (2, 2)))
+    gy = _k8_int8(tuple(y.shape), gen, flavor)
+    assert torch.equal(pc.maxpool_grad_cuda(x, y, gy, (3, 3), (2, 2)),
+                       pc.maxpool_grad_plain(x, y, gy, (3, 3), (2, 2)))
+    # gy as the concat's backward hands it: a channel slice of a wider tensor
+    wide = _k8_int8(tuple(y.shape[:3]) + (y.shape[3] + 48,), gen, flavor)
+    part = wide[..., 32:32 + y.shape[3]]
+    assert torch.equal(pc.maxpool_grad_cuda(x, y, part, (3, 3), (2, 2)),
+                       pc.maxpool_grad_plain(x, y, part, (3, 3), (2, 2)))
+
+
+@pytest.mark.parametrize("flavor", ["random", "extremes"])
+@pytest.mark.parametrize("shape", K8_AVGPOOLS, ids=str)
+def test_k8_avgpool_matches_plain_at_inception_b32(gen, shape, flavor):
+    from mandheling_tpu_torch.ops.kernels import pool_concat_int8 as pc
+
+    x = _k8_int8(shape, gen, flavor)
+    y = pc.avgpool_cuda(x, (3, 3), (1, 1), 1)
+    assert torch.equal(y, pc.avgpool_plain(x, (3, 3), (1, 1), 1))
+    gy = _k8_int8(tuple(y.shape), gen, flavor)
+    assert torch.equal(pc.avgpool_grad_cuda(gy, shape[1:3], (3, 3), (1, 1), 1),
+                       pc.avgpool_grad_plain(gy, shape[1:3], (3, 3), (1, 1), 1))
+
+
+@pytest.mark.parametrize("shape,window,stride", [
+    ((2, 9, 11, 5), (3, 3), (2, 2)), ((3, 7, 7, 12), (2, 2), (2, 2)),
+    ((2, 8, 8, 20), (3, 3), (1, 1)), ((1, 10, 9, 16), (3, 2), (2, 3)),
+    ((64, 24, 24, 20), (2, 2), (2, 2)), ((2, 13, 13, 1), (3, 3), (2, 2))])
+@pytest.mark.parametrize("flavor", ["random", "ties", "extremes"])
+def test_k8_maxpool_ragged_forms(gen, shape, window, stride, flavor):
+    """Odd sizes, channel runs of 1 and 4, disjoint windows (whose -128
+    passes unclipped) and overlapping ones."""
+    from mandheling_tpu_torch.ops.kernels import pool_concat_int8 as pc
+
+    x = _k8_int8(shape, gen, flavor)
+    y = pc.maxpool_cuda(x, window, stride)
+    assert torch.equal(y, pc.maxpool_plain(x, window, stride))
+    gy = _k8_int8(tuple(y.shape), gen, flavor)
+    assert torch.equal(pc.maxpool_grad_cuda(x, y, gy, window, stride),
+                       pc.maxpool_grad_plain(x, y, gy, window, stride))
+
+
+@pytest.mark.parametrize("shape,window,stride,pad", [
+    ((2, 9, 11, 5), (3, 3), (1, 1), 1), ((1, 7, 7, 12), (2, 2), (2, 2), 0),
+    ((2, 8, 8, 4), (3, 3), (2, 2), 1), ((1, 10, 9, 16), (5, 3), (1, 2), 2),
+    ((2, 3, 3, 48), (3, 3), (1, 1), 1)])
+@pytest.mark.parametrize("flavor", ["random", "extremes"])
+def test_k8_avgpool_ragged_forms(gen, shape, window, stride, pad, flavor):
+    from mandheling_tpu_torch.ops.kernels import pool_concat_int8 as pc
+
+    x = _k8_int8(shape, gen, flavor)
+    y = pc.avgpool_cuda(x, window, stride, pad)
+    assert torch.equal(y, pc.avgpool_plain(x, window, stride, pad))
+    gy = _k8_int8(tuple(y.shape), gen, flavor)
+    assert torch.equal(pc.avgpool_grad_cuda(gy, shape[1:3], window, stride, pad),
+                       pc.avgpool_grad_plain(gy, shape[1:3], window, stride, pad))
+
+
+@pytest.mark.parametrize("exps", ["equal", "unequal", "wide"])
+@pytest.mark.parametrize("side,channels", K8_CONCATS + [(5, (7, 12, 3)), (4, (8, 4)), (3, (16,))],
+                         ids=str)
+def test_k8_concat_matches_plain(gen, side, channels, exps):
+    """Every concat of an Inception-v3 b32 step, and channel runs of 1 and
+    4; the exponents equal, unequal, and 40 apart (a shift past 31)."""
+    from mandheling_tpu_torch.ops.kernels import pool_concat_int8 as pc
+
+    datas = [rand_int8((32, side, side, c), gen) for c in channels]
+    spread = {"equal": 0, "unequal": 6, "wide": 40}[exps]
+    es = [torch.tensor(-3 + (spread * i) % (spread + 1), dtype=torch.int32, device="cuda")
+          for i in range(len(channels))]
+    y, e = pc.concat_cuda(datas, es)
+    y0, e0 = pc.concat_plain(datas, es)
+    assert torch.equal(y, y0) and int(e) == int(e0)
+
+
+def test_k8_nested_concat_and_sliced_branch(gen):
+    """A concat of a concat's output, and a branch that is a channel slice
+    of a wider tensor (rows at its stride)."""
+    from mandheling_tpu_torch.ops.kernels import pool_concat_int8 as pc
+
+    a, b = rand_int8((32, 8, 8, 384), gen), rand_int8((32, 8, 8, 384), gen)
+    wide = rand_int8((32, 8, 8, 512), gen)
+    e = [torch.tensor(v, dtype=torch.int32, device="cuda") for v in (2, -1, 5)]
+    inner, ei = pc.concat_cuda([a, b], e[:2])
+    inner0, ei0 = pc.concat_plain([a, b], e[:2])
+    assert torch.equal(inner, inner0) and int(ei) == int(ei0)
+    got = pc.concat_cuda([wide[..., 16:336], inner], [e[2], ei])
+    assert torch.equal(got[0], pc.concat_plain([wide[..., 16:336], inner0], [e[2], ei0])[0])
+
+
+def test_k8_replayed_in_a_graph(gen):
+    """The five kernels captured in a CUDA graph and replayed after the
+    inputs and the concat's exponents change in place: the bytes the eager
+    calls give on the new values (the exponents are read on the device)."""
+    from mandheling_tpu_torch.ops.kernels import pool_concat_int8 as pc
+
+    x = rand_int8((4, 35, 35, 64), gen)
+    gy = rand_int8((4, 17, 17, 64), gen)
+    exps = [torch.tensor(v, dtype=torch.int32, device="cuda") for v in (0, 3)]
+
+    def calls():
+        y = pc.maxpool_cuda(x, (3, 3), (2, 2))
+        gx = pc.maxpool_grad_cuda(x, y, gy, (3, 3), (2, 2))
+        a = pc.avgpool_cuda(x, (3, 3), (1, 1), 1)
+        ga = pc.avgpool_grad_cuda(a, (35, 35), (3, 3), (1, 1), 1)
+        return (y, gx, a, ga) + pc.concat_cuda([a, x], exps)
+
+    calls()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = calls()
+    x.copy_(rand_int8(tuple(x.shape), gen))
+    gy.copy_(rand_int8(tuple(gy.shape), gen))
+    exps[0].fill_(7)
+    graph.replay()
+    torch.cuda.synchronize()
+    want = calls()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert int(got[5]) == 7

@@ -201,10 +201,12 @@ def test_chip_smoke_launch_table_is_the_routes(monkeypatch):
     MobileNetV2; "mnv2p15": MobileNetV2 with int16 projection outputs; the
     ResNets; the zoo, "squeezenet10" at 10 classes), batches and fused
     modes. K7 (the requant of each accumulator no fused kernel takes)
-    counts its sites: each runs phase 1 once and one phase 2."""
+    counts its sites: each runs phase 1 once and one phase 2. K8 counts
+    each pool, pool backward and concat."""
     from mandheling_tpu_torch.models import lenet_niti
     from mandheling_tpu_torch.ops.kernels import fused_conv_int8, fused_dwconv_int8
-    from mandheling_tpu_torch.ops.kernels import fused_matmul_int8, matmul_int8, requant_int32
+    from mandheling_tpu_torch.ops.kernels import (fused_matmul_int8, matmul_int8, pool_concat_int8,
+                                                  requant_int32)
 
     cs = _load_chip_smoke()
     calls = {}
@@ -215,7 +217,12 @@ def test_chip_smoke_launch_table_is_the_routes(monkeypatch):
                            ("K4r", fused_dwconv_int8, "dwconv_requant"),
                            ("K5", fused_dwconv_int8, "dwconv_fgrad_acc"),
                            ("K7", requant_int32, "absmax"), ("K7r", requant_int32, "requant_forward"),
-                           ("K7g", requant_int32, "requant_grad")]:
+                           ("K7g", requant_int32, "requant_grad"),
+                           ("K8mp", pool_concat_int8, "maxpool"),
+                           ("K8mpb", pool_concat_int8, "maxpool_grad"),
+                           ("K8ap", pool_concat_int8, "avgpool"),
+                           ("K8apb", pool_concat_int8, "avgpool_grad"),
+                           ("K8cat", pool_concat_int8, "concat")]:
         real = getattr(mod, name)
 
         def counted(*a, _fam=fam, _real=real, **k):
